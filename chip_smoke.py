@@ -1,0 +1,652 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``eas_snn_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py [--batch 128] [--forwards 5]
+
+Phases, each of which fails the run (exit code 1, no result line):
+
+1. device: the card's name and power limit;
+2. kernels: builds the CUDA kernels from ``eas_snn_tpu_torch/csrc``, finds
+   every geometry at which the flagship forward (SYOLOX-M, Gen1 256x320,
+   T=3, deploy precision) calls each kernel, and there holds each kernel
+   against its plain PyTorch version on seeded inputs, with the site's own
+   weights. Tolerance: PLIF spikes bit-equal (both round after every f32
+   operation); conv+PLIF spikes equal except where the plain version's
+   membrane lies within 1e-4 of the threshold (the kernel and cuDNN sum
+   the f32 preactivation in different orders). The firing rate must lie in
+   1-99%. Prints the kernel's time (CUDA events), the plain version's, the
+   unfused chain's (cuDNN conv + BN + PLIF kernel) and the bound;
+3. main path: ``get_exp("gen1_syolox_m").deploy().get_model("cuda")`` and
+   ``detect`` on Poisson(0.2) events; frames/s, peak memory, detections,
+   and the launch counts, which must be 35 / 8 / 6 / 1 per forward;
+4. card against CPU: the same model in f32 at B=2 on the card (kernels)
+   and on the CPU (plain versions): the sampler on the same events, the
+   analog stem, every spiking site, and the analog neck and head each on
+   the input the card gave it, then the free-running forward's per-stage
+   agreement and firing rates beside two chaos witnesses (the CPU
+   against itself with the sampler's output, or every conv weight, moved
+   up by one ulp);
+5. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+   ``{"ok": true, "device": {...}}``.
+
+Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM, 989 TFLOP/s
+bf16 on the tensor cores, 67 TFLOP/s f32 outside them. TF32 is off for
+every plain version and comparison (cuDNN would run f32 convs in TF32).
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import subprocess
+import sys
+import time
+from collections import OrderedDict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.autograd import DeviceType
+
+from eas_snn_tpu_torch.exp import detect, get_exp
+from eas_snn_tpu_torch.models.blocks import BaseConv
+from eas_snn_tpu_torch.ops import KERNEL_WRAPPERS, launch_counts, reset_launches
+from eas_snn_tpu_torch.ops import _build
+from eas_snn_tpu_torch.ops import conv_plif as cp
+from eas_snn_tpu_torch.ops.plif import (decay_multiplier, plif_forward,
+                                        plif_forward_plain)
+
+HBM_BYTES_PER_S = 3.35e12
+BF16_TC_FLOPS = 989e12
+F32_FLOPS = 67e12
+PLIF_OPS = 6          # f32 operations per element per step
+BN_OPS = 3            # the eval BN folded into the PLIF kernel
+SPIKE_TOL = 1e-4      # conv sites: flips allowed only this near threshold
+SITE_TOL = 1e-4       # card vs CPU: share of a site's spikes that may flip
+ANALOG_TOL = 1e-5     # card vs CPU: |card - cpu| / (1 + |cpu|), f32 analog
+PER_FORWARD = {"plif_fwd": 35, "conv1x1_plif": 8, "conv3x3_plif": 6,
+               "conv3x3s2_plif": 1}
+KERNEL_INFO = {
+    "plif_fwd": ("eas_snn_tpu_torch/csrc/plif.cu",
+                 "eas_snn_tpu/ops/plif_pallas.py:302"),
+    "conv1x1_plif": ("eas_snn_tpu_torch/csrc/conv_plif.cu",
+                     "eas_snn_tpu/ops/conv_plif_pallas.py:155"),
+    "conv3x3_plif": ("eas_snn_tpu_torch/csrc/conv_plif.cu",
+                     "eas_snn_tpu/ops/conv_plif_pallas.py:359"),
+    "conv3x3s2_plif": ("eas_snn_tpu_torch/csrc/conv_plif.cu",
+                       "eas_snn_tpu/ops/conv_plif_pallas.py:581"),
+}
+FAILURES = []
+DEV = "cuda"
+SEED = 0
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    FAILURES.append(msg)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of fn() in ms over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, tc_flops: float, f32_ops: float):
+    """(bound in ms, 'bytes' or 'operations') for one call."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = tc_flops / BF16_TC_FLOPS + f32_ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def min_margin(pre: torch.Tensor, T: int, a: torch.Tensor, thresh: float
+               ) -> torch.Tensor:
+    """Smallest |v_t - thresh| over t of the PLIF recurrence on a (T*B, ...)
+    f32 preactivation (atan: spike at >= 0), repeated over T."""
+    xs = pre.reshape((T, -1) + tuple(pre.shape[1:]))
+    v = torch.zeros_like(xs[0])
+    m = torch.full_like(xs[0], float("inf"))
+    for t in range(T):
+        v = v * a + xs[t]
+        d = v - thresh
+        m = torch.minimum(m, d.abs())
+        v = v - thresh * (d >= 0).float()
+    return m.repeat((T,) + (1,) * (m.dim() - 1))
+
+
+@torch.no_grad()
+def calibrate_spiking_bn(model, events: torch.Tensor) -> None:
+    """Give a randomly initialised detector the BN statistics training
+    would track: each spiking site's running mean and variance become the
+    per-channel moments of its conv output on ``events`` (in forward
+    order), with scale 1 and bias 0. Each site's preactivation is then
+    about N(0, 1) per channel, so every stage fires (about 20%) whichever
+    draw the weights came from; at the JAX init (identity BN) dark3-dark5
+    of the flagship barely fire on Poisson(0.2) events."""
+
+    def hook(mod, args) -> None:
+        x = args[0]
+        x = torch.cat([p.float() for p in x], 1) \
+            if isinstance(x, (tuple, list)) else x.float()
+        y = F.conv2d(x, mod.weight.float(), stride=mod.stride,
+                     padding=(mod.ksize - 1) // 2)
+        mod.bn.running_mean.copy_(y.mean((0, 2, 3)))
+        mod.bn.running_var.copy_(y.var((0, 2, 3), unbiased=False))
+        mod.bn.weight.fill_(1.0)
+        mod.bn.bias.fill_(0.0)
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, BaseConv) and m.neuron.spiking]
+    model(events)
+    for h in handles:
+        h.remove()
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+        check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------- phase 2
+
+def site_geometries(model, events):
+    """Run one forward with pre-hooks on every spiking BaseConv and return
+    {key: [count, module, pieces' shapes, input dtype, kernel]}, where the
+    kernel is the one the site launches (the PLIF kernel for an unfused
+    site, whose input is then the conv+BN output)."""
+    sites = OrderedDict()
+
+    def hook(mod, args):
+        x = args[0]
+        pieces = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+        shapes = tuple(tuple(p.shape) for p in pieces)
+        if mod.fused(pieces):
+            name = ("conv1x1_plif" if mod.ksize == 1 else
+                    "conv3x3_plif" if mod.stride == 1 else "conv3x3s2_plif")
+            dtype = pieces[0].dtype
+        else:
+            name = "plif_fwd"
+            TB, _, H, W = shapes[0]
+            ho, wo = (H - 1) // mod.stride + 1, (W - 1) // mod.stride + 1
+            shapes = ((TB, mod.weight.shape[0], ho, wo),)
+            dtype = mod.dtype
+        key = (name, shapes, str(dtype), mod.weight.shape[0])
+        if key not in sites:
+            sites[key] = [0, mod, shapes, dtype, name]
+        sites[key][0] += 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, BaseConv) and m.neuron.spiking]
+    feats = {}
+    handles.append(model.backbone.backbone.register_forward_hook(
+        lambda m, i, o: feats.update(o)))
+    detect(model, events)
+    for h in handles:
+        h.remove()
+    rates = {k: float(v.float().mean()) for k, v in feats.items()}
+    print("  main path firing rates: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in rates.items()))
+    for k, v in rates.items():
+        if not 0.01 <= v <= 0.99:
+            fail(f"main path {k} fires at {v:.4f}, outside 1-99%")
+    return sites
+
+
+def _site_inputs(shapes, dtype, gen):
+    """Seeded inputs: Bernoulli(0.25) spikes for int8, N(0, 1) otherwise."""
+    xs = []
+    for shp in shapes:
+        if dtype == torch.int8:
+            x = (torch.rand(shp, device=DEV, generator=gen) < 0.25)
+            xs.append(x.to(torch.int8))
+        else:
+            xs.append(torch.randn(shp, device=DEV, generator=gen).to(dtype))
+    return xs
+
+
+def check_plif_site(mod, shapes, dtype, gen):
+    """The PLIF kernel with the site's BN folded in, on conv outputs drawn
+    so that the BN output is about N(0.6, 1)."""
+    T, th, kind = mod.neuron.T, mod.neuron.thresh, mod.act.kind
+    bn = mod.bn.eval_terms()
+    mean, mul, bias = (p.reshape(1, -1, 1, 1) for p in bn)
+    z = torch.randn(shapes[0], device=DEV, generator=gen) + 0.6
+    x = ((z - bias) / mul + mean).to(dtype)
+    w = mod.act.w
+    got = plif_forward(x, T, w, th, kind, bn=bn)
+    want = plif_forward_plain(x, T, w, th, kind, bn=bn)
+    torch.cuda.synchronize()
+    mism = int((got != want).sum())
+    res = dict(mismatch=mism, allowed=0, rate=float(want.float().mean()),
+               max_abs_err=float((got.float() - want.float()).abs().max()))
+    if mism:
+        fail(f"plif_fwd at {shapes[0]}: {mism} spikes differ (bit-equal "
+             "expected)")
+    res["ms"] = cuda_ms(lambda: plif_forward(x, T, w, th, kind, bn=bn), 20)
+    res["plain_ms"] = cuda_ms(
+        lambda: plif_forward_plain(x, T, w, th, kind, bn=bn), 3, warmup=1)
+    n = x.numel()
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        n * (x.element_size() + 1) + 12 * x.shape[1] + 4, 0.0,
+        (PLIF_OPS + BN_OPS) * n)
+    res["chain_ms"] = None
+    return res
+
+
+def check_conv_site(name, mod, shapes, dtype, gen):
+    T, th, kind = mod.neuron.T, mod.neuron.thresh, mod.act.kind
+    xs = _site_inputs(shapes, dtype, gen)
+    mul, bias_f = mod.bn.fold()
+    w_plif = mod.act.w
+    a = decay_multiplier(w_plif)
+    if name == "conv1x1_plif":
+        wf = cp.fold_conv1x1(mod.weight, mul)
+        run = lambda: cp.conv1x1_plif(xs, wf, bias_f, T, w_plif, th, kind)
+        pre = cp.conv1x1_preact_plain(xs, wf, bias_f)
+        plain = lambda: cp.conv1x1_plif_plain(xs, wf, bias_f, T, w_plif, th,
+                                              kind)
+    else:
+        wf = cp.fold_conv3x3(mod.weight, mul)
+        op = cp.conv3x3_plif if name == "conv3x3_plif" else cp.conv3x3s2_plif
+        run = lambda: op(xs[0], wf, bias_f, T, w_plif, th, kind)
+        pre = cp.conv3x3_preact_plain(xs[0], wf, bias_f, mod.stride)
+        plain = lambda: cp.conv3x3_plif_plain(xs[0], wf, bias_f, T, w_plif,
+                                              mod.stride, th, kind)
+    got = run()
+    want = plif_forward_plain(pre, T, w_plif, th, kind)
+    margin = min_margin(pre, T, a, th)
+    torch.cuda.synchronize()
+    diff = got != want
+    mism = int(diff.sum())
+    bad = int((diff & (margin >= SPIKE_TOL)).sum())
+    res = dict(mismatch=mism, allowed=mism - bad,
+               rate=float(want.float().mean()),
+               max_abs_err=float((got.float() - want.float()).abs().max()))
+    if bad:
+        fail(f"{name} at {shapes}: {bad} spikes differ away from the "
+             "threshold")
+    del pre, margin, want, got
+    res["ms"] = cuda_ms(run, 10)
+    res["plain_ms"] = cuda_ms(plain, 3, warmup=1)
+    # the unfused chain this site would otherwise run: cuDNN conv in the
+    # compute dtype, BN, then the PLIF kernel
+    neuron = mod.neuron
+    mod.neuron = neuron._replace(fuse="never")
+    arg = tuple(xs) if len(xs) > 1 else xs[0]
+    res["chain_ms"] = cuda_ms(lambda: mod(arg), 10)
+    mod.neuron = neuron
+    TB, _, H, W = shapes[0]
+    cin = sum(s[1] for s in shapes)
+    cout = mod.weight.shape[0]
+    ho, wo = (H - 1) // mod.stride + 1, (W - 1) // mod.stride + 1
+    n_out = TB * cout * ho * wo
+    k = mod.ksize
+    nbytes = (sum(x.numel() * x.element_size() for x in xs)
+              + wf.numel() * 2 + cout * 4 + 4 + n_out)
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        nbytes, 2.0 * n_out * cin * k * k, PLIF_OPS * n_out)
+    return res
+
+
+def phase_kernels(model, events, seed):
+    sites = site_geometries(model, events)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    per_kernel = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                          ops_ms=0.0, max_abs_err=0.0, sites=0)
+                  for n in KERNEL_WRAPPERS}
+    print("phase 2: kernel vs plain at every flagship site geometry "
+          "(times in ms per call)")
+    print(f"  {'kernel':15s} {'x':>3s} {'input':34s} {'dtype':9s} "
+          f"{'rate':>6s} {'mism':>5s} {'ms':>8s} {'plain':>8s} "
+          f"{'chain':>8s} {'bound':>8s} by")
+    for (name, *_), (count, mod, shapes, dtype, _) in sites.items():
+        if name == "plif_fwd":
+            r = check_plif_site(mod, shapes, dtype, gen)
+        else:
+            r = check_conv_site(name, mod, shapes, dtype, gen)
+        if not 0.01 <= r["rate"] <= 0.99:
+            fail(f"{name} at {shapes}: firing rate {r['rate']:.4f} outside "
+                 "1-99%")
+        chain = "-" if r["chain_ms"] is None else f"{r['chain_ms']:8.4f}"
+        shp = "+".join("x".join(map(str, s)) for s in shapes)
+        print(f"  {name:15s} {count:3d} {shp:34s} {str(dtype)[6:]:9s} "
+              f"{r['rate']:6.3f} {r['mismatch']:5d} {r['ms']:8.4f} "
+              f"{r['plain_ms']:8.4f} {chain:>8s} {r['bound_ms']:8.4f} "
+              f"{r['bound_by']}", flush=True)
+        if r["allowed"]:
+            print(f"    {r['allowed']} spikes differ within {SPIKE_TOL} of "
+                  "the threshold (allowed)")
+        agg = per_kernel[name]
+        agg["sites"] += count
+        agg["max_abs_err"] = max(agg["max_abs_err"], r["max_abs_err"])
+        for key in ("ms", "plain_ms", "bound_ms"):
+            agg[key] += count * r[key]
+        agg["bytes_ms" if r["bound_by"] == "bytes" else "ops_ms"] += (
+            count * r["bound_ms"])
+    for name, agg in per_kernel.items():
+        if agg["sites"] != PER_FORWARD[name]:
+            fail(f"{name}: {agg['sites']} sites found in the flagship "
+                 f"forward, expected {PER_FORWARD[name]}")
+    return per_kernel
+
+
+# ---------------------------------------------------------------- phase 3
+
+def phase_main_path(exp, model, batches):
+    print(f"phase 3: main path, {len(batches)} forwards at B="
+          f"{batches[0].shape[0]} (detect: forward, filter, NMS)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    dets = []
+    for ev in batches:
+        dets += exp.detect(model, ev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    frames = sum(int(b.shape[0]) for b in batches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_det = [0 if d is None else len(d) for d in dets]
+    print(f"  frames/s {frames / dt:.2f} (host clock, {frames} frames in "
+          f"{dt:.4f} s), peak memory {peak:.3f} GiB")
+    print(f"  detections per image: mean {np.mean(n_det):.2f}, max "
+          f"{max(n_det)}; launches {counts}")
+    for d in dets:
+        if d is not None and not np.isfinite(d).all():
+            fail("non-finite detections")
+            break
+    want = {k: v * len(batches) for k, v in PER_FORWARD.items()}
+    if counts != want:
+        fail(f"launch counts {counts}, expected {want}")
+    layer_times(model, batches[0])
+    profile_forward(model, batches[0])
+    return counts
+
+
+def layer_times(model, events) -> None:
+    """Device ms of each layer of one forward, from CUDA events recorded
+    by hooks around the sampler, the backbone, the whole PAFPN and the
+    head (the neck is the PAFPN minus its backbone)."""
+    mods = {"sampler": model.embedding, "backbone": model.backbone.backbone,
+            "pafpn": model.backbone, "head": model.head}
+    ev, handles = {}, []
+    for name, mod in mods.items():
+        ev[name] = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        handles.append(mod.register_forward_pre_hook(
+            lambda m, i, e=ev[name]: e[0].record()))
+        handles.append(mod.register_forward_hook(
+            lambda m, i, o, e=ev[name]: e[1].record()))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    model(events)
+    end.record()
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    ms = {k: e[0].elapsed_time(e[1]) for k, e in ev.items()}
+    ms["neck"] = ms.pop("pafpn") - ms["backbone"]
+    print(f"  layers of one forward (device ms, CUDA events): total "
+          f"{start.elapsed_time(end):.3f}; " + ", ".join(
+              f"{k} {ms[k]:.3f}" for k in ("sampler", "backbone", "neck",
+                                           "head")))
+
+
+def profile_forward(model, events, top: int = 14):
+    """One forward under torch.profiler: device time by kernel, and the
+    device's busy share of the forward's host-clock window."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model(events)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue  # operator rows would count their kernels again
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        print("  profile: no device time recorded (not measured)")
+        return
+    print(f"  profile of one forward: device busy {busy:.3f} ms of "
+          f"{wall_ms:.3f} ms host-clock window (idle share "
+          f"{1 - busy / wall_ms:.3f}, profiler on); top kernels:")
+    for ms, n, key in rows[:top]:
+        print(f"    {ms:9.3f} ms {n:5d}x  {key[:90]}")
+
+
+def _ulp_up(x: torch.Tensor) -> torch.Tensor:
+    """Every nonzero value of x moved up by one ulp."""
+    return torch.where(x != 0, torch.nextafter(
+        x, torch.full_like(x, float("inf"))), x)
+
+
+def _rel_err(card: torch.Tensor, cpu: torch.Tensor) -> torch.Tensor:
+    return (card.float() - cpu.float()).abs() / (1 + cpu.float().abs())
+
+
+def _check_analog(what: str, card: torch.Tensor, cpu: torch.Tensor) -> None:
+    rel = _rel_err(card, cpu)
+    n_bad = int((rel > ANALOG_TOL).sum())
+    print(f"  {what}: max |card - cpu| / (1 + |cpu|) {float(rel.max()):.3e}, "
+          f"{n_bad} of {rel.numel()} beyond {ANALOG_TOL:.0e}")
+    if n_bad or card.shape != cpu.shape or not torch.isfinite(card).all():
+        fail(f"phase 4: {what} disagrees between card and CPU")
+
+
+@torch.no_grad()
+def phase_card_vs_cpu(seed, events):
+    """The flagship in f32 at B=2, card (kernels, cuDNN) vs CPU (plain
+    versions, oneDNN), with identical weights.
+
+    A deep spiking network is chaotic: one spike that flips because two
+    f32 sums were taken in different orders changes its neighbours'
+    membranes by a weight, and the flips cascade. So the elementwise check
+    is made stage by stage, each stage on the CPU from the very input the
+    card gave it:
+
+    * the sampler (plain PyTorch on both sides) on the same events, and the
+      analog stem on the card's sampler output: every value within
+      ANALOG_TOL relative (f32 sums in another order);
+    * every spiking site: it may differ from the card's spikes in at most
+      SITE_TOL of its outputs (threshold ties; a wrong kernel differs at
+      the firing rate, ~20%);
+    * the analog neck and head on the card's backbone features: the
+      decoded output within 1e-3 relative (the box decode's exp amplifies
+      the sums' rounding).
+
+    The free-running forward is reported with its elementwise agreement
+    beside two chaos witnesses, the CPU against itself with every nonzero
+    value of the sampler's output, or of every conv weight, moved up by
+    one ulp; its per-stage firing rates must agree to 0.01."""
+    print("phase 4: card vs CPU, gen1_syolox_m in f32 at B=2")
+    exp = get_exp("gen1_syolox_m")
+    exp.compute_dtype = "float32"
+    cpu_model = exp.get_model(device="cpu", seed=seed)
+    calibrate_spiking_bn(cpu_model, events)
+    gpu_model = exp.get_model(device=DEV, seed=seed)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+
+    sites, feats, seen = OrderedDict(), {}, {}
+
+    def keep(name):
+        def hook(mod, args, out):
+            x = args[0]
+            xs = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+            sites[name] = (tuple(p.cpu() for p in xs), out.cpu())
+        return hook
+
+    bb = gpu_model.backbone.backbone
+    handles = [m.register_forward_hook(keep(n))
+               for n, m in gpu_model.named_modules()
+               if isinstance(m, BaseConv) and m.neuron.spiking]
+    handles.append(bb.register_forward_hook(
+        lambda m, i, o: feats.update({k: v.cpu() for k, v in o.items()})))
+    handles.append(gpu_model.embedding.register_forward_hook(
+        lambda m, i, o: seen.update(embedding=o.cpu())))
+    handles.append(bb.stem.register_forward_hook(
+        lambda m, i, o: seen.update(stem_in=i[0].cpu(), stem=o.cpu())))
+    gpu = gpu_model(events.to(DEV)).float().cpu()
+    for h in handles:
+        h.remove()
+
+    # the sampler on the same events, the stem on the card's sampler output
+    _check_analog("sampler output", seen["embedding"],
+                  cpu_model.embedding(events))
+    _check_analog("stem output", seen["stem"],
+                  cpu_model.backbone.backbone.stem(seen["stem_in"]))
+
+    # site by site, on the card's inputs
+    cpu_mods = dict(cpu_model.named_modules())
+    worst, n_diff, n_all = 0.0, 0, 0
+    for name, (xs, y_card) in sites.items():
+        y = cpu_mods[name](xs if len(xs) > 1 else xs[0])
+        d = int((y != y_card).sum())
+        worst = max(worst, d / y.numel())
+        n_diff, n_all = n_diff + d, n_all + y.numel()
+    print(f"  {len(sites)} spiking sites on the card's inputs: {n_diff} of "
+          f"{n_all} spikes differ, worst site {worst:.2e} (tolerance "
+          f"{SITE_TOL:.0e})")
+    if len(sites) != sum(PER_FORWARD.values()) or worst > SITE_TOL:
+        fail("phase 4: spiking sites disagree between card and CPU")
+
+    # free-running on the CPU, then twice more as chaos witnesses: with
+    # the sampler's output one ulp up, and with every conv weight one ulp
+    # up (a perturbation at every layer, as the card's summation order is)
+    def run_free(model, nudge_sampler=False):
+        got = {}
+        hooks = [model.backbone.backbone.register_forward_hook(
+            lambda m, i, o: got.update(o))]
+        if nudge_sampler:
+            hooks.append(model.embedding.register_forward_hook(
+                lambda m, i, o: _ulp_up(o)))
+        out = model(events).float()
+        for h in hooks:
+            h.remove()
+        return got, out
+
+    free, cpu = run_free(cpu_model)
+    nudged_in, _ = run_free(cpu_model, nudge_sampler=True)
+    nudged_model = copy.deepcopy(cpu_model)
+    for m in nudged_model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.weight.copy_(_ulp_up(m.weight))
+    nudged_w, _ = run_free(nudged_model)
+    del nudged_model
+
+    # the analog tail on the card's features
+    cpu_model.backbone.backbone.forward = lambda x: feats
+    tail = cpu_model(events).float()
+    rel = float(_rel_err(gpu, tail).max())
+    print(f"  neck + head on the card's features: max |card - cpu| / "
+          f"(1 + |cpu|) {rel:.3e} (tolerance 1e-3)")
+    if not torch.isfinite(gpu).all() or rel > 1e-3:
+        fail("phase 4: decoded outputs disagree on the same features")
+
+    def agree(x, y):
+        return float((x == y).float().mean())
+
+    for stage in ("dark3", "dark4", "dark5"):
+        a, b = feats[stage], free[stage]
+        ra, rb = float(a.float().mean()), float(b.float().mean())
+        print(f"  free-running {stage}: spike agreement card vs cpu "
+              f"{agree(a, b):.4f}; cpu vs cpu with the sampler output one "
+              f"ulp up {agree(nudged_in[stage], b):.4f}, with every conv "
+              f"weight one ulp up {agree(nudged_w[stage], b):.4f}; rate "
+              f"card {ra:.4f} cpu {rb:.4f} (tolerance 0.01)")
+        if abs(ra - rb) > 0.01 or not 0.01 <= rb <= 0.99:
+            fail(f"phase 4: free-running {stage} firing rates disagree")
+    print(f"  free-running decoded: max |card - cpu| "
+          f"{float((gpu - cpu).abs().max()):.3e}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--forwards", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    print(f"phase 1: device {name}; nvidia-smi: {smi}; torch "
+          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"built {len(_build.SOURCES)} kernel libraries in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    exp = get_exp("gen1_syolox_m").deploy()
+    model = exp.get_model(device=DEV, seed=SEED)
+    H, W = exp.test_size
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    shape = (args.batch, exp.Tl, exp.Tm, H, W, exp.in_dim)
+    batches = [torch.poisson(torch.full(shape, 0.2, device=DEV),
+                             generator=gen) for _ in range(args.forwards)]
+    # random weights: BN statistics as training would track them, so that
+    # every stage fires
+    calibrate_spiking_bn(model, batches[0][:8])
+
+    per_kernel = phase_kernels(model, batches[0], SEED)
+    counts = phase_main_path(exp, model, batches)
+    del batches
+    torch.cuda.empty_cache()
+    small = torch.poisson(torch.full((2, exp.Tl, exp.Tm, H, W, exp.in_dim),
+                                     0.2), generator=torch.Generator()
+                          .manual_seed(SEED))
+    phase_card_vs_cpu(SEED, small)
+
+    kernels = []
+    for kname, agg in per_kernel.items():
+        source, replaces = KERNEL_INFO[kname]
+        kernels.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=counts[kname], max_abs_err=agg["max_abs_err"],
+            ms=agg["ms"], plain_ms=agg["plain_ms"], bound_ms=agg["bound_ms"],
+            bound_by=("bytes" if agg["bytes_ms"] >= agg["ops_ms"]
+                      else "operations"),
+            library_ms=None))
+    print("kernel times are per forward: the sum over the kernel's sites of "
+          "the per-call times above; no single PyTorch call computes a "
+          "fused site or the PLIF recurrence, so library_ms is null")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

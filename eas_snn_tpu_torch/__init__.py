@@ -1,0 +1,18 @@
+"""PyTorch/CUDA port of ``eas_snn_tpu`` for one NVIDIA H100.
+
+The eval forward of the spiking YOLOX detectors (ARSNN sampler, spiking
+CSPDarknet, analog PAFPN and YOLOX head, decode and NMS) in plain PyTorch,
+with the PLIF and conv+BN+PLIF sites of the backbone running hand-written
+CUDA kernels (``csrc/``). Tensors inside are NCHW with the T time steps
+folded into the batch axis, t-major: (T*B, C, H, W). Events go in as
+(B, Tl, Tm, H, W, C) and decoded (B, A, 5 + classes) comes out, as in the
+JAX package.
+
+Entry points run on the card (``device="cuda"``) unless the caller asks
+for ``"cpu"``; on CPU tensors every kernel wrapper runs its plain PyTorch
+version instead.
+"""
+
+from .exp import EventExp, detect, get_exp
+
+__all__ = ["EventExp", "detect", "get_exp"]

@@ -1,0 +1,159 @@
+"""The event-detection experiment config, model fields only (counterpart of
+``eas_snn_tpu/exp/event_exp.py:EventExp``), with the presets the port
+serves and its eval front door.
+
+``get_exp(name)`` gives a preset, ``exp.deploy()`` switches it to the
+deployment precision (the counterpart of the JAX ``tpu_deploy()`` without
+its space-to-depth sampler packing, a TPU layout trick), ``exp.get_model()``
+builds the seeded model on the card and ``exp.detect(model, events)`` runs
+the forward, then the confidence filter and NMS.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..models import EASYOLOX
+from ..ops.boxes import postprocess
+
+__all__ = ["EventExp", "get_exp", "detect", "resolve_device"]
+
+# reference use_spike strings -> internal mode names
+_USE_SPIKE_MAP = {
+    False: "none", "False": "none", True: "backbone", "True": "backbone",
+    "full_spike": "full", "full_spike_v2": "full_v2",
+    "none": "none", "backbone": "backbone", "full": "full",
+    "full_v2": "full_v2",
+}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "plain PyTorch versions on the CPU")
+    return dev
+
+
+class EventExp:
+    """Model and test fields of the JAX EventExp, with its defaults."""
+
+    def __init__(self):
+        self.num_classes = 100
+        self.depth = 1.00
+        self.width = 1.00
+        self.act = "silu"
+        self.use_spike = "False"
+        self.in_dim = 2
+        self.embedding = "count"
+        self.embedding_depth = 1
+        self.embedding_ksize = 7
+        self.spike_attach = False
+        self.write_zero = False
+        self.abs = False
+        self.Tl = 1
+        self.Tm = 4
+        self.Ts = 1
+        self.T = 4
+        self.reset = 0
+        self.thresh = 1
+        self.readout = "sum"
+        self.spike_fn = "rect"
+        # conv/BN compute dtype and ARSNN state dtype (None: f32)
+        self.compute_dtype = "float32"
+        self.embedding_state_dtype = None
+        # conv+BN+PLIF site policy mode (ops/conv_plif_policy.py)
+        self.conv_plif_fuse = "auto"
+        self.test_size = (640, 640)
+        self.test_conf = 0.01
+        self.nmsthre = 0.65
+
+    def deploy(self) -> "EventExp":
+        """bf16 conv/BN compute and bf16 sampler state: the deployment
+        precision of the JAX ``tpu_deploy()``. int8 spike storage and the
+        site policy are the eval defaults already."""
+        self.compute_dtype = "bfloat16"
+        self.embedding_state_dtype = "bfloat16"
+        return self
+
+    @property
+    def use_spike_mode(self) -> str:
+        return _USE_SPIKE_MAP[self.use_spike]
+
+    def get_model(self, device="cuda", seed: int = 0) -> EASYOLOX:
+        """The detector in eval mode on ``device``, its weights drawn from
+        a ``torch.Generator`` seeded with ``seed``."""
+        dev = resolve_device(device)
+        if self.embedding != "arsnn":
+            raise NotImplementedError(
+                f"embedding '{self.embedding}' is not ported yet (ROADMAP.md, "
+                "modules to port: 'Remaining model surface')")
+        state_dt = self.embedding_state_dtype
+        model = EASYOLOX(
+            num_classes=self.num_classes, depth=self.depth, width=self.width,
+            act=self.act, use_spike=self.use_spike_mode, T=self.T,
+            spike_fn=self.spike_fn, embedding_ksize=self.embedding_ksize,
+            embedding_depth=self.embedding_depth, Ts=self.Ts,
+            readout=self.readout, spike_attach=self.spike_attach,
+            write_zero=self.write_zero, use_abs=self.abs,
+            thresh=float(self.thresh),
+            vreset=None if self.reset is None else float(self.reset),
+            compute_dtype=_DTYPES[self.compute_dtype],
+            embedding_state_dtype=None if state_dt is None else _DTYPES[state_dt],
+            fuse=self.conv_plif_fuse,
+        )
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        return model.to(dev).eval()
+
+    def detect(self, model: EASYOLOX, events: torch.Tensor
+               ) -> List[Optional[np.ndarray]]:
+        return detect(model, events, self.test_conf, self.nmsthre)
+
+
+def detect(model: EASYOLOX, events: torch.Tensor, conf_thre: float = 0.01,
+           nms_thre: float = 0.65) -> List[Optional[np.ndarray]]:
+    """Forward, then per image the confidence filter and class-aware NMS:
+    a (n, 7) [x1, y1, x2, y2, obj, cls_conf, cls] array, or None."""
+    preds = model(events)
+    return postprocess(preds.float().cpu().numpy(), model.head.num_classes,
+                       conf_thre, nms_thre)
+
+
+def _gen1_syolox(exp: EventExp, depth: float, width: float) -> EventExp:
+    """The reference README's published Gen1 recipe (readme.md:124-146):
+    arsnn sampler depth 2 ksize 5, spiking backbone, analog FPN/head,
+    Tl=1 Tm=4 Ts=T=3, write_zero, atan, soft reset."""
+    exp.depth, exp.width = depth, width
+    exp.num_classes = 2
+    exp.test_size = (256, 320)
+    exp.use_spike = "True"
+    exp.embedding = "arsnn"
+    exp.embedding_depth = 2
+    exp.embedding_ksize = 5
+    exp.readout = "sum"
+    exp.write_zero = True
+    exp.thresh = 1
+    exp.reset = None
+    exp.spike_fn = "atan"
+    exp.Tl, exp.Tm, exp.Ts, exp.T = 1, 4, 3, 3
+    exp.compute_dtype = "bfloat16"
+    return exp
+
+
+_PRESETS = {
+    # the flagship: exps/default/gen1_syolox_m.py
+    "gen1_syolox_m": lambda: _gen1_syolox(EventExp(), 0.67, 0.75),
+    # exps/default/gen1_syolox_s.py
+    "gen1_syolox_s": lambda: _gen1_syolox(EventExp(), 0.33, 0.50),
+}
+
+
+def get_exp(name: str) -> EventExp:
+    if name not in _PRESETS:
+        raise KeyError(f"unknown exp '{name}'; the port has {sorted(_PRESETS)}")
+    return _PRESETS[name]()

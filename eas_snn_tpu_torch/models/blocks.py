@@ -1,0 +1,258 @@
+"""YOLOX building blocks with spiking sites (counterpart of
+``eas_snn_tpu/models/blocks.py``), NCHW, eval only.
+
+Spiking or analog is a constructor flag. A spiking block sees (T*B, C, H,
+W) tensors, t-major, and its activation is a PLIF neuron over T steps with
+int8 spikes out. Parameter names follow the reference PyTorch model after
+spikingjelly's conversion: a spiking ``BaseConv`` holds its conv as
+``conv.0`` (the SeqToANNContainer) and its neuron's decay logit as
+``act.w``; an analog one holds ``conv`` directly.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.conv_plif import (
+    conv1x1_plif, conv3x3_plif, conv3x3s2_plif, fold_bn, fold_conv1x1,
+    fold_conv3x3,
+)
+from ..ops.conv_plif_policy import should_fuse
+from ..ops.lif import PLIF_W_INIT
+from ..ops.plif import bn_eval, plif_forward
+
+__all__ = [
+    "Neuron", "BatchNorm", "PLIF", "BaseConv", "Bottleneck", "SPPBottleneck",
+    "CSPLayer", "Focus", "spp_pools", "upsample2x",
+]
+
+Pieces = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+
+class Neuron(NamedTuple):
+    """How a block's activations behave. ``fuse`` is the conv+BN+PLIF
+    policy mode (ops/conv_plif_policy.py) for its spiking sites."""
+
+    spiking: bool = False
+    T: int = 1
+    spike_fn: str = "atan"
+    thresh: float = 1.0
+    fuse: str = "auto"
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """Eval BatchNorm with the JAX package's arithmetic: mul =
+    rsqrt(var + eps) * scale, y = (x - mean) * mul + bias in f32, cast to
+    the compute dtype. eps 1e-3, momentum 0.03 (the reference's init_yolo);
+    the buffers keep torch's names, so checkpoints load by key."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-3, momentum=0.03)
+
+    def eval_terms(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(mean, mul, bias) of y = (x - mean) * mul + bias."""
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return self.running_mean, mul, self.bias
+
+    def forward(self, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+        return bn_eval(x, *self.eval_terms(), out_dtype)
+
+    def fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mul, bias_f) such that this BN is x * mul + bias_f."""
+        return fold_bn(self.weight, self.bias, self.running_mean,
+                       self.running_var, self.eps)
+
+
+class PLIF(nn.Module):
+    """Parametric LIF over T steps folded in the batch axis; one learnable
+    scalar decay logit ``w`` (spikingjelly ParametricLIFNode)."""
+
+    def __init__(self, T: int, spike_fn: str = "atan", thresh: float = 1.0):
+        super().__init__()
+        self.T, self.thresh = T, thresh
+        # patan (ASGL) at eval is atan's hard forward
+        self.kind = "atan" if spike_fn == "patan" else spike_fn
+        self.w = nn.Parameter(torch.tensor(PLIF_W_INIT))
+
+    def forward(self, x: torch.Tensor, bn=None) -> torch.Tensor:
+        """Spikes of x, or of ``bn_eval(x, *bn, x.dtype)`` with ``bn``."""
+        return plif_forward(x, self.T, self.w, self.thresh, self.kind, bn=bn)
+
+
+_ACTS = {"silu": nn.SiLU, "relu": nn.ReLU,
+         "lrelu": lambda: nn.LeakyReLU(0.1), "idnt": nn.Identity}
+
+
+def _analog_act(name: str) -> nn.Module:
+    if name not in _ACTS:
+        raise AttributeError(f"Unsupported act type: {name}")
+    return _ACTS[name]()
+
+
+class BaseConv(nn.Module):
+    """Conv -> BN -> activation (reference network_blocks.py:31-56).
+
+    A spiking 1x1 or 3x3 site that the policy picks runs as one whole-site
+    conv+BN+PLIF kernel on BN-folded weights; every other site runs conv
+    (in the compute dtype) -> BN -> activation, where a spiking site's BN
+    runs inside the PLIF kernel. The input may be a tuple of tensors: a
+    channel concat, materialized only on the unfused path.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, ksize: int,
+                 stride: int = 1, act: str = "silu",
+                 neuron: Neuron = Neuron(), dtype=torch.float32):
+        super().__init__()
+        self.ksize, self.stride, self.neuron, self.dtype = (
+            ksize, stride, neuron, dtype)
+        conv = nn.Conv2d(in_channels, out_channels, ksize, stride,
+                         padding=(ksize - 1) // 2, bias=False)
+        self.conv = nn.Sequential(conv) if neuron.spiking else conv
+        self.bn = BatchNorm(out_channels)
+        self.act = (PLIF(neuron.T, neuron.spike_fn, neuron.thresh)
+                    if neuron.spiking else _analog_act(act))
+
+    @property
+    def weight(self) -> torch.Tensor:
+        return self.conv[0].weight if self.neuron.spiking else self.conv.weight
+
+    def fused(self, pieces: Sequence[torch.Tensor]) -> bool:
+        """Does this site run as a whole-site conv+BN+PLIF kernel?"""
+        n = self.neuron
+        if not n.spiking:
+            return False
+        if (self.ksize, self.stride) not in ((1, 1), (3, 1), (3, 2)):
+            return False
+        if len(pieces) > 1 and self.ksize != 1:
+            return False
+        H, W = pieces[0].shape[-2:]
+        return should_fuse(self.ksize, self.stride, H, W,
+                           [p.shape[1] for p in pieces],
+                           self.weight.shape[0], n.fuse)
+
+    def forward(self, x: Pieces) -> torch.Tensor:
+        pieces = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+        if self.fused(pieces):
+            mul, bias_f = self.bn.fold()
+            n, w = self.neuron, self.act.w
+            kind = self.act.kind
+            if self.ksize == 1:
+                return conv1x1_plif(pieces, fold_conv1x1(self.weight, mul),
+                                    bias_f, n.T, w, n.thresh, kind)
+            op = conv3x3_plif if self.stride == 1 else conv3x3s2_plif
+            return op(pieces[0], fold_conv3x3(self.weight, mul), bias_f, n.T,
+                      w, n.thresh, kind)
+        x = torch.cat([p.to(self.dtype) for p in pieces], 1) \
+            if len(pieces) > 1 else pieces[0].to(self.dtype)
+        y = F.conv2d(x, self.weight.to(self.dtype), stride=self.stride,
+                     padding=(self.ksize - 1) // 2)
+        if self.neuron.spiking:
+            return self.act(y, bn=self.bn.eval_terms())
+        return self.act(self.bn(y, self.dtype))
+
+
+class Bottleneck(nn.Module):
+    """1x1 reduce -> 3x3 conv, additive shortcut (reference
+    network_blocks.py:81-104). Spiking: int8 spikes + int8 spikes."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 shortcut: bool = True, expansion: float = 0.5,
+                 act: str = "silu", neuron: Neuron = Neuron(),
+                 dtype=torch.float32):
+        super().__init__()
+        hidden = int(out_channels * expansion)
+        self.conv1 = BaseConv(in_channels, hidden, 1, 1, act, neuron, dtype)
+        self.conv2 = BaseConv(hidden, out_channels, 3, 1, act, neuron, dtype)
+        self.use_add = shortcut and in_channels == out_channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv2(self.conv1(x))
+        return y + x if self.use_add else y
+
+
+def spp_pools(x: torch.Tensor, kernel_sizes: Sequence[int]) -> list:
+    """The SPP pyramid's stride-1 same-padded max pools, as a chain:
+    pool_{k+d-1}(x) == pool_d(pool_k(x)), so 9 rides on 5 and 13 on 9.
+    Values equal the direct pools. Spikes pool in f32 (exact) and come back
+    in their own dtype."""
+    y = x if x.is_floating_point() else x.float()
+    pools, prev_k, src = [], 0, y
+    for k in kernel_sizes:
+        d = k - prev_k + 1 if prev_k else k
+        if d < 1 or d % 2 == 0:  # not composable: pool directly
+            src, d = y, k
+        src = F.max_pool2d(src, d, stride=1, padding=d // 2)
+        pools.append(src.to(x.dtype))
+        prev_k = k
+    return pools
+
+
+class SPPBottleneck(nn.Module):
+    """Spatial pyramid pooling (reference network_blocks.py:125-147)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_sizes: Tuple[int, ...] = (5, 9, 13),
+                 act: str = "silu", neuron: Neuron = Neuron(),
+                 dtype=torch.float32):
+        super().__init__()
+        hidden = in_channels // 2
+        self.kernel_sizes = kernel_sizes
+        self.conv1 = BaseConv(in_channels, hidden, 1, 1, act, neuron, dtype)
+        self.conv2 = BaseConv(hidden * (len(kernel_sizes) + 1), out_channels,
+                              1, 1, act, neuron, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv1(x)
+        return self.conv2((x, *spp_pools(x, self.kernel_sizes)))
+
+
+class CSPLayer(nn.Module):
+    """C3 cross-stage partial block (reference network_blocks.py:150-188).
+    Takes a tensor or a tuple of tensors (a channel concat)."""
+
+    def __init__(self, in_channels: int, out_channels: int, n: int = 1,
+                 shortcut: bool = True, expansion: float = 0.5,
+                 act: str = "silu", neuron: Neuron = Neuron(),
+                 dtype=torch.float32):
+        super().__init__()
+        hidden = int(out_channels * expansion)
+        self.conv1 = BaseConv(in_channels, hidden, 1, 1, act, neuron, dtype)
+        self.conv2 = BaseConv(in_channels, hidden, 1, 1, act, neuron, dtype)
+        self.conv3 = BaseConv(2 * hidden, out_channels, 1, 1, act, neuron,
+                              dtype)
+        self.m = nn.Sequential(*[
+            Bottleneck(hidden, hidden, shortcut, 1.0, act, neuron, dtype)
+            for _ in range(n)
+        ])
+
+    def forward(self, x: Pieces) -> torch.Tensor:
+        x1 = self.m(self.conv1(x))
+        return self.conv3((x1, self.conv2(x)))
+
+
+class Focus(nn.Module):
+    """Space-to-depth stem, channel order TL, BL, TR, BR (reference
+    network_blocks.py:191-213)."""
+
+    def __init__(self, in_channels: int, out_channels: int, ksize: int = 1,
+                 stride: int = 1, act: str = "silu",
+                 neuron: Neuron = Neuron(), dtype=torch.float32):
+        super().__init__()
+        self.conv = BaseConv(4 * in_channels, out_channels, ksize, stride,
+                             act, neuron, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tl = x[..., ::2, ::2]
+        tr = x[..., ::2, 1::2]
+        bl = x[..., 1::2, ::2]
+        br = x[..., 1::2, 1::2]
+        return self.conv(torch.cat([tl, bl, tr, br], 1))
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x spatial upsample of (N, C, H, W)."""
+    return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)

@@ -1,0 +1,52 @@
+"""CSPDarknet backbone (counterpart of ``eas_snn_tpu/models/darknet.py``;
+reference yolox/models/darknet.py:97-180), NCHW.
+
+The Focus stem is always analog: the reference's convert_to_spiking wraps
+it whole in a SeqToANNContainer (hence ``stem.0``) without converting its
+activation. dark2..dark5 are spiking when the neuron config says so.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn as nn
+
+from .blocks import BaseConv, CSPLayer, Focus, Neuron, SPPBottleneck
+
+__all__ = ["CSPDarknet"]
+
+
+class CSPDarknet(nn.Module):
+    def __init__(self, dep_mul: float, wid_mul: float, in_channels: int = 2,
+                 out_features: Tuple[str, ...] = ("dark3", "dark4", "dark5"),
+                 act: str = "silu", neuron: Neuron = Neuron(),
+                 dtype=torch.float32):
+        super().__init__()
+        self.out_features = out_features
+        base = int(wid_mul * 64)
+        depth = max(round(dep_mul * 3), 1)
+        kw = dict(act=act, neuron=neuron, dtype=dtype)
+        self.stem = nn.Sequential(
+            Focus(in_channels, base, 3, act=act, dtype=dtype))
+        self.dark2 = nn.Sequential(
+            BaseConv(base, base * 2, 3, 2, **kw),
+            CSPLayer(base * 2, base * 2, n=depth, **kw))
+        self.dark3 = nn.Sequential(
+            BaseConv(base * 2, base * 4, 3, 2, **kw),
+            CSPLayer(base * 4, base * 4, n=depth * 3, **kw))
+        self.dark4 = nn.Sequential(
+            BaseConv(base * 4, base * 8, 3, 2, **kw),
+            CSPLayer(base * 8, base * 8, n=depth * 3, **kw))
+        self.dark5 = nn.Sequential(
+            BaseConv(base * 8, base * 16, 3, 2, **kw),
+            SPPBottleneck(base * 16, base * 16, **kw),
+            CSPLayer(base * 16, base * 16, n=depth, shortcut=False, **kw))
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        outputs = {}
+        for name in ("stem", "dark2", "dark3", "dark4", "dark5"):
+            x = getattr(self, name)(x)
+            outputs[name] = x
+        return {k: v for k, v in outputs.items() if k in self.out_features}

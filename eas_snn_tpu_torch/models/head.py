@@ -1,0 +1,86 @@
+"""Decoupled anchor-free YOLOX head, eval decode (counterpart of
+``eas_snn_tpu/models/head.py``; reference yolo_head.py), NCHW, analog.
+
+Per level the output channels are [reg(4), obj(1), cls(C)]; obj and cls
+are sigmoided, then xy = (reg_xy + grid) * stride and wh = exp(reg_wh) *
+stride with an ``ij`` grid (gx the column, gy the row).
+"""
+
+from __future__ import annotations
+
+from math import log
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .blocks import BaseConv
+
+__all__ = ["YOLOXHead"]
+
+
+class YOLOXHead(nn.Module):
+    def __init__(self, num_classes: int, width: float = 1.0,
+                 strides: Tuple[int, ...] = (8, 16, 32),
+                 in_channels: Tuple[int, ...] = (256, 512, 1024),
+                 act: str = "silu", dtype=torch.float32,
+                 prior_prob: float = 1e-2):
+        super().__init__()
+        self.num_classes, self.strides, self.dtype = num_classes, strides, dtype
+        self.prior_bias = -log((1 - prior_prob) / prior_prob)
+        hidden = int(256 * width)
+        kw = dict(act=act, dtype=dtype)
+
+        def tower():
+            return nn.Sequential(BaseConv(hidden, hidden, 3, 1, **kw),
+                                 BaseConv(hidden, hidden, 3, 1, **kw))
+
+        self.stems = nn.ModuleList(
+            BaseConv(int(c * width), hidden, 1, 1, **kw) for c in in_channels)
+        self.cls_convs = nn.ModuleList(tower() for _ in in_channels)
+        self.reg_convs = nn.ModuleList(tower() for _ in in_channels)
+        self.cls_preds = nn.ModuleList(
+            nn.Conv2d(hidden, num_classes, 1) for _ in in_channels)
+        self.reg_preds = nn.ModuleList(
+            nn.Conv2d(hidden, 4, 1) for _ in in_channels)
+        self.obj_preds = nn.ModuleList(
+            nn.Conv2d(hidden, 1, 1) for _ in in_channels)
+
+    @torch.no_grad()
+    def reset_prior_bias(self) -> None:
+        """cls/obj biases at -log((1 - p) / p) (reference :135-146)."""
+        for conv in (*self.cls_preds, *self.obj_preds):
+            conv.bias.fill_(self.prior_bias)
+
+    def _pred(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        # conv in the compute dtype, bias added in it, then f32 (flax Conv)
+        y = F.conv2d(x, conv.weight.to(self.dtype))
+        return (y + conv.bias.to(self.dtype)[None, :, None, None]).float()
+
+    def forward(self, xin: Sequence[torch.Tensor]) -> torch.Tensor:
+        outputs, gxs, gys, svs = [], [], [], []
+        for k, (stride, x) in enumerate(zip(self.strides, xin)):
+            x = self.stems[k](x)
+            cls_out = self._pred(self.cls_preds[k], self.cls_convs[k](x))
+            reg_feat = self.reg_convs[k](x)
+            reg_out = self._pred(self.reg_preds[k], reg_feat)
+            obj_out = self._pred(self.obj_preds[k], reg_feat)
+            B, _, H, W = reg_out.shape
+            out = torch.cat([reg_out, obj_out, cls_out], 1)
+            out = out.reshape(B, out.shape[1], H * W).permute(0, 2, 1)
+            outputs.append(torch.cat([out[..., :4], torch.sigmoid(out[..., 4:])],
+                                     -1))
+            yv, xv = torch.meshgrid(
+                torch.arange(H, dtype=torch.float32, device=x.device),
+                torch.arange(W, dtype=torch.float32, device=x.device),
+                indexing="ij")
+            gxs.append(xv.reshape(-1))
+            gys.append(yv.reshape(-1))
+            svs.append(torch.full((H * W,), float(stride), device=x.device))
+        out = torch.cat(outputs, 1)
+        grid = torch.stack([torch.cat(gxs), torch.cat(gys)], -1)[None]
+        sv = torch.cat(svs)[None, :, None]
+        xy = (out[..., :2] + grid) * sv
+        wh = torch.exp(out[..., 2:4]) * sv
+        return torch.cat([xy, wh, out[..., 4:]], -1)

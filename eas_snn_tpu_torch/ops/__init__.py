@@ -1,0 +1,26 @@
+"""Ops of the port: spike functions, PLIF dynamics, the PLIF and
+conv+BN+PLIF kernel wrappers with their plain versions, the ARSNN scan,
+the fusion policy and the NMS postprocess."""
+
+from .conv_plif import conv1x1_plif, conv3x3_plif, conv3x3s2_plif
+from .plif import plif_forward
+
+__all__ = ["plif_forward", "conv1x1_plif", "conv3x3_plif", "conv3x3s2_plif",
+           "KERNEL_WRAPPERS", "reset_launches", "launch_counts"]
+
+# Every wrapper that launches a CUDA kernel, by kernel name.
+KERNEL_WRAPPERS = {
+    "plif_fwd": plif_forward,
+    "conv1x1_plif": conv1x1_plif,
+    "conv3x3_plif": conv3x3_plif,
+    "conv3x3s2_plif": conv3x3s2_plif,
+}
+
+
+def reset_launches() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}

@@ -1,0 +1,113 @@
+"""Adaptive recurrent SNN (ARSNN) sampling scan (counterpart of
+``eas_snn_tpu/ops/arsnn.py:arsnn_scan``), plain PyTorch.
+
+A gated recurrent LIF runs over Tm micro-steps; each spike closes the
+current temporal slice of its (pixel, channel) and writes a readout of the
+accumulated membrane into the next of Ts slots. The data-dependent scatter
+of the reference is a dense masked one-hot write, as in the JAX package,
+whose deploy path also runs this scan as plain XLA. Layout NCHW:
+events (Tm, N, Cin, H, W) -> aggregation (Ts, N, C, H, W).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+__all__ = ["arsnn_scan", "gated_lif_update"]
+
+
+def gated_lif_update(vmem, gate, current, thresh: float,
+                     vreset: Optional[float], spike_fn
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """v <- gate*v + current; spike; reset. Returns (v, v_no_reset, spike)."""
+    v = gate * vmem + current
+    spike = spike_fn(v - thresh)
+    v_noreset = v
+    if vreset is None:
+        v = v - thresh * spike
+    else:
+        v = v * (1.0 - spike) + vreset * spike
+    return v, v_noreset, spike
+
+
+def _onehot(seg: torch.Tensor, Ts: int) -> torch.Tensor:
+    iota = torch.arange(Ts, dtype=seg.dtype, device=seg.device)
+    return seg[None] == iota.reshape((Ts,) + (1,) * seg.dim())
+
+
+def arsnn_scan(
+    events: torch.Tensor,
+    input_conv_fn: Callable[[torch.Tensor], torch.Tensor],
+    gate_conv_fn: Callable[[torch.Tensor], torch.Tensor],
+    *,
+    Ts: int,
+    thresh: float,
+    vreset: Optional[float],
+    spike_fn: Callable[[torch.Tensor], torch.Tensor],
+    readout: str = "sum",
+    spike_attach: bool = False,
+    write_zero: bool = False,
+    use_abs: bool = False,
+) -> torch.Tensor:
+    """Run the sampler over a time-major (Tm, N, Cin, H, W) stack, already
+    time-reversed by the caller. The state lives in ``events.dtype``.
+    Returns the (Ts, N, C, H, W) aggregation."""
+    if readout not in ("sum", "last", "avg"):
+        raise NotImplementedError(f"readout '{readout}'")
+    Tm, N = events.shape[:2]
+    dt = events.dtype
+    inp = input_conv_fn(events.reshape((Tm * N,) + tuple(events.shape[2:])))
+    inp = inp.reshape((Tm, N) + tuple(inp.shape[1:]))
+    C = inp.shape[2] // 2
+    g_in_all, c_in_all = inp[:, :, :C], inp[:, :, C:]
+
+    shape = g_in_all.shape[1:]
+    dev = events.device
+    zero = torch.zeros(shape, dtype=dt, device=dev)
+    vmem, spike, vavg = zero, zero, zero
+    # slot counters and last-spike times are tiny ints (< Tm, Ts)
+    seg = torch.zeros(shape, dtype=torch.int8, device=dev)
+    t_last = torch.full(shape, -1, dtype=torch.int8, device=dev)
+    agg = torch.zeros((Ts,) + tuple(shape), dtype=dt, device=dev)
+
+    for t in range(Tm):
+        state = gate_conv_fn(spike)
+        g_rec, c_rec = state[:, :C], state[:, C:]
+        gate = torch.sigmoid(g_in_all[t] + g_rec)
+        vmem, v_noreset, spike = gated_lif_update(
+            vmem, gate, c_in_all[t] + c_rec, thresh, vreset, spike_fn)
+        vavg = vavg + v_noreset
+        spiked = spike > 0.5
+        valid = spiked & (seg < Ts)
+        if readout == "sum":
+            v = vavg
+        elif readout == "last":
+            v = vmem
+        else:
+            v = vavg / torch.clamp(t - t_last, min=1).to(dt)
+        if spike_attach:
+            v = v * spike
+        write = torch.where(valid, v, torch.zeros((), dtype=dt, device=dev))
+        agg = agg + _onehot(seg, Ts).to(dt) * write[None]
+        seg = seg + valid.to(torch.int8)
+        t_last = torch.where(valid, torch.tensor(t, dtype=torch.int8,
+                                                 device=dev), t_last)
+        vavg = torch.where(spiked, torch.zeros((), dtype=dt, device=dev), vavg)
+
+    # residual write for elements that never closed their last slot
+    valid = (spike <= 0.5) & (seg < Ts)
+    if readout == "sum":
+        v = vavg
+    elif readout == "last":
+        v = vmem
+    else:
+        v = vavg / torch.clamp(Tm - 1 - t_last, min=1).to(dt)
+    if write_zero:
+        v = v * 0.0
+    write = torch.where(valid, v, torch.zeros((), dtype=dt, device=dev))
+    agg = agg + _onehot(seg, Ts).to(dt) * write[None]
+    if use_abs:
+        agg = torch.relu(agg)
+    return agg

@@ -1,0 +1,245 @@
+"""Whole-site conv + folded BatchNorm + PLIF for eval, int8 spikes out
+(counterpart of ``eas_snn_tpu/ops/conv_plif_pallas.py``).
+
+At eval the BN folds into the conv: w_f = w * mul in f32, rounded to bf16
+for the multiply, and bias_f = beta - mean * mul in f32, with
+mul = rsqrt(var + eps) * scale. The site then computes, per time step,
+acc = bias_f + sum(bf16 w_f * bf16 x) in f32 and runs the PLIF recurrence
+on acc, so the preactivation never reaches device memory.
+
+Three ops, each a CUDA kernel (``csrc/conv_plif.cu``) on CUDA tensors and
+its plain PyTorch version on CPU tensors:
+
+* ``conv1x1_plif``: 1x1 conv over a virtual channel concat of up to 4
+  pieces;
+* ``conv3x3_plif``: 3x3, stride 1, pad 1;
+* ``conv3x3s2_plif``: 3x3, stride 2, pad 1; output (h, w) taps input
+  (2h+dy-1, 2w+dx-1).
+
+All take int8, bf16 or f32 inputs in (T*B, C, H, W) layout. The kernels
+copy whole aligned segments only, so on the card every input's channel
+count must be a multiple of 8, its row (H*W for 1x1, W for 3x3) a whole
+number of copies (16 bytes for 1x1, 4 for 3x3) and its address 16-byte
+aligned; the wrappers raise otherwise. Every flagship site fits. The plain
+versions multiply bf16 values held in f32, so their products are exact;
+they run the convolution with TF32 off all the same, so that a plain
+version on the card sums in full f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .plif import decay_multiplier, plif_forward_plain
+from .surrogate import spike_ge
+
+__all__ = [
+    "fold_bn",
+    "fold_conv1x1",
+    "fold_conv3x3",
+    "conv1x1_preact_plain",
+    "conv3x3_preact_plain",
+    "conv1x1_plif_plain",
+    "conv3x3_plif_plain",
+    "conv1x1_plif",
+    "conv3x3_plif",
+    "conv3x3s2_plif",
+]
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+Pieces = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def fold_bn(scale, bias, mean, var, eps: float = 1e-3
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval BN as (mul, bias_f): y = (x - mean) * mul + bias = x * mul +
+    bias_f, all in f32."""
+    mul = torch.rsqrt(var.float() + eps) * scale.float()
+    return mul, bias.float() - mean.float() * mul
+
+
+def fold_conv1x1(kernel: torch.Tensor, mul: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 1, 1) kernel * per-Cout mul -> (Cout, Cin) f32."""
+    return kernel[:, :, 0, 0].float() * mul.float()[:, None]
+
+
+def fold_conv3x3(kernel: torch.Tensor, mul: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) kernel * per-Cout mul -> (3, Cout, 3*Cin) f32,
+    the last axis ordered (dx, ci): the JAX ``fold_conv3x3`` layout."""
+    k = kernel.float() * mul.float()[:, None, None, None]
+    k = k.permute(2, 0, 3, 1)  # (co, ci, dy, dx) -> (dy, co, dx, ci)
+    return k.reshape(3, k.shape[1], -1).contiguous()
+
+
+def _pieces(x: Pieces) -> Tuple[torch.Tensor, ...]:
+    xs = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+    if not 1 <= len(xs) <= 4:
+        raise ValueError(f"1 to 4 concat pieces supported, got {len(xs)}")
+    TB, _, H, W = xs[0].shape
+    for p in xs:
+        if p.dim() != 4 or p.shape[0] != TB or p.shape[2:] != (H, W):
+            raise ValueError("concat pieces must share (T*B, H, W)")
+        if p.dtype != xs[0].dtype or p.device != xs[0].device:
+            raise ValueError("concat pieces must share dtype and device")
+        if p.dtype not in _DTYPE_CODE:
+            raise ValueError(f"unsupported input dtype {p.dtype}")
+    return xs
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 multiply operand, held in f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def conv1x1_preact_plain(x: Pieces, w_oc: torch.Tensor,
+                         bias: torch.Tensor) -> torch.Tensor:
+    """acc = bias + sum_j (bf16 w_j @ bf16 x_j), f32, (T*B, Cout, H, W)."""
+    xs = _pieces(x)
+    w16 = _bf16(w_oc)
+    acc = bias.float()[None, :, None, None]
+    off = 0
+    for p in xs:
+        c = p.shape[1]
+        acc = acc + torch.einsum("oc,nchw->nohw", w16[:, off:off + c],
+                                 _bf16(p))
+        off += c
+    return acc
+
+
+def conv3x3_preact_plain(x: torch.Tensor, w3: torch.Tensor,
+                         bias: torch.Tensor, stride: int) -> torch.Tensor:
+    """acc = bias + conv3x3(bf16 x, bf16 w), f32, pad 1."""
+    cout = w3.shape[1]
+    k = w3.reshape(3, cout, 3, -1).permute(1, 3, 0, 2)  # -> (co, ci, dy, dx)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        y = F.conv2d(_bf16(x), _bf16(k), stride=stride, padding=1)
+    return y + bias.float()[None, :, None, None]
+
+
+def conv1x1_plif_plain(x: Pieces, w_oc, bias, T: int, w_plif,
+                       thresh: float = 1.0, kind: str = "atan"):
+    return plif_forward_plain(conv1x1_preact_plain(x, w_oc, bias), T, w_plif,
+                              thresh, kind)
+
+
+def conv3x3_plif_plain(x, w3, bias, T: int, w_plif, stride: int = 1,
+                       thresh: float = 1.0, kind: str = "atan"):
+    return plif_forward_plain(conv3x3_preact_plain(x, w3, bias, stride), T,
+                              w_plif, thresh, kind)
+
+
+def _check_layout(xs: Sequence[torch.Tensor], row: int, copy: int,
+                  what: str) -> None:
+    """Raise unless the kernel's whole aligned copies cover every piece:
+    C_j % 8 == 0, ``row`` elements a whole number of ``copy`` bytes, each
+    piece 16-byte aligned."""
+    for p in xs:
+        if p.shape[1] % 8 or (row * p.element_size()) % copy or \
+                p.data_ptr() % 16:
+            raise ValueError(
+                f"{what}: the kernel needs channels in 8s, rows of whole "
+                f"{copy}-byte copies and 16-byte aligned inputs; got "
+                f"{tuple(p.shape)} {p.dtype} at offset {p.data_ptr() % 16}")
+
+
+def _operands(w: torch.Tensor, bias: torch.Tensor, w_plif: torch.Tensor,
+              dev: torch.device, what: str):
+    """The kernel's weight operands on ``dev``: bf16 weights, f32 bias and
+    the f32 decay multiplier, each contiguous."""
+    for t in (w, bias, w_plif):
+        if t.device != dev:
+            raise ValueError(f"{what}: weights on {t.device}, input on {dev}")
+    return (w.to(torch.bfloat16).contiguous(),
+            bias.to(torch.float32).contiguous(), decay_multiplier(w_plif))
+
+
+def conv1x1_plif(x: Pieces, w_oc: torch.Tensor, bias: torch.Tensor, T: int,
+                 w_plif: torch.Tensor, thresh: float = 1.0,
+                 kind: str = "atan") -> torch.Tensor:
+    """Fused 1x1 conv + folded BN + PLIF over a virtual concat of pieces
+    (T*B, C_j, H, W); ``w_oc`` (Cout, sum C_j) from :func:`fold_conv1x1`.
+    Returns (T*B, Cout, H, W) int8 spikes."""
+    xs = _pieces(x)
+    TB, _, H, W = xs[0].shape
+    cin = sum(p.shape[1] for p in xs)
+    cout = w_oc.shape[0]
+    if w_oc.shape != (cout, cin) or bias.shape != (cout,):
+        raise ValueError(f"weights {tuple(w_oc.shape)} / bias "
+                         f"{tuple(bias.shape)} do not fit Cin={cin}")
+    if TB % T:
+        raise ValueError(f"leading dim {TB} is not a multiple of T={T}")
+    if xs[0].device.type == "cpu":
+        return conv1x1_plif_plain(xs, w_oc, bias, T, w_plif, thresh, kind)
+    for p in xs:
+        _build.require_cuda(p, "conv1x1_plif")
+    _check_layout(xs, H * W, 16, "conv1x1_plif")
+    dev = xs[0].device
+    w16, b32, a = _operands(w_oc, bias, w_plif, dev, "conv1x1_plif")
+    out = torch.empty((TB, cout, H, W), dtype=torch.int8, device=dev)
+    n = len(xs)
+    ptrs = (ctypes.c_void_p * n)(*[p.data_ptr() for p in xs])
+    cins = (ctypes.c_int * n)(*[p.shape[1] for p in xs])
+    err = _build.get_lib("conv_plif").conv1x1_plif(
+        ptrs, cins, n, w16.data_ptr(), b32.data_ptr(), a.data_ptr(),
+        out.data_ptr(), TB // T, T, cout, H, W, float(thresh),
+        int(spike_ge(kind)), _DTYPE_CODE[xs[0].dtype], _build.stream_ptr(dev),
+    )
+    _build.check(err, "conv1x1_plif")
+    conv1x1_plif.launches += 1
+    return out
+
+
+def _conv3x3(x, w3, bias, T, w_plif, thresh, kind, stride, wrapper):
+    what = wrapper.__name__
+    if x.dim() != 4 or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{what}: expected (T*B, C, H, W) int8/bf16/f32")
+    TB, cin, H, W = x.shape
+    cout = w3.shape[1]
+    if w3.shape != (3, cout, 3 * cin) or bias.shape != (cout,):
+        raise ValueError(f"{what}: weights {tuple(w3.shape)} do not fit "
+                         f"Cin={cin}")
+    if TB % T:
+        raise ValueError(f"leading dim {TB} is not a multiple of T={T}")
+    if x.device.type == "cpu":
+        return conv3x3_plif_plain(x, w3, bias, T, w_plif, stride, thresh,
+                                  kind)
+    _build.require_cuda(x, what)
+    _check_layout((x,), W, 4, what)
+    dev = x.device
+    w16, b32, a = _operands(w3, bias, w_plif, dev, what)
+    ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    out = torch.empty((TB, cout, ho, wo), dtype=torch.int8, device=dev)
+    err = _build.get_lib("conv_plif").conv3x3_plif(
+        x.data_ptr(), w16.data_ptr(), b32.data_ptr(), a.data_ptr(),
+        out.data_ptr(), TB // T, T, cin, cout, H, W, stride, float(thresh),
+        int(spike_ge(kind)), _DTYPE_CODE[x.dtype], _build.stream_ptr(dev),
+    )
+    _build.check(err, what)
+    wrapper.launches += 1
+    return out
+
+
+def conv3x3_plif(x: torch.Tensor, w3: torch.Tensor, bias: torch.Tensor,
+                 T: int, w_plif: torch.Tensor, thresh: float = 1.0,
+                 kind: str = "atan") -> torch.Tensor:
+    """Fused 3x3/stride-1 conv + folded BN + PLIF; ``w3`` (3, Cout, 3*Cin)
+    from :func:`fold_conv3x3`. Returns (T*B, Cout, H, W) int8 spikes."""
+    return _conv3x3(x, w3, bias, T, w_plif, thresh, kind, 1, conv3x3_plif)
+
+
+def conv3x3s2_plif(x: torch.Tensor, w3: torch.Tensor, bias: torch.Tensor,
+                   T: int, w_plif: torch.Tensor, thresh: float = 1.0,
+                   kind: str = "atan") -> torch.Tensor:
+    """Fused 3x3/stride-2 conv + folded BN + PLIF. Returns
+    (T*B, Cout, ceil(H/2), ceil(W/2)) int8 spikes."""
+    return _conv3x3(x, w3, bias, T, w_plif, thresh, kind, 2, conv3x3s2_plif)
+
+
+conv1x1_plif.launches = 0
+conv3x3_plif.launches = 0
+conv3x3s2_plif.launches = 0

@@ -1,0 +1,127 @@
+"""Weights into the port: from the JAX package's variable tree, and from the
+reference's PyTorch checkpoints.
+
+The port's parameter names are the reference PyTorch model's, spikingjelly
+tokens included (``stem.0.conv.conv.weight``, ``dark2.0.conv.0.weight``,
+``...act.w``, ``embedding.input_conv.{0,2}.weight``), so a reference
+``.pth`` loads by key, strictly. ``state_dict_from_jax`` maps the JAX
+package's ``{"params", "batch_stats"}`` tree (numpy leaves) onto those
+names; it is the inverse of the JAX package's importer, whose name logic
+this module keeps its own copy of.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["state_dict_from_jax", "load_reference_state_dict"]
+
+# JAX module name -> reference torch path tokens
+_DARK = {
+    "dark2_conv": ("dark2", "0"), "dark2_csp": ("dark2", "1"),
+    "dark3_conv": ("dark3", "0"), "dark3_csp": ("dark3", "1"),
+    "dark4_conv": ("dark4", "0"), "dark4_csp": ("dark4", "1"),
+    "dark5_conv": ("dark5", "0"), "dark5_spp": ("dark5", "1"),
+    "dark5_csp": ("dark5", "2"),
+}
+_HEAD = (
+    (re.compile(r"stem(\d+)$"), lambda m: ("stems", m[1])),
+    (re.compile(r"(cls|reg)_conv(\d+)_(\d+)$"),
+     lambda m: (f"{m[1]}_convs", m[2], m[3])),
+    (re.compile(r"(cls|reg|obj)_pred(\d+)$"),
+     lambda m: (f"{m[1]}_preds", m[2])),
+)
+_EMB = re.compile(r"(input_conv|gate_conv)_(kernel|bias)(\d+)$")
+_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+       "var": "running_var"}
+
+
+def _leaves(tree: Mapping, path: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _module_tokens(path: Tuple[str, ...]) -> list:
+    """JAX module path -> reference torch module tokens."""
+    out = []
+    for i, p in enumerate(path):
+        if p in _DARK:
+            out += _DARK[p]
+        elif p == "stem" and path[:i] == ("backbone", "backbone"):
+            out += ["stem", "0"]  # the whole-Focus SeqToANNContainer
+        elif p == "PLIF_0":
+            out.append("act")
+        elif re.fullmatch(r"m\d+", p):
+            out += ["m", p[1:]]
+        else:
+            for pat, fn in _HEAD:
+                m = pat.match(p)
+                if m and path[:1] == ("head",):
+                    out += fn(m)
+                    break
+            else:
+                out.append(p)
+    return out
+
+
+def state_dict_from_jax(variables: Mapping[str, Any]
+                        ) -> Dict[str, torch.Tensor]:
+    """The JAX package's EASYOLOX variables (``{"params", "batch_stats"}``
+    of numpy arrays) as the port's state dict. Conv kernels go HWIO ->
+    OIHW; every BN gains ``num_batches_tracked`` = 0."""
+    params = variables["params"]
+    spiking = set()  # JAX paths of BaseConvs that hold a PLIF
+    for path, _ in _leaves(params):
+        if "PLIF_0" in path:
+            spiking.add(path[:path.index("PLIF_0")])
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(params):
+        value = np.asarray(value)
+        leaf, mod = path[-1], path[:-1]
+        m = _EMB.match(leaf) if mod == ("embedding",) else None
+        if m:
+            # conv[ReLU conv]*: the i-th conv sits at Sequential index 2i
+            name = f"embedding.{m[1]}.{2 * int(m[3])}." + (
+                "weight" if m[2] == "kernel" else "bias")
+            sd[name] = _to_torch(value, m[2] == "kernel")
+            continue
+        tokens = _module_tokens(mod)
+        if mod[-1:] == ("bn",):
+            tokens.append(_BN[leaf])
+        elif leaf == "kernel":
+            if mod[-1:] == ("conv",) and mod[:-1] in spiking:
+                tokens.append("0")  # SeqToANNContainer around the conv
+            tokens.append("weight")
+        else:  # conv bias, PLIF w
+            tokens.append(leaf)
+        sd[".".join(tokens)] = _to_torch(value, leaf == "kernel")
+    for path, value in _leaves(variables.get("batch_stats", {})):
+        tokens = _module_tokens(path[:-1])
+        sd[".".join(tokens + [_BN[path[-1]]])] = _to_torch(np.asarray(value))
+        if path[-1] == "mean":
+            sd[".".join(tokens + ["num_batches_tracked"])] = torch.tensor(0)
+    return sd
+
+
+def _to_torch(value: np.ndarray, kernel: bool = False) -> torch.Tensor:
+    if kernel:
+        value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    return torch.from_numpy(np.array(value, np.float32, order="C"))
+
+
+def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ``.pth`` (a state dict, or one under ``'model'``, keys
+    possibly ``module.``-prefixed by DDP) as a plain state dict, for
+    ``model.load_state_dict(sd, strict=True)``."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    sd = obj.get("model", obj)
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in sd.items()}

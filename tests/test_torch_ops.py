@@ -1,0 +1,344 @@
+"""The port's ops (eas_snn_tpu_torch.ops) against the JAX package's.
+
+Inputs are made with numpy from a seed and handed to both sides; the port
+runs its plain PyTorch versions (its tensors lie on the CPU). Two kinds of
+data:
+
+* quarter-valued weights on 0/1 spikes (or on eighth-valued bf16 inputs):
+  every product and every partial sum is exact in f32, so the port and JAX
+  must agree bitwise whatever order each sums in;
+* real-valued weights: the f32 preactivations agree to 1e-5, and a spike
+  may differ only where the membrane lies within 1e-4 of the threshold,
+  where the two frameworks' summation orders can land on either side.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from eas_snn_tpu.ops import conv_plif_pallas as jcp
+from eas_snn_tpu.ops.lif import plif_scan as j_plif_scan
+from eas_snn_tpu.ops.plif_pallas import plif_fused as j_plif_fused
+from eas_snn_tpu.ops.surrogate import get_spike_fn as j_spike_fn
+
+from eas_snn_tpu_torch.ops import conv_plif as pcp
+from eas_snn_tpu_torch.ops.conv_plif_policy import should_fuse
+from eas_snn_tpu_torch.ops.lif import plif_scan
+from eas_snn_tpu_torch.ops.plif import plif_forward, plif_forward_plain
+from eas_snn_tpu_torch.ops.surrogate import get_spike_fn, spike_ge
+
+T = 3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def nchw(x):
+    """(N, H, W, C) numpy/JAX -> (N, C, H, W) torch."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(x).transpose(0, 3, 1, 2)))
+
+
+def nhwc(x):
+    return np.asarray(x).transpose(0, 2, 3, 1)
+
+
+def quarters(rng, shape, lo=-6, hi=7):
+    return (rng.integers(lo, hi, shape) * 0.25).astype(np.float32)
+
+
+def margins(preact_tb, w_plif, thresh=1.0):
+    """Smallest |v_t - thresh| over t per element of a (T*B, ...) f32
+    preactivation, by the PLIF recurrence in numpy."""
+    a = np.float32(1.0) - np.float32(1.0 / (1.0 + np.exp(-np.float32(w_plif))))
+    xs = preact_tb.reshape((T, -1) + preact_tb.shape[1:])
+    v = np.zeros_like(xs[0])
+    m = np.full_like(xs[0], np.inf)
+    for t in range(T):
+        v = v * a + xs[t]
+        d = v - thresh
+        m = np.minimum(m, np.abs(d))
+        v = v - thresh * (d >= 0)
+    return np.concatenate([m] * T)
+
+
+def assert_spikes_match(got, want, margin, tol=1e-4):
+    """Equal spikes, except where the membrane is within ``tol`` of the
+    threshold (summation order may put it on either side there)."""
+    bad = np.asarray(got) != np.asarray(want)
+    assert not (bad & (margin >= tol)).any(), (
+        f"{int((bad & (margin >= tol)).sum())} spikes differ away from "
+        "the threshold")
+    assert 0.02 < np.asarray(want, np.float32).mean() < 0.98
+
+
+# ------------------------------------------------------------- spikes, PLIF
+
+@pytest.mark.parametrize("kind", ["rect", "atan", "sigmoid", "tanh", "patan"])
+def test_heaviside_matches_jax_forward(kind):
+    x = np.array([-1.0, -1e-7, 0.0, 1e-7, 2.0], np.float32)
+    want = np.asarray(j_spike_fn(kind)(jnp.asarray(x)))
+    got = get_spike_fn(kind)(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert spike_ge(kind) == bool(got[2])
+
+
+@pytest.mark.parametrize("kind", ["atan", "rect"])
+def test_plif_plain_bit_equal_to_jax_scan_f32(kind):
+    rng = np.random.default_rng(0)
+    x = rng.normal(0.6, 1.0, (T * 4, 8, 5, 6)).astype(np.float32)
+    w = np.float32(-0.4)
+    fn = j_spike_fn(kind)
+    want, _ = j_plif_scan(jnp.asarray(x.reshape(T, 4, 8, 5, 6)),
+                          jnp.asarray(w), fn)
+    got = plif_forward(torch.from_numpy(x), T, torch.tensor(w), kind=kind)
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).reshape(x.shape))
+    assert 0.05 < got.float().mean() < 0.95
+    # the port's scan with the hard spike is the same function
+    sp, _ = plif_scan(torch.from_numpy(x).reshape(T, 4, 8, 5, 6),
+                      torch.tensor(w), get_spike_fn(kind))
+    np.testing.assert_array_equal(sp.reshape(x.shape).numpy(), got.numpy())
+
+
+def test_plif_bf16_storage_matches_interpret_kernel():
+    """bf16 storage, f32 membrane: the JAX kernel in interpret mode at
+    B=128 (its lane gate) with a tiny H*W*C."""
+    rng = np.random.default_rng(1)
+    B = 128
+    x32 = rng.normal(0.5, 1.0, (T * B, 4, 4, 16)).astype(np.float32)
+    xb = jnp.asarray(x32).astype(jnp.bfloat16)
+    w = jnp.float32(0.3)
+    want = j_plif_fused(xb, T, w, spike_fn="atan", interpret=True,
+                        out_int8=True)
+    xt = nchw(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16)
+    got = plif_forward(xt, T, torch.tensor(0.3), kind="atan")
+    np.testing.assert_array_equal(nhwc(got.numpy()), np.asarray(want))
+
+
+def test_plif_with_bn_matches_jax_bn_then_kernel():
+    """The eval BN folded into the PLIF op: the JAX package's BN arithmetic
+    rounded to bf16, then its kernel in interpret mode."""
+    rng = np.random.default_rng(8)
+    B, C = 128, 16
+    x32 = rng.normal(0.0, 2.0, (T * B, 4, 4, C)).astype(np.float32)
+    xb = jnp.asarray(x32).astype(jnp.bfloat16)
+    mean = rng.normal(0, 0.3, C).astype(np.float32)
+    mul = rng.uniform(0.5, 1.5, C).astype(np.float32)
+    bias = rng.normal(0.4, 0.2, C).astype(np.float32)
+    y = ((xb.astype(jnp.float32) - mean) * mul + bias).astype(jnp.bfloat16)
+    want = j_plif_fused(y, T, jnp.float32(-0.2), spike_fn="atan",
+                        interpret=True, out_int8=True)
+    xt = nchw(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16)
+    got = plif_forward(xt, T, torch.tensor(-0.2), kind="atan",
+                       bn=tuple(torch.from_numpy(p) for p in (mean, mul, bias)))
+    np.testing.assert_array_equal(nhwc(got.numpy()), np.asarray(want))
+    assert 0.05 < float(np.asarray(want, np.float32).mean()) < 0.95
+
+
+def test_plif_rejects_other_devices_and_dtypes():
+    """A wrapper runs the plain version only on CPU tensors: any other
+    device must launch the kernel or raise, never fall back."""
+    w = torch.tensor(0.0)
+    with pytest.raises(ValueError):
+        plif_forward(torch.empty(6, 2, 2, 2, device="meta"), T, w)
+    with pytest.raises(ValueError):
+        plif_forward(torch.zeros(6, 2, 2, 2), T, w, out_dtype=torch.float32)
+    with pytest.raises(ValueError):
+        plif_forward(torch.zeros(5, 2, 2, 2), T, w)
+    with pytest.raises(ValueError):
+        pcp.conv1x1_plif(torch.empty(6, 4, 2, 2, device="meta"),
+                         torch.zeros(3, 4), torch.zeros(3), T, w)
+
+
+@pytest.mark.parametrize("case", [
+    "plif_hw", "plif_3d", "c1_channels", "c1_row", "c3_channels", "c3_row"])
+def test_wrappers_refuse_layouts_the_kernels_cannot_copy(monkeypatch, case):
+    """On a non-CPU tensor a wrapper raises for a layout that does not
+    split into the kernel's whole aligned copies (meta tensors stand in
+    for CUDA ones; the library is never reached)."""
+    from eas_snn_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
+    monkeypatch.setattr(_build, "get_lib", lambda name: pytest.fail(name))
+    w = torch.tensor(0.0)
+
+    def meta(*shape, dtype=torch.int8):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def z(*shape):
+        return torch.zeros(shape, device="meta")
+
+    calls = {
+        # bf16 H*W must be a multiple of 8 (one 16-byte load)
+        "plif_hw": lambda: plif_forward(meta(6, 8, 3, 2, dtype=torch.bfloat16),
+                                        T, w),
+        "plif_3d": lambda: plif_forward(meta(6, 8, 16, dtype=torch.float32),
+                                        T, w),
+        "c1_channels": lambda: pcp.conv1x1_plif(
+            (meta(6, 8, 4, 4), meta(6, 4, 4, 4)), z(8, 12), z(8), T, w),
+        # int8 H*W must be a multiple of 16
+        "c1_row": lambda: pcp.conv1x1_plif(meta(6, 8, 3, 4), z(8, 8), z(8),
+                                           T, w),
+        "c3_channels": lambda: pcp.conv3x3_plif(meta(6, 12, 4, 4),
+                                                z(3, 8, 36), z(8), T, w),
+        # int8 W must be a multiple of 4
+        "c3_row": lambda: pcp.conv3x3s2_plif(meta(6, 8, 4, 6), z(3, 8, 24),
+                                             z(8), T, w),
+    }
+    with pytest.raises(ValueError, match="kernel"):
+        calls[case]()
+
+
+# ------------------------------------------------------ conv + BN + PLIF
+
+def _jax_preact(x_nhwc_list, w_oihw_bf16_f32, bias, stride, ksize):
+    """The JAX references' preactivation: bf16 operands, f32 sums."""
+    xs = [jnp.asarray(x).astype(jnp.bfloat16) for x in x_nhwc_list]
+    k = jnp.asarray(w_oihw_bf16_f32.transpose(2, 3, 1, 0)).astype(jnp.bfloat16)
+    x = jnp.concatenate(xs, -1) if len(xs) > 1 else xs[0]
+    pad = (ksize - 1) // 2
+    acc = jax.lax.conv_general_dilated(
+        x, k, (stride, stride), [(pad, pad)] * 2,
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        preferred_element_type=jnp.float32)
+    return np.asarray(acc + bias)
+
+
+def _inputs(rng, shape, in_dt):
+    """0/1 spikes (int8 or bf16) or, for f32, eighth-valued analog values
+    that bf16 holds exactly."""
+    if in_dt == "f32":
+        return (rng.integers(-16, 17, shape) * 0.125).astype(np.float32)
+    return rng.integers(0, 2, shape).astype(np.int8)
+
+
+def _torch_in(x, in_dt):
+    t = nchw(x)
+    return {"int8": t, "bf16": t.to(torch.bfloat16), "f32": t}[in_dt]
+
+
+def _jax_in(x, in_dt):
+    return jnp.asarray(x, {"int8": jnp.int8, "bf16": jnp.bfloat16,
+                           "f32": jnp.float32}[in_dt])
+
+
+@pytest.mark.parametrize("in_dt", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("cins", [(16,), (8, 24)])
+def test_conv1x1_plif_bitwise_vs_reference(in_dt, cins):
+    rng = np.random.default_rng(2)
+    B, H, W, Cout = 2, 5, 6, 24
+    xs = [_inputs(rng, (T * B, H, W, c), in_dt) for c in cins]
+    w_oc = quarters(rng, (Cout, sum(cins)))
+    bias = quarters(rng, (Cout,))
+    wp = np.float32(-1.1)
+    want = jcp.conv1x1_plif_reference(
+        tuple(_jax_in(x, in_dt) for x in xs), jnp.asarray(w_oc),
+        jnp.asarray(bias), T, jnp.asarray(wp))
+    got = pcp.conv1x1_plif(tuple(_torch_in(x, in_dt) for x in xs),
+                           torch.from_numpy(w_oc), torch.from_numpy(bias), T,
+                           torch.tensor(wp))
+    assert got.dtype == torch.int8 and got.shape == (T * B, Cout, H, W)
+    np.testing.assert_array_equal(nhwc(got.numpy()), np.asarray(want))
+    assert 0.05 < got.float().mean() < 0.95
+
+
+@pytest.mark.parametrize("in_dt", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv3x3_plif_bitwise_vs_reference(in_dt, stride):
+    rng = np.random.default_rng(3)
+    B, H, W, Cin, Cout = 2, 8, 6, 8, 16
+    x = _inputs(rng, (T * B, H, W, Cin), in_dt)
+    w3 = quarters(rng, (3, Cout, 3 * Cin), -2, 3)
+    bias = quarters(rng, (Cout,))
+    wp = np.float32(0.2)
+    ref = (jcp.conv3x3_plif_reference if stride == 1
+           else jcp.conv3x3s2_plif_reference)
+    op = pcp.conv3x3_plif if stride == 1 else pcp.conv3x3s2_plif
+    want = ref(_jax_in(x, in_dt), jnp.asarray(w3), jnp.asarray(bias), T,
+               jnp.asarray(wp))
+    got = op(_torch_in(x, in_dt), torch.from_numpy(w3),
+             torch.from_numpy(bias), T, torch.tensor(wp))
+    assert got.shape == (T * B, Cout, H // stride, W // stride)
+    np.testing.assert_array_equal(nhwc(got.numpy()), np.asarray(want))
+    assert 0.05 < got.float().mean() < 0.95
+
+
+@pytest.mark.parametrize("site", [
+    # (ksize, stride, cins, in_dt)
+    (1, 1, (16, 24), "int8"),
+    (3, 1, (16,), "int8"),
+    (3, 2, (12,), "f32"),   # the stem's analog output at the downsample
+])
+def test_conv_plif_real_valued_vs_reference(site):
+    """Real-valued BN-folded weights: f32 preactivation within 1e-5 of the
+    JAX references' conv; spikes equal except within 1e-4 of threshold."""
+    ksize, stride, cins, in_dt = site
+    rng = np.random.default_rng(4)
+    B, H, W, Cout = 2, 8, 10, 32
+    if in_dt == "f32":
+        xs = [rng.normal(0, 1, (T * B, H, W, c)).astype(np.float32)
+              for c in cins]
+    else:
+        xs = [rng.integers(0, 2, (T * B, H, W, c)).astype(np.int8)
+              for c in cins]
+    cin = sum(cins)
+    kernel = rng.normal(0, 1.5 / np.sqrt(cin * ksize * ksize),
+                        (Cout, cin, ksize, ksize)).astype(np.float32)
+    mul = rng.uniform(0.8, 1.6, Cout).astype(np.float32)
+    bias = rng.normal(0.3, 0.2, Cout).astype(np.float32)
+    wp = np.float32(-0.3)
+    xt = tuple(nchw(x) for x in xs)
+    kt, mt = torch.from_numpy(kernel), torch.from_numpy(mul)
+    bt = torch.from_numpy(bias)
+    if ksize == 1:
+        w = pcp.fold_conv1x1(kt, mt)
+        preact = pcp.conv1x1_preact_plain(xt, w, bt)
+        got = pcp.conv1x1_plif(xt, w, bt, T, torch.tensor(wp))
+        want = jcp.conv1x1_plif_reference(
+            tuple(jnp.asarray(x) for x in xs), jnp.asarray(w.numpy()),
+            jnp.asarray(bias), T, jnp.asarray(wp))
+        w_oihw = w.numpy()[:, :, None, None]
+    else:
+        w = pcp.fold_conv3x3(kt, mt)
+        preact = pcp.conv3x3_preact_plain(xt[0], w, bt, stride)
+        op = pcp.conv3x3_plif if stride == 1 else pcp.conv3x3s2_plif
+        ref = (jcp.conv3x3_plif_reference if stride == 1
+               else jcp.conv3x3s2_plif_reference)
+        got = op(xt[0], w, bt, T, torch.tensor(wp))
+        want = ref(jnp.asarray(xs[0]), jnp.asarray(w.numpy()),
+                   jnp.asarray(bias), T, jnp.asarray(wp))
+        w_oihw = kernel * mul[:, None, None, None]
+    w16 = np.asarray(jnp.asarray(w_oihw).astype(jnp.bfloat16)
+                     .astype(jnp.float32))
+    jpre = _jax_preact(xs, w16, bias, stride, ksize)
+    np.testing.assert_allclose(nhwc(preact.numpy()), jpre, rtol=0, atol=1e-5)
+    assert_spikes_match(nhwc(got.numpy()), want, margins(jpre, wp))
+
+
+def test_fold_conv3x3_matches_jax_exactly():
+    rng = np.random.default_rng(5)
+    kernel = rng.normal(0, 1, (24, 16, 3, 3)).astype(np.float32)
+    mul = rng.uniform(0.5, 2, 24).astype(np.float32)
+    want = jcp.fold_conv3x3(jnp.asarray(kernel.transpose(2, 3, 1, 0)),
+                            jnp.asarray(mul))
+    got = pcp.fold_conv3x3(torch.from_numpy(kernel), torch.from_numpy(mul))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_policy_table_and_modes():
+    assert should_fuse(3, 2, 128, 160, (48,), 96)
+    assert should_fuse(1, 1, 64, 80, (48, 48), 96)
+    assert not should_fuse(3, 1, 64, 80, (48,), 48)
+    assert should_fuse(3, 1, 64, 80, (48,), 48, mode="always")
+    assert not should_fuse(3, 2, 128, 160, (48,), 96, mode="never")
+    with pytest.raises(ValueError):
+        should_fuse(1, 1, 4, 4, (8,), 8, mode="1x1")
