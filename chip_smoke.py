@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``eas_snn_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--batch 128] [--forwards 5]
+    python3 chip_smoke.py [--batch 128] [--forwards 5] [--train-batch 64]
+                          [--train-steps 8]
 
 Phases, each of which fails the run (exit code 1, no result line):
 
@@ -26,7 +27,29 @@ Phases, each of which fails the run (exit code 1, no result line):
    agreement and firing rates beside two chaos witnesses (the CPU
    against itself with the sampler's output, or every conv weight, moved
    up by one ulp);
-5. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+5. train kernels: at every spiking site geometry of the flagship train
+   step (B=64, bf16, found by hooks on the sites' neurons) the train PLIF
+   forward (BN normalize fused, spikes in bf16) and backward (dx and the
+   deterministic sums da, ds, db, dm) against their plain versions on
+   random preactivations, BN terms (firing rate 5-95%) and cotangents.
+   Tolerance: spikes and dx bit-equal (both round after every f32
+   operation and divide exactly); each sum within SUM_TOL of the plain
+   one relative to the largest magnitude of its vector (f32 sums taken in
+   another order). Also one identity-BN case (the backward of kernel 1)
+   and, at small shapes, the rect, sigmoid and tanh surrogates and f32
+   storage. Prints each kernel's time per call (CUDA events), the plain
+   version's and the bound;
+6. train step: ``get_exp("gen1_syolox_m").get_model("cuda", train=True)``
+   (bf16 conv/BN, f32 sampler state) at B=64 on Poisson(0.2) events and
+   labels of 1-8 random boxes, Adam (``fixed`` 1e-3) with EMA: 2 warm-up
+   steps, then ``--train-steps`` timed ``train_step`` calls on the same
+   batch: ms/step and images/s (host clock), the forward / backward /
+   optimizer+EMA split of one more step (CUDA events), peak memory, the
+   device idle share of one profiled step and the losses. Fails unless
+   every loss and gradient is finite, the total loss falls from the first
+   step to the last, and the train PLIF kernels launch exactly 50 + 50
+   times a step;
+7. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM, 989 TFLOP/s
@@ -49,13 +72,17 @@ import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 
+from eas_snn_tpu_torch.core.train_state import (init_ema, optimizer_update,
+                                                train_step)
 from eas_snn_tpu_torch.exp import detect, get_exp
-from eas_snn_tpu_torch.models.blocks import BaseConv
+from eas_snn_tpu_torch.models.blocks import PLIF, BaseConv
 from eas_snn_tpu_torch.ops import KERNEL_WRAPPERS, launch_counts, reset_launches
 from eas_snn_tpu_torch.ops import _build
 from eas_snn_tpu_torch.ops import conv_plif as cp
-from eas_snn_tpu_torch.ops.plif import (decay_multiplier, plif_forward,
-                                        plif_forward_plain)
+from eas_snn_tpu_torch.ops.plif import (
+    decay_multiplier, plif_forward, plif_forward_plain, plif_train_backward,
+    plif_train_backward_plain, plif_train_forward, plif_train_forward_plain)
+from eas_snn_tpu_torch.ops.surrogate import train_alpha
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
@@ -65,8 +92,10 @@ BN_OPS = 3            # the eval BN folded into the PLIF kernel
 SPIKE_TOL = 1e-4      # conv sites: flips allowed only this near threshold
 SITE_TOL = 1e-4       # card vs CPU: share of a site's spikes that may flip
 ANALOG_TOL = 1e-5     # card vs CPU: |card - cpu| / (1 + |cpu|), f32 analog
+SUM_TOL = 1e-4        # train backward sums: |kernel - plain| / max|plain|
 PER_FORWARD = {"plif_fwd": 35, "conv1x1_plif": 8, "conv3x3_plif": 6,
                "conv3x3s2_plif": 1}
+PER_STEP = {"plif_train_fwd": 50, "plif_train_bwd": 50}
 KERNEL_INFO = {
     "plif_fwd": ("eas_snn_tpu_torch/csrc/plif.cu",
                  "eas_snn_tpu/ops/plif_pallas.py:302"),
@@ -76,6 +105,12 @@ KERNEL_INFO = {
                      "eas_snn_tpu/ops/conv_plif_pallas.py:359"),
     "conv3x3s2_plif": ("eas_snn_tpu_torch/csrc/conv_plif.cu",
                        "eas_snn_tpu/ops/conv_plif_pallas.py:581"),
+    "plif_train_fwd": ("eas_snn_tpu_torch/csrc/plif.cu",
+                       "eas_snn_tpu/ops/plif_pallas.py:389"),
+    # with the identity BN terms it is also kernel 1's backward (:338)
+    "plif_train_bwd": ("eas_snn_tpu_torch/csrc/plif_bwd.cu",
+                       "eas_snn_tpu/ops/plif_pallas.py:419, "
+                       "eas_snn_tpu/ops/plif_pallas.py:338"),
 }
 FAILURES = []
 DEV = "cuda"
@@ -307,7 +342,7 @@ def phase_kernels(model, events, seed):
     gen = torch.Generator(device=DEV).manual_seed(seed + 1)
     per_kernel = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
                           ops_ms=0.0, max_abs_err=0.0, sites=0)
-                  for n in KERNEL_WRAPPERS}
+                  for n in PER_FORWARD}
     print("phase 2: kernel vs plain at every flagship site geometry "
           "(times in ms per call)")
     print(f"  {'kernel':15s} {'x':>3s} {'input':34s} {'dtype':9s} "
@@ -370,11 +405,11 @@ def phase_main_path(exp, model, batches):
         if d is not None and not np.isfinite(d).all():
             fail("non-finite detections")
             break
-    want = {k: v * len(batches) for k, v in PER_FORWARD.items()}
+    want = {k: PER_FORWARD.get(k, 0) * len(batches) for k in KERNEL_WRAPPERS}
     if counts != want:
         fail(f"launch counts {counts}, expected {want}")
     layer_times(model, batches[0])
-    profile_forward(model, batches[0])
+    profile_call(lambda: model(batches[0]), "one forward")
     return counts
 
 
@@ -406,15 +441,15 @@ def layer_times(model, events) -> None:
                                            "head")))
 
 
-def profile_forward(model, events, top: int = 14):
-    """One forward under torch.profiler: device time by kernel, and the
-    device's busy share of the forward's host-clock window."""
+def profile_call(fn, what: str, top: int = 14) -> None:
+    """One call of fn() under torch.profiler: device time by kernel, and
+    the device's busy share of the call's host-clock window."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model(events)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -429,9 +464,9 @@ def profile_forward(model, events, top: int = 14):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
-        print("  profile: no device time recorded (not measured)")
+        print(f"  profile of {what}: no device time recorded (not measured)")
         return
-    print(f"  profile of one forward: device busy {busy:.3f} ms of "
+    print(f"  profile of {what}: device busy {busy:.3f} ms of "
           f"{wall_ms:.3f} ms host-clock window (idle share "
           f"{1 - busy / wall_ms:.3f}, profiler on); top kernels:")
     for ms, n, key in rows[:top]:
@@ -583,10 +618,232 @@ def phase_card_vs_cpu(seed, events):
           f"{float((gpu - cpu).abs().max()):.3e}")
 
 
+# ---------------------------------------------------------------- phase 5
+
+BWD_OPS = 24  # f32 operations per element and step of the train backward
+
+
+def train_site_geometries(model, events, labels):
+    """{(shape, dtype, T, thresh, spike_fn): count} of the spiking
+    sites' preactivations in one train forward (pre-hooks on the neurons;
+    run without gradients)."""
+    sites = OrderedDict()
+
+    def hook(mod, args):
+        x = args[0]
+        key = (tuple(x.shape), x.dtype, mod.T, mod.thresh, mod.spike_fn)
+        sites[key] = sites.get(key, 0) + 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, PLIF)]
+    with torch.no_grad():
+        model(events, labels)
+    for h in handles:
+        h.remove()
+    return sites
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def check_train_site(shape, dtype, T, th, kind, gen, identity=False):
+    """Both train kernels against their plain versions on random bf16
+    preactivations and cotangents; BN terms that put the normalized
+    preactivation near N(0.6, 1) (the identity terms for ``identity``)."""
+    C = shape[1]
+    dev = dict(device=DEV)
+    z = torch.randn(shape, generator=gen, **dev)
+    if identity:
+        mean, mul, bias = (torch.full((C,), v, **dev) for v in (0.0, 1.0,
+                                                                0.0))
+        x = (z + 0.6).to(dtype)
+    else:
+        mean = 0.2 * torch.randn(C, generator=gen, **dev)
+        mul = 0.5 + torch.rand(C, generator=gen, **dev)
+        bias = 0.6 + 0.1 * torch.randn(C, generator=gen, **dev)
+        x = (z + mean.reshape(1, -1, 1, 1)).to(dtype)
+    w = 2 * torch.rand((), generator=gen, **dev) - 1
+    a = (1 - torch.sigmoid(w)).reshape(1)
+    g = torch.randn(shape, generator=gen, **dev).to(dtype)
+    fwd_args = (x, a, mean, mul, bias, T, th, kind)
+    bwd_args = (x, g, a, mean, mul, bias, T, th, kind,
+                train_alpha(kind, 2.0))
+    got = plif_train_forward(*fwd_args)
+    want = plif_train_forward_plain(*fwd_args)
+    kb = plif_train_backward(*bwd_args)
+    pb = plif_train_backward_plain(*bwd_args)
+    torch.cuda.synchronize()
+    res = dict(rate=float(want.float().mean()),
+               fwd_mism=int((_bits(got) != _bits(want)).sum()),
+               dx_mism=int((_bits(kb[0]) != _bits(pb[0])).sum()))
+    res["fwd_err"] = float((got.float() - want.float()).abs().max())
+    res["bwd_err"] = float((kb[0].float() - pb[0].float()).abs().max())
+    res["sum_rel"] = {}
+    for name, u, v in zip(("da", "dm", "ds", "db"), kb[1:], pb[1:]):
+        res["bwd_err"] = max(res["bwd_err"], float((u - v).abs().max()))
+        res["sum_rel"][name] = float((u - v).abs().max()
+                                     / v.abs().max().clamp_min(1e-30))
+    what = f"train PLIF at {shape}{' (identity BN)' if identity else ''}"
+    if res["fwd_mism"]:
+        fail(f"{what}: {res['fwd_mism']} spikes differ (bit-equal expected)")
+    if res["dx_mism"]:
+        fail(f"{what}: {res['dx_mism']} dx values differ (bit-equal "
+             "expected)")
+    bad = {k: v for k, v in res["sum_rel"].items() if not v <= SUM_TOL}
+    if bad:
+        fail(f"{what}: sums beyond {SUM_TOL:.0e} relative: {bad}")
+    if not 0.05 <= res["rate"] <= 0.95:
+        fail(f"{what}: firing rate {res['rate']:.4f} outside 5-95%")
+    del got, want, kb, pb
+    res["fwd_ms"] = cuda_ms(lambda: plif_train_forward(*fwd_args), 20)
+    res["fwd_plain_ms"] = cuda_ms(lambda: plif_train_forward_plain(
+        *fwd_args), 3, warmup=1)
+    res["bwd_ms"] = cuda_ms(lambda: plif_train_backward(*bwd_args), 20)
+    res["bwd_plain_ms"] = cuda_ms(lambda: plif_train_backward_plain(
+        *bwd_args), 3, warmup=1)
+    n, es = x.numel(), x.element_size()
+    res["fwd_bound"] = bound_ms(2 * n * es + 12 * C + 4, 0.0,
+                                (PLIF_OPS + BN_OPS) * n)
+    res["bwd_bound"] = bound_ms(3 * n * es + 12 * C + 4 + 16 * C, 0.0,
+                                (PLIF_OPS + BN_OPS + BWD_OPS) * n)
+    return res
+
+
+def phase_train_kernels(model, events, labels, seed):
+    sites = train_site_geometries(model, events, labels)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 3)
+    agg = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                   ops_ms=0.0, max_abs_err=0.0) for n in PER_STEP}
+    print("phase 5: train kernels vs plain at every train-step site geometry "
+          "(ms per call)")
+    print(f"  {'x':>3s} {'preactivation':22s} {'rate':>6s} {'fwd':>8s} "
+          f"{'plain':>8s} {'bound':>8s} {'bwd':>8s} {'plain':>8s} "
+          f"{'bound':>8s}  sums |kernel - plain| / max|plain|")
+    n_sites = 0
+    for (shape, dtype, T, th, kind), count in sites.items():
+        r = check_train_site(shape, dtype, T, th, kind, gen)
+        n_sites += count
+        print(f"  {count:3d} {'x'.join(map(str, shape)):22s} "
+              f"{r['rate']:6.3f} {r['fwd_ms']:8.4f} {r['fwd_plain_ms']:8.4f} "
+              f"{r['fwd_bound'][0]:8.4f} {r['bwd_ms']:8.4f} "
+              f"{r['bwd_plain_ms']:8.4f} {r['bwd_bound'][0]:8.4f}  " +
+              " ".join(f"{k} {v:.1e}" for k, v in r["sum_rel"].items()),
+              flush=True)
+        for name, pre in (("plif_train_fwd", "fwd"), ("plif_train_bwd",
+                                                       "bwd")):
+            a = agg[name]
+            a["ms"] += count * r[f"{pre}_ms"]
+            a["plain_ms"] += count * r[f"{pre}_plain_ms"]
+            bms, by = r[f"{pre}_bound"]
+            a["bound_ms"] += count * bms
+            a["bytes_ms" if by == "bytes" else "ops_ms"] += count * bms
+            a["max_abs_err"] = max(a["max_abs_err"], r[f"{pre}_err"])
+    if n_sites != PER_STEP["plif_train_fwd"] or str(dtype) != "torch.bfloat16":
+        fail(f"train step: {n_sites} spiking sites in {dtype}, expected "
+             f"{PER_STEP['plif_train_fwd']} in bf16")
+    # the backward of kernel 1 (pallas_call at plif_pallas.py:338): the
+    # same kernel with the identity BN terms
+    r = check_train_site(shape, dtype, T, th, kind, gen, identity=True)
+    print(f"  identity BN at {'x'.join(map(str, shape))}: rate "
+          f"{r['rate']:.3f}, spikes differ {r['fwd_mism']}, dx differ "
+          f"{r['dx_mism']}, sums " + " ".join(
+              f"{k} {v:.1e}" for k, v in r["sum_rel"].items()) +
+          f"; bwd {r['bwd_ms']:.4f} ms, plain {r['bwd_plain_ms']:.4f}")
+    # the kernels' other branches, which the flagship does not take: the
+    # other surrogates, and f32 storage
+    for kind, dt, shp in (("rect", dtype, (3 * 4, 16, 8, 8)),
+                          ("sigmoid", dtype, (3 * 4, 16, 8, 8)),
+                          ("tanh", dtype, (3 * 4, 16, 8, 8)),
+                          ("atan", torch.float32, (3 * 4, 8, 4, 4))):
+        r = check_train_site(shp, dt, T, th, kind, gen)
+        print(f"  {kind} {str(dt)[6:]} at {'x'.join(map(str, shp))}: spikes "
+              f"differ {r['fwd_mism']}, dx differ {r['dx_mism']}, sums " +
+              " ".join(f"{k} {v:.1e}" for k, v in r["sum_rel"].items()))
+    return agg
+
+
+# ---------------------------------------------------------------- phase 6
+
+def random_labels(B: int, H: int, W: int, rng, max_labels: int = 50):
+    """(B, max_labels, 5) [cls, cx, cy, w, h]: 1-8 boxes an image, w and h
+    at least 8 px, inside the frame, classes {0, 1}, zero rows after."""
+    lab = np.zeros((B, max_labels, 5), np.float32)
+    for b in range(B):
+        n = int(rng.integers(1, 9))
+        w = rng.uniform(8, W / 3, n)
+        h = rng.uniform(8, H / 3, n)
+        lab[b, :n] = np.stack([rng.integers(0, 2, n), rng.uniform(w / 2,
+                               W - w / 2), rng.uniform(h / 2, H - h / 2), w,
+                               h], 1)
+    return torch.from_numpy(lab)
+
+
+def phase_train_step(exp, model, events, labels, steps: int):
+    B = events.shape[0]
+    print(f"phase 6: train step, gen1_syolox_m at B={B}, {steps} timed "
+          "steps on one batch (Adam, fixed lr, EMA)")
+    opt = exp.get_optimizer(model, B, iters_per_epoch=1000)
+    ema = init_ema(model) if exp.ema else None
+    losses = [train_step(model, opt, ema, events, labels) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(train_step(model, opt, ema, events, labels))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {dt / steps * 1e3:.3f} ms/step, {B * steps / dt:.2f} images/s "
+          f"(host clock, {steps} steps in {dt:.4f} s), peak memory "
+          f"{peak:.3f} GiB; launches {counts}")
+    want = {k: PER_STEP.get(k, 0) * steps for k in KERNEL_WRAPPERS}
+    if counts != want:
+        fail(f"train step launch counts {counts}, expected {want}")
+    host = [{k: float(v) for k, v in x.items()} for x in losses]
+    for i in (0, len(host) - 1):
+        print(f"  step {i + 1}: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in host[i].items()))
+    print("  total loss by step: " + " ".join(
+        f"{x['total_loss']:.4f}" for x in host))
+    if not all(np.isfinite(v) for x in host for v in x.values()):
+        fail("train step: a loss is not finite")
+    n_none = sum(p.grad is None for p in model.parameters())
+    bad = sum(int(not torch.isfinite(p.grad).all())
+              for p in model.parameters() if p.grad is not None)
+    if n_none or bad:
+        fail(f"train step: {n_none} parameters without a gradient, {bad} "
+             "with non-finite gradients")
+    if not host[-1]["total_loss"] < host[0]["total_loss"]:
+        fail("train step: the total loss did not fall on a fixed batch")
+
+    # one more step, split by CUDA events (not counted above)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    opt.zero_grad(set_to_none=True)
+    ev[0].record()
+    out = model(events, labels)
+    ev[1].record()
+    out["total_loss"].backward()
+    ev[2].record()
+    optimizer_update(model, opt, ema)
+    ev[3].record()
+    torch.cuda.synchronize()
+    fwd, bwd, upd = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    print(f"  one step by CUDA events: forward {fwd:.3f} ms, backward "
+          f"{bwd:.3f} ms, optimizer + EMA {upd:.3f} ms")
+    profile_call(lambda: train_step(model, opt, ema, events, labels),
+                 "one train step", top=16)
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--forwards", type=int, default=5)
+    ap.add_argument("--train-batch", type=int, default=64)
+    ap.add_argument("--train-steps", type=int, default=8)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -604,25 +861,41 @@ def main() -> int:
     print(f"built {len(_build.SOURCES)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    exp = get_exp("gen1_syolox_m").deploy()
-    model = exp.get_model(device=DEV, seed=SEED)
-    H, W = exp.test_size
-    gen = torch.Generator(device=DEV).manual_seed(SEED)
-    shape = (args.batch, exp.Tl, exp.Tm, H, W, exp.in_dim)
-    batches = [torch.poisson(torch.full(shape, 0.2, device=DEV),
-                             generator=gen) for _ in range(args.forwards)]
-    # random weights: BN statistics as training would track them, so that
-    # every stage fires
-    calibrate_spiking_bn(model, batches[0][:8])
+    with torch.no_grad():
+        exp = get_exp("gen1_syolox_m").deploy()
+        model = exp.get_model(device=DEV, seed=SEED)
+        H, W = exp.test_size
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        shape = (args.batch, exp.Tl, exp.Tm, H, W, exp.in_dim)
+        batches = [torch.poisson(torch.full(shape, 0.2, device=DEV),
+                                 generator=gen) for _ in range(args.forwards)]
+        # random weights: BN statistics as training would track them, so
+        # that every stage fires
+        calibrate_spiking_bn(model, batches[0][:8])
 
-    per_kernel = phase_kernels(model, batches[0], SEED)
-    counts = phase_main_path(exp, model, batches)
-    del batches
+        per_kernel = phase_kernels(model, batches[0], SEED)
+        counts = phase_main_path(exp, model, batches)
+        del batches, model
+        torch.cuda.empty_cache()
+        small = torch.poisson(torch.full((2, exp.Tl, exp.Tm, H, W,
+                                          exp.in_dim), 0.2),
+                              generator=torch.Generator().manual_seed(SEED))
+        phase_card_vs_cpu(SEED, small)
     torch.cuda.empty_cache()
-    small = torch.poisson(torch.full((2, exp.Tl, exp.Tm, H, W, exp.in_dim),
-                                     0.2), generator=torch.Generator()
-                          .manual_seed(SEED))
-    phase_card_vs_cpu(SEED, small)
+
+    texp = get_exp("gen1_syolox_m")
+    tmodel = texp.get_model(device=DEV, seed=SEED, train=True)
+    H, W = texp.test_size
+    B = args.train_batch
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    events = torch.poisson(torch.full((B, texp.Tl, texp.Tm, H, W,
+                                       texp.in_dim), 0.2, device=DEV),
+                           generator=gen)
+    labels = random_labels(B, H, W, np.random.default_rng(SEED)).to(DEV)
+    per_kernel.update(phase_train_kernels(tmodel, events, labels, SEED))
+    counts.update({k: v for k, v in phase_train_step(
+        texp, tmodel, events, labels, args.train_steps).items()
+        if k in PER_STEP})
 
     kernels = []
     for kname, agg in per_kernel.items():
@@ -634,9 +907,11 @@ def main() -> int:
             bound_by=("bytes" if agg["bytes_ms"] >= agg["ops_ms"]
                       else "operations"),
             library_ms=None))
-    print("kernel times are per forward: the sum over the kernel's sites of "
-          "the per-call times above; no single PyTorch call computes a "
-          "fused site or the PLIF recurrence, so library_ms is null")
+    print("kernel times: eval kernels per forward, train kernels per train "
+          "step, each the sum over the kernel's sites of the per-call times "
+          "above; launches from phase 3 (eval) and phase 6 (train); no "
+          "single PyTorch call computes a fused site, the PLIF recurrence or "
+          "its backward, so library_ms is null")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     if FAILURES:

@@ -1,0 +1,152 @@
+"""Learning-rate schedules and the optimizer with the reference's group
+policy (counterpart of ``eas_snn_tpu/core/optim.py``; reference
+yolox/exp/event_yolox_base.py:353-416, yolox/utils/lr_scheduler.py).
+
+Schedules are plain Python functions of the update count. The optimizer
+is ``torch.optim.Adam`` (or SGD with Nesterov momentum) over three groups:
+conv kernels outside BN and outside the embedding, which take the weight
+decay (coupled into the gradient, torch's and the JAX package's rule);
+every other parameter outside the embedding; and the embedding, whose
+learning rate is scaled by ``emb_lr / base_lr`` for good (the JAX
+package's reading of ``emb_lr``, which the reference's trainer overwrites
+after its first step). Update t (counted from 0) uses schedule(t); the
+count is each group's ``"updates"`` entry, so it travels with
+``state_dict()``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+
+__all__ = ["build_lr_schedule", "build_optimizer", "set_learning_rate",
+           "updates"]
+
+
+def build_lr_schedule(
+    name: str,
+    lr: float,
+    iters_per_epoch: int,
+    total_epochs: int,
+    warmup_epochs: float = 0,
+    warmup_lr_start: float = 0.0,
+    no_aug_epochs: int = 0,
+    min_lr_ratio: float = 0.05,
+    milestones: tuple = (),
+    gamma: float = 0.1,
+    semi_epoch: int = 0,
+    iters_per_epoch_semi: Optional[int] = None,
+) -> Callable[[int], float]:
+    """Per-update LR schedule: 'fixed', 'cos', 'warmcos', 'yoloxwarmcos'
+    (quadratic warmup, cosine to min_lr_ratio, flat minimum over the
+    no-aug tail), 'yoloxsemiwarmcos' (a slower clock after semi_epoch) and
+    'multistep' (milestones in epochs)."""
+    total_iters = iters_per_epoch * total_epochs
+    warmup_iters = iters_per_epoch * warmup_epochs
+    no_aug_iters = iters_per_epoch * no_aug_epochs
+    min_lr = lr * min_lr_ratio
+    denom = max(total_iters - warmup_iters - no_aug_iters, 1)
+    ms_iters = [int(total_iters * m / total_epochs) for m in milestones or ()]
+    if name not in ("fixed", "cos", "warmcos", "yoloxwarmcos",
+                    "yoloxsemiwarmcos", "multistep"):
+        raise ValueError(f"unknown scheduler '{name}'")
+
+    def quad_warm(it: float) -> float:
+        return ((lr - warmup_lr_start) * (it / max(warmup_iters, 1)) ** 2
+                + warmup_lr_start)
+
+    def cosine(pos: float) -> float:
+        return min_lr + 0.5 * (lr - min_lr) * (1.0 + math.cos(
+            math.pi * pos / denom))
+
+    def sched(step: int) -> float:
+        it = float(step)
+        if name == "fixed":
+            return lr
+        if name == "cos":
+            return lr * 0.5 * (1.0 + math.cos(math.pi * it / total_iters))
+        if name == "warmcos":
+            if it <= warmup_iters:
+                return ((lr - warmup_lr_start) * it / max(warmup_iters, 1)
+                        + warmup_lr_start)
+            return lr * 0.5 * (1.0 + math.cos(
+                math.pi * (it - warmup_iters) / (total_iters - warmup_iters)))
+        if name == "yoloxwarmcos":
+            if no_aug_iters > 0 and it >= total_iters - no_aug_iters:
+                return min_lr
+            if it <= warmup_iters:
+                return quad_warm(it)
+            return cosine(it - warmup_iters)
+        if name == "yoloxsemiwarmcos":
+            ipe_semi = iters_per_epoch_semi or iters_per_epoch
+            normal_iters = iters_per_epoch * semi_epoch
+            semi_iters = ipe_semi * (total_epochs - semi_epoch - no_aug_epochs)
+            if it <= warmup_iters:
+                return quad_warm(it)
+            if it >= normal_iters + semi_iters:
+                return min_lr
+            if it <= normal_iters:
+                return cosine(it - warmup_iters)
+            return cosine(normal_iters - warmup_iters
+                          + (it - normal_iters) * iters_per_epoch / ipe_semi)
+        return lr * gamma ** sum(it >= m for m in ms_iters)  # multistep
+
+    return sched
+
+
+def _groups(model: nn.Module):
+    """(decay, no_decay, embedding) parameter lists: decay holds the conv
+    kernels outside BN and outside ``model.embedding``."""
+    emb = {id(p) for n, p in model.named_parameters()
+           if n.split(".")[0] == "embedding"}
+    kernels = {id(m.weight) for m in model.modules()
+               if isinstance(m, nn.Conv2d)}
+    decay, no_decay, emb_params = [], [], []
+    for _, p in model.named_parameters():
+        if id(p) in emb:
+            emb_params.append(p)
+        elif id(p) in kernels:
+            decay.append(p)
+        else:
+            no_decay.append(p)
+    return decay, no_decay, emb_params
+
+
+def build_optimizer(model: nn.Module, lr_schedule: Callable[[int], float],
+                    optimizer: str = "ADAM", weight_decay: float = 0.0,
+                    momentum: float = 0.9, emb_lr: float = -1.0,
+                    base_lr: float = 1e-3) -> torch.optim.Optimizer:
+    """Adam (default) or SGD(nesterov) with the reference's groups. The
+    schedule rides on the optimizer as ``lr_schedule``; each group's
+    ``lr_scale`` multiplies it."""
+    emb_scale = emb_lr / base_lr if emb_lr > 0 else 1.0
+    decay, no_decay, emb = _groups(model)
+    groups = [
+        dict(params=decay, weight_decay=weight_decay, lr_scale=1.0),
+        dict(params=no_decay, weight_decay=0.0, lr_scale=1.0),
+        dict(params=emb, weight_decay=0.0, lr_scale=emb_scale),
+    ]
+    groups = [dict(g, updates=0) for g in groups if g["params"]]
+    lr0 = lr_schedule(0)
+    if optimizer.upper() == "ADAM":
+        opt = torch.optim.Adam(groups, lr=lr0, betas=(0.9, 0.999), eps=1e-8)
+    else:
+        opt = torch.optim.SGD(groups, lr=lr0, momentum=momentum,
+                              nesterov=True)
+    opt.lr_schedule = lr_schedule
+    return opt
+
+
+def updates(optimizer: torch.optim.Optimizer) -> int:
+    """The number of updates the optimizer has applied."""
+    return optimizer.param_groups[0]["updates"]
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, step: int) -> None:
+    """Every group's lr for update ``step``: schedule(step) * lr_scale."""
+    lr = optimizer.lr_schedule(step)
+    for g in optimizer.param_groups:
+        g["lr"] = lr * g["lr_scale"]

@@ -10,6 +10,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <type_traits>
+
 // One PLIF step in f32: v = v*a + x; s = [v - th >= 0] (ge) or [> 0];
 // v -= th*s. Returns the spike.
 __device__ __forceinline__ int8_t plif_step(float& v, float x, float a,
@@ -25,6 +27,18 @@ __device__ __forceinline__ int8_t plif_step(float& v, float x, float a,
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// The BN output (x - mean) * mul + bias in f32, rounded to the storage
+// dtype (the last argument selects it), returned as f32.
+__device__ __forceinline__ float bn_apply(float x, float mean, float mul,
+                                          float bias, float) {
+  return __fadd_rn(__fmul_rn(__fsub_rn(x, mean), mul), bias);
+}
+__device__ __forceinline__ float bn_apply(float x, float mean, float mul,
+                                          float bias, __nv_bfloat16) {
+  const float y = __fadd_rn(__fmul_rn(__fsub_rn(x, mean), mul), bias);
+  return __bfloat162float(__float2bfloat16_rn(y));
 }
 
 // Storage value -> the bf16 operand of the conv's multiply (int8 spike

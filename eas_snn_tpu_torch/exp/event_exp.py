@@ -1,12 +1,14 @@
-"""The event-detection experiment config, model fields only (counterpart of
-``eas_snn_tpu/exp/event_exp.py:EventExp``), with the presets the port
-serves and its eval front door.
+"""The event-detection experiment config, model and training fields
+(counterpart of ``eas_snn_tpu/exp/event_exp.py:EventExp``), with the
+presets the port serves, its eval front door and its training factories.
 
 ``get_exp(name)`` gives a preset, ``exp.deploy()`` switches it to the
 deployment precision (the counterpart of the JAX ``tpu_deploy()`` without
-its space-to-depth sampler packing, a TPU layout trick), ``exp.get_model()``
-builds the seeded model on the card and ``exp.detect(model, events)`` runs
-the forward, then the confidence filter and NMS.
+its space-to-depth sampler packing, a TPU layout trick),
+``exp.get_model()`` builds the seeded model on the card (in train mode
+with ``train=True``), ``exp.detect(model, events)`` runs the forward
+without gradients, then the confidence filter and NMS, and
+``exp.get_trainer()`` gives the trainer.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..core.optim import build_lr_schedule, build_optimizer
 from ..models import EASYOLOX
 from ..ops.boxes import postprocess
 
@@ -41,9 +44,11 @@ def resolve_device(device) -> torch.device:
 
 
 class EventExp:
-    """Model and test fields of the JAX EventExp, with its defaults."""
+    """Model, training and test fields of the JAX EventExp, with its
+    defaults."""
 
     def __init__(self):
+        self.exp_name = "event_exp"
         self.num_classes = 100
         self.depth = 1.00
         self.width = 1.00
@@ -69,6 +74,22 @@ class EventExp:
         self.embedding_state_dtype = None
         # conv+BN+PLIF site policy mode (ops/conv_plif_policy.py)
         self.conv_plif_fuse = "auto"
+        # training (reference event_yolox_base.py:101-133)
+        self.warmup_epochs = 0
+        self.max_epoch = 300
+        self.warmup_lr = 0
+        self.min_lr_ratio = 0.05
+        self.basic_lr_per_img = 1e-3 / 64.0
+        self.scheduler = "yoloxwarmcos"
+        self.no_aug_epochs = 0
+        self.ema = True
+        self.optimizer = "ADAM"
+        self.weight_decay = 0
+        self.momentum = 0.9
+        self.emb_lr = -1.0
+        self.print_interval = 10
+        self.seed = None
+        self.output_dir = "./outputs"
         self.test_size = (640, 640)
         self.test_conf = 0.01
         self.nmsthre = 0.65
@@ -85,9 +106,11 @@ class EventExp:
     def use_spike_mode(self) -> str:
         return _USE_SPIKE_MAP[self.use_spike]
 
-    def get_model(self, device="cuda", seed: int = 0) -> EASYOLOX:
-        """The detector in eval mode on ``device``, its weights drawn from
-        a ``torch.Generator`` seeded with ``seed``."""
+    def get_model(self, device="cuda", seed: int = 0,
+                  train: bool = False) -> EASYOLOX:
+        """The detector on ``device``, in eval mode (train mode with
+        ``train``), its weights drawn from a ``torch.Generator`` seeded
+        with ``seed``."""
         dev = resolve_device(device)
         if self.embedding != "arsnn":
             raise NotImplementedError(
@@ -108,18 +131,47 @@ class EventExp:
             fuse=self.conv_plif_fuse,
         )
         model.reset_parameters(torch.Generator().manual_seed(seed))
-        return model.to(dev).eval()
+        return model.to(dev).train(train)
 
     def detect(self, model: EASYOLOX, events: torch.Tensor
                ) -> List[Optional[np.ndarray]]:
         return detect(model, events, self.test_conf, self.nmsthre)
 
+    def get_lr_schedule(self, batch_size: int, iters_per_epoch: int):
+        return build_lr_schedule(
+            self.scheduler, self.basic_lr_per_img * batch_size,
+            iters_per_epoch, self.max_epoch,
+            warmup_epochs=self.warmup_epochs, warmup_lr_start=self.warmup_lr,
+            no_aug_epochs=self.no_aug_epochs, min_lr_ratio=self.min_lr_ratio,
+            milestones=tuple(getattr(self, "milestones", ()) or ()),
+            gamma=getattr(self, "gamma", 0.1),
+            semi_epoch=getattr(self, "semi_epoch", 0),
+            iters_per_epoch_semi=getattr(self, "iters_per_epoch_semi", None),
+        )
+
+    def get_optimizer(self, model: EASYOLOX, batch_size: int,
+                      iters_per_epoch: int = 1000) -> torch.optim.Optimizer:
+        return build_optimizer(
+            model, self.get_lr_schedule(batch_size, iters_per_epoch),
+            optimizer=self.optimizer, weight_decay=self.weight_decay,
+            momentum=self.momentum, emb_lr=self.emb_lr,
+            base_lr=self.basic_lr_per_img * batch_size,
+        )
+
+    def get_trainer(self, device="cuda",
+                    iters_per_epoch: Optional[int] = None):
+        from ..core.trainer import Trainer
+
+        return Trainer(self, device=device, iters_per_epoch=iters_per_epoch)
+
 
 def detect(model: EASYOLOX, events: torch.Tensor, conf_thre: float = 0.01,
            nms_thre: float = 0.65) -> List[Optional[np.ndarray]]:
-    """Forward, then per image the confidence filter and class-aware NMS:
-    a (n, 7) [x1, y1, x2, y2, obj, cls_conf, cls] array, or None."""
-    preds = model(events)
+    """The eval forward without gradients, then per image the confidence
+    filter and class-aware NMS: a (n, 7) [x1, y1, x2, y2, obj, cls_conf,
+    cls] array, or None."""
+    with torch.no_grad():
+        preds = model(events)
     return postprocess(preds.float().cpu().numpy(), model.head.num_classes,
                        conf_thre, nms_thre)
 
@@ -142,14 +194,24 @@ def _gen1_syolox(exp: EventExp, depth: float, width: float) -> EventExp:
     exp.spike_fn = "atan"
     exp.Tl, exp.Tm, exp.Ts, exp.T = 1, 4, 3, 3
     exp.compute_dtype = "bfloat16"
+    exp.max_epoch = 30
+    exp.scheduler = "fixed"
+    exp.basic_lr_per_img = 1.5625e-5
+    return exp
+
+
+def _named(name: str, exp: EventExp) -> EventExp:
+    exp.exp_name = name
     return exp
 
 
 _PRESETS = {
     # the flagship: exps/default/gen1_syolox_m.py
-    "gen1_syolox_m": lambda: _gen1_syolox(EventExp(), 0.67, 0.75),
+    "gen1_syolox_m": lambda: _named(
+        "gen1_syolox_m", _gen1_syolox(EventExp(), 0.67, 0.75)),
     # exps/default/gen1_syolox_s.py
-    "gen1_syolox_s": lambda: _gen1_syolox(EventExp(), 0.33, 0.50),
+    "gen1_syolox_s": lambda: _named(
+        "gen1_syolox_s", _gen1_syolox(EventExp(), 0.33, 0.50)),
 }
 
 

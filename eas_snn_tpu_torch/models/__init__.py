@@ -1,4 +1,4 @@
-"""Modules of the port's detector (eval forward), NCHW inside."""
+"""Modules of the port's detector (eval and train), NCHW inside."""
 
 from .blocks import BaseConv, Neuron
 from .embedding import ARSNNEmbedding

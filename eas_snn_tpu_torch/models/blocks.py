@@ -1,12 +1,14 @@
 """YOLOX building blocks with spiking sites (counterpart of
-``eas_snn_tpu/models/blocks.py``), NCHW, eval only.
+``eas_snn_tpu/models/blocks.py``), NCHW, eval and train.
 
 Spiking or analog is a constructor flag. A spiking block sees (T*B, C, H,
-W) tensors, t-major, and its activation is a PLIF neuron over T steps with
-int8 spikes out. Parameter names follow the reference PyTorch model after
-spikingjelly's conversion: a spiking ``BaseConv`` holds its conv as
-``conv.0`` (the SeqToANNContainer) and its neuron's decay logit as
-``act.w``; an analog one holds ``conv`` directly.
+W) tensors, t-major, and its activation is a PLIF neuron over T steps:
+int8 spikes out at eval, spikes in the compute dtype in training (they
+carry the surrogate gradient). Parameter names follow the reference
+PyTorch model after spikingjelly's conversion: a spiking ``BaseConv``
+holds its conv as ``conv.0`` (the SeqToANNContainer) and its neuron's
+decay logit as ``act.w``; an analog one holds ``conv`` directly. Each
+module branches on ``self.training``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from ..ops.conv_plif import (
 )
 from ..ops.conv_plif_policy import should_fuse
 from ..ops.lif import PLIF_W_INIT
-from ..ops.plif import bn_eval, plif_forward
+from ..ops.plif import bn_eval, plif_forward, plif_train
 
 __all__ = [
     "Neuron", "BatchNorm", "PLIF", "BaseConv", "Bottleneck", "SPPBottleneck",
@@ -44,10 +46,44 @@ class Neuron(NamedTuple):
     fuse: str = "auto"
 
 
+# flax's momentum: running <- 0.97 * running + 0.03 * batch statistic
+_FLAX_MOMENTUM = 0.97
+
+
+class _BatchStats(torch.autograd.Function):
+    """Per-channel mean and biased variance of an NCHW x in f32, flax's fast
+    variance: var = max(0, E[x^2] - E[x]^2). The backward recomputes from
+    x, which is saved in its own dtype (an f32 copy of every conv output
+    would cost ~5 GB at the flagship's B=64)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        xf = x.float()
+        mean = xf.mean((0, 2, 3))
+        z = (xf * xf).mean((0, 2, 3)) - mean * mean
+        ctx.save_for_backward(x, mean, z)
+        return mean, torch.clamp_min(z, 0.0)
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var):
+        x, mean, z = ctx.saved_tensors
+        n = x.numel() // x.shape[1]
+        # d max(0, z) / dz: 1 above 0, 1/2 at 0 (JAX's tie rule), 0 below
+        g_z = g_var * ((z > 0).float() + 0.5 * (z == 0).float())
+        g_m = g_mean - 2.0 * mean * g_z
+        shp = (1, -1, 1, 1)
+        dx = (g_m / n).reshape(shp) + (2.0 * g_z / n).reshape(shp) * x.float()
+        return dx.to(x.dtype)
+
+
 class BatchNorm(nn.BatchNorm2d):
-    """Eval BatchNorm with the JAX package's arithmetic: mul =
-    rsqrt(var + eps) * scale, y = (x - mean) * mul + bias in f32, cast to
-    the compute dtype. eps 1e-3, momentum 0.03 (the reference's init_yolo);
+    """BatchNorm with the JAX package's arithmetic (``BatchNormFusable``):
+    mul = rsqrt(var + eps) * scale, y = (x - mean) * mul + bias in f32,
+    cast to the compute dtype. At eval mean and var are the running
+    statistics; in training they are the batch's (f32, biased fast
+    variance) and the running ones move as 0.97 * running + 0.03 * batch
+    (the biased variance, where ``nn.BatchNorm2d`` would store the
+    unbiased one). eps 1e-3, momentum 0.03 (the reference's init_yolo);
     the buffers keep torch's names, so checkpoints load by key."""
 
     def __init__(self, num_features: int):
@@ -58,29 +94,56 @@ class BatchNorm(nn.BatchNorm2d):
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         return self.running_mean, mul, self.bias
 
+    def terms(self, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(mean, mul, bias) for the NCHW ``x``: the running statistics' at
+        eval; in training the batch statistics' (differentiable), and the
+        running statistics are updated."""
+        if not self.training:
+            return self.eval_terms()
+        mean, var = _BatchStats.apply(x)
+        with torch.no_grad():
+            m = _FLAX_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            self.num_batches_tracked += 1
+        return mean, torch.rsqrt(var + self.eps) * self.weight, self.bias
+
     def forward(self, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
-        return bn_eval(x, *self.eval_terms(), out_dtype)
+        return bn_eval(x, *self.terms(x), out_dtype)
 
     def fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(mul, bias_f) such that this BN is x * mul + bias_f."""
+        """(mul, bias_f) such that this BN (at eval) is x * mul + bias_f."""
         return fold_bn(self.weight, self.bias, self.running_mean,
                        self.running_var, self.eps)
 
 
 class PLIF(nn.Module):
     """Parametric LIF over T steps folded in the batch axis; one learnable
-    scalar decay logit ``w`` (spikingjelly ParametricLIFNode)."""
+    scalar decay logit ``w`` (spikingjelly ParametricLIFNode). At eval the
+    spikes are int8 (patan runs atan's hard forward); in training they are
+    in x's dtype, with the surrogate gradient of ``spike_fn`` (alpha 2,
+    the JAX package's default; rect 1)."""
 
     def __init__(self, T: int, spike_fn: str = "atan", thresh: float = 1.0):
         super().__init__()
         self.T, self.thresh = T, thresh
-        # patan (ASGL) at eval is atan's hard forward
+        self.spike_fn = spike_fn
         self.kind = "atan" if spike_fn == "patan" else spike_fn
         self.w = nn.Parameter(torch.tensor(PLIF_W_INIT))
 
     def forward(self, x: torch.Tensor, bn=None) -> torch.Tensor:
-        """Spikes of x, or of ``bn_eval(x, *bn, x.dtype)`` with ``bn``."""
-        return plif_forward(x, self.T, self.w, self.thresh, self.kind, bn=bn)
+        """Spikes of x, or of ``bn_eval(x, *bn, x.dtype)`` with ``bn``
+        (mean, mul, bias)."""
+        if not self.training:
+            return plif_forward(x, self.T, self.w, self.thresh, self.kind,
+                                bn=bn)
+        if bn is None:
+            C = x.shape[1]
+            bn = tuple(torch.full((C,), v, device=x.device)
+                       for v in (0.0, 1.0, 0.0))
+        a = 1.0 - torch.sigmoid(self.w.float())
+        return plif_train(x, self.T, a, *bn, self.thresh, self.spike_fn)
 
 
 _ACTS = {"silu": nn.SiLU, "relu": nn.ReLU,
@@ -96,11 +159,12 @@ def _analog_act(name: str) -> nn.Module:
 class BaseConv(nn.Module):
     """Conv -> BN -> activation (reference network_blocks.py:31-56).
 
-    A spiking 1x1 or 3x3 site that the policy picks runs as one whole-site
-    conv+BN+PLIF kernel on BN-folded weights; every other site runs conv
-    (in the compute dtype) -> BN -> activation, where a spiking site's BN
-    runs inside the PLIF kernel. The input may be a tuple of tensors: a
-    channel concat, materialized only on the unfused path.
+    At eval a spiking 1x1 or 3x3 site that the policy picks runs as one
+    whole-site conv+BN+PLIF kernel on BN-folded weights; every other site,
+    and every site in training, runs conv (in the compute dtype) -> BN ->
+    activation, where a spiking site's BN runs inside the PLIF kernel (its
+    batch statistics' terms in training). The input may be a tuple of
+    tensors: a channel concat, materialized only on the unfused path.
     """
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int,
@@ -121,9 +185,10 @@ class BaseConv(nn.Module):
         return self.conv[0].weight if self.neuron.spiking else self.conv.weight
 
     def fused(self, pieces: Sequence[torch.Tensor]) -> bool:
-        """Does this site run as a whole-site conv+BN+PLIF kernel?"""
+        """Does this site run as a whole-site conv+BN+PLIF kernel? Never in
+        training."""
         n = self.neuron
-        if not n.spiking:
+        if not n.spiking or self.training:
             return False
         if (self.ksize, self.stride) not in ((1, 1), (3, 1), (3, 2)):
             return False
@@ -151,13 +216,13 @@ class BaseConv(nn.Module):
         y = F.conv2d(x, self.weight.to(self.dtype), stride=self.stride,
                      padding=(self.ksize - 1) // 2)
         if self.neuron.spiking:
-            return self.act(y, bn=self.bn.eval_terms())
+            return self.act(y, bn=self.bn.terms(y))
         return self.act(self.bn(y, self.dtype))
 
 
 class Bottleneck(nn.Module):
     """1x1 reduce -> 3x3 conv, additive shortcut (reference
-    network_blocks.py:81-104). Spiking: int8 spikes + int8 spikes."""
+    network_blocks.py:81-104). Spiking: spikes + spikes."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  shortcut: bool = True, expansion: float = 0.5,
@@ -174,18 +239,29 @@ class Bottleneck(nn.Module):
         return y + x if self.use_add else y
 
 
+def _max_pool_sep(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Stride-1 same-padded k x k max pool as two 1-D pools, rows then
+    columns: the values of the 2-D pool, and the JAX package's routing of
+    the gradient among tied maxima (each 1-D window sends it to its first
+    maximum)."""
+    x = F.max_pool2d(x, (k, 1), stride=1, padding=(k // 2, 0))
+    return F.max_pool2d(x, (1, k), stride=1, padding=(0, k // 2))
+
+
 def spp_pools(x: torch.Tensor, kernel_sizes: Sequence[int]) -> list:
-    """The SPP pyramid's stride-1 same-padded max pools, as a chain:
-    pool_{k+d-1}(x) == pool_d(pool_k(x)), so 9 rides on 5 and 13 on 9.
-    Values equal the direct pools. Spikes pool in f32 (exact) and come back
-    in their own dtype."""
+    """The SPP pyramid's stride-1 same-padded max pools, as the JAX
+    package's chain of separable pools: pool_{k+d-1}(x) == pool_d(pool_k(x)),
+    so 9 rides on 5 and 13 on 9. Values equal the direct pools; on spike
+    tensors ties are everywhere, and the gradient follows the JAX chain's
+    tie routing. Spikes pool in f32 (exact) and come back in their own
+    dtype."""
     y = x if x.is_floating_point() else x.float()
     pools, prev_k, src = [], 0, y
     for k in kernel_sizes:
         d = k - prev_k + 1 if prev_k else k
         if d < 1 or d % 2 == 0:  # not composable: pool directly
             src, d = y, k
-        src = F.max_pool2d(src, d, stride=1, padding=d // 2)
+        src = _max_pool_sep(src, d)
         pools.append(src.to(x.dtype))
         prev_k = k
     return pools

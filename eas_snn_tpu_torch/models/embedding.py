@@ -8,7 +8,10 @@ batch and the Tm micro-steps are scanned in reversed order
 learned temporal slices. The conv stacks are ``conv[ReLU conv]*`` as
 ``nn.Sequential`` (so their convs sit at indices 0, 2, ...), computed in
 ``dtype`` (None: the state dtype) with the bias added after the conv, as
-the JAX closure does.
+the JAX closure does. The same forward trains: the sampler's rect spike
+carries its surrogate gradient (``ops/arsnn.py``), and with no state dtype
+set (the flagship trains without ``deploy()``) the state keeps the
+input's dtype, f32.
 """
 
 from __future__ import annotations

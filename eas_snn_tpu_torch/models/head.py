@@ -1,15 +1,18 @@
-"""Decoupled anchor-free YOLOX head, eval decode (counterpart of
+"""Decoupled anchor-free YOLOX head (counterpart of
 ``eas_snn_tpu/models/head.py``; reference yolo_head.py), NCHW, analog.
 
-Per level the output channels are [reg(4), obj(1), cls(C)]; obj and cls
-are sigmoided, then xy = (reg_xy + grid) * stride and wh = exp(reg_wh) *
-stride with an ``ij`` grid (gx the column, gy the row).
+Per level the output channels are [reg(4), obj(1), cls(C)], decoded as
+xy = (reg_xy + grid) * stride and wh = exp(reg_wh) * stride with an ``ij``
+grid (gx the column, gy the row). At eval obj and cls are sigmoided and
+the decoded (B, A, 5 + C) tensor comes out; in training obj and cls stay
+logits and a :class:`HeadOutput` also carries the raw reg outputs (for
+the L1 loss), the grid and the stride of every anchor.
 """
 
 from __future__ import annotations
 
 from math import log
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -17,7 +20,19 @@ import torch.nn.functional as F
 
 from .blocks import BaseConv
 
-__all__ = ["YOLOXHead"]
+__all__ = ["YOLOXHead", "HeadOutput"]
+
+
+class HeadOutput(NamedTuple):
+    """Train outputs: decoded xy/wh in image units with obj/cls logits
+    (B, A, 5 + C), raw reg (B, A, 4), and per anchor (A,) grid x, grid y
+    and stride."""
+
+    outputs: torch.Tensor
+    origin_preds: torch.Tensor
+    grid_x: torch.Tensor
+    grid_y: torch.Tensor
+    strides: torch.Tensor
 
 
 class YOLOXHead(nn.Module):
@@ -58,8 +73,8 @@ class YOLOXHead(nn.Module):
         y = F.conv2d(x, conv.weight.to(self.dtype))
         return (y + conv.bias.to(self.dtype)[None, :, None, None]).float()
 
-    def forward(self, xin: Sequence[torch.Tensor]) -> torch.Tensor:
-        outputs, gxs, gys, svs = [], [], [], []
+    def forward(self, xin: Sequence[torch.Tensor]):
+        outputs, origins, gxs, gys, svs = [], [], [], [], []
         for k, (stride, x) in enumerate(zip(self.strides, xin)):
             x = self.stems[k](x)
             cls_out = self._pred(self.cls_preds[k], self.cls_convs[k](x))
@@ -69,18 +84,28 @@ class YOLOXHead(nn.Module):
             B, _, H, W = reg_out.shape
             out = torch.cat([reg_out, obj_out, cls_out], 1)
             out = out.reshape(B, out.shape[1], H * W).permute(0, 2, 1)
-            outputs.append(torch.cat([out[..., :4], torch.sigmoid(out[..., 4:])],
-                                     -1))
             yv, xv = torch.meshgrid(
                 torch.arange(H, dtype=torch.float32, device=x.device),
                 torch.arange(W, dtype=torch.float32, device=x.device),
                 indexing="ij")
-            gxs.append(xv.reshape(-1))
-            gys.append(yv.reshape(-1))
+            gx, gy = xv.reshape(-1), yv.reshape(-1)
+            if self.training:
+                # decode into image units, obj/cls as logits (JAX :116-121)
+                xy = (out[..., :2] + torch.stack([gx, gy], -1)[None]) * stride
+                wh = torch.exp(out[..., 2:4]) * stride
+                outputs.append(torch.cat([xy, wh, out[..., 4:]], -1))
+                origins.append(out[..., :4])
+            else:
+                outputs.append(torch.cat(
+                    [out[..., :4], torch.sigmoid(out[..., 4:])], -1))
+            gxs.append(gx)
+            gys.append(gy)
             svs.append(torch.full((H * W,), float(stride), device=x.device))
         out = torch.cat(outputs, 1)
-        grid = torch.stack([torch.cat(gxs), torch.cat(gys)], -1)[None]
-        sv = torch.cat(svs)[None, :, None]
-        xy = (out[..., :2] + grid) * sv
-        wh = torch.exp(out[..., 2:4]) * sv
+        gx, gy, sv = torch.cat(gxs), torch.cat(gys), torch.cat(svs)
+        if self.training:
+            return HeadOutput(out, torch.cat(origins, 1), gx, gy, sv)
+        grid = torch.stack([gx, gy], -1)[None]
+        xy = (out[..., :2] + grid) * sv[None, :, None]
+        wh = torch.exp(out[..., 2:4]) * sv[None, :, None]
         return torch.cat([xy, wh, out[..., 4:]], -1)

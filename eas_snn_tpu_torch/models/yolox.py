@@ -1,16 +1,19 @@
 """The assembled event detector: ARSNN sampler -> PAFPN (spiking CSPDarknet
 backbone, analog neck) -> YOLOX head (counterpart of
-``eas_snn_tpu/models/yolox.py:EASYOLOX``), eval forward only.
+``eas_snn_tpu/models/yolox.py:EASYOLOX``).
 
 ``use_spike`` is 'backbone' (spiking CSPDarknet, features rate-decoded
 before the analog neck) or 'none' (all analog; a multi-slice embedding
-output keeps slice 0). Events go in as (B, Tl, Tm, H, W, C) and decoded
-(B, A, 5 + num_classes) comes out, as in the JAX package.
+output keeps slice 0). Events go in as (B, Tl, Tm, H, W, C). At eval
+decoded (B, A, 5 + num_classes) comes out, as in the JAX package; in
+training with targets (B, M, 5) the loss dict of the JAX package
+(total, iou (already x5), conf, cls, l1, num_fg), and without targets the
+head's decoded train outputs (obj/cls as logits).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -20,6 +23,7 @@ from .blocks import BaseConv, Neuron
 from .embedding import ARSNNEmbedding
 from .head import YOLOXHead
 from .pafpn import YOLOPAFPN
+from .simota import yolox_losses
 
 __all__ = ["EASYOLOX", "USE_SPIKE_MODES"]
 
@@ -106,11 +110,25 @@ class EASYOLOX(nn.Module):
                              f"T={self.T}")
         return x.reshape((-1,) + tuple(x.shape[2:]))
 
-    @torch.no_grad()
-    def forward(self, events: torch.Tensor) -> torch.Tensor:
+    def forward(self, events: torch.Tensor,
+                targets: Optional[torch.Tensor] = None, use_l1: bool = False
+                ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
         x = self.embedding(events)  # (Ts, B*Tl, C, H, W)
         if self.use_spike == "none":
             x = x[0]
         else:
             x = self._temporalize(x)
-        return self.head(self.backbone(x))
+        out = self.head(self.backbone(x))
+        if not self.training:
+            return out
+        if targets is None:
+            return out.outputs
+        losses = yolox_losses(out.outputs, out.origin_preds, targets,
+                              out.grid_x, out.grid_y, out.strides,
+                              self.head.num_classes, use_l1=use_l1)
+        return {"total_loss": losses.total_loss,
+                "iou_loss": losses.iou_loss,
+                "conf_loss": losses.conf_loss,
+                "cls_loss": losses.cls_loss,
+                "l1_loss": losses.l1_loss,
+                "num_fg": losses.num_fg}

@@ -1,11 +1,13 @@
-"""Ops of the port: spike functions, PLIF dynamics, the PLIF and
-conv+BN+PLIF kernel wrappers with their plain versions, the ARSNN scan,
-the fusion policy and the NMS postprocess."""
+"""Ops of the port: surrogate spike functions, PLIF dynamics, the PLIF
+(eval and train) and conv+BN+PLIF kernel wrappers with their plain
+versions, the ARSNN scan, the fusion policy, box geometry and the NMS
+postprocess."""
 
 from .conv_plif import conv1x1_plif, conv3x3_plif, conv3x3s2_plif
-from .plif import plif_forward
+from .plif import plif_forward, plif_train_backward, plif_train_forward
 
-__all__ = ["plif_forward", "conv1x1_plif", "conv3x3_plif", "conv3x3s2_plif",
+__all__ = ["plif_forward", "plif_train_forward", "plif_train_backward",
+           "conv1x1_plif", "conv3x3_plif", "conv3x3s2_plif",
            "KERNEL_WRAPPERS", "reset_launches", "launch_counts"]
 
 # Every wrapper that launches a CUDA kernel, by kernel name.
@@ -14,6 +16,8 @@ KERNEL_WRAPPERS = {
     "conv1x1_plif": conv1x1_plif,
     "conv3x3_plif": conv3x3_plif,
     "conv3x3s2_plif": conv3x3s2_plif,
+    "plif_train_fwd": plif_train_forward,
+    "plif_train_bwd": plif_train_backward,
 }
 
 

@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "build_all", "get_lib", "check", "stream_ptr",
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("plif", "conv_plif")
+SOURCES = ("plif", "plif_bwd", "conv_plif")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -44,8 +44,12 @@ _F = ctypes.c_float
 # stream are c_void_p so ctypes never truncates them to 32 bits.
 _SIGNATURES = {
     # x, out, a, n, steps, th, ge, dtype, mean, mul, bias, C, HW, stream
-    "plif": {"plif_fwd": (_P, _P, _P, _L, _I, _F, _I, _I, _P, _P, _P, _I, _I,
-                          _P)},
+    "plif": {name: (_P, _P, _P, _L, _I, _F, _I, _I, _P, _P, _P, _I, _I, _P)
+             for name in ("plif_fwd", "plif_train_fwd")},
+    # x, g, dx, a, mean, mul, bias, partials, da_c, da, ds, db, dm, steps,
+    # B, C, HW, nb, th, ge, kind, p0, p1, dtype, stream
+    "plif_bwd": {"plif_train_bwd": (_P,) * 13 + (_I,) * 5 + (_F, _I, _I, _F,
+                                                             _F, _I, _P)},
     "conv_plif": {
         # ptrs, cins, n_pieces, w, bias, a, out, B, steps, Cout, H, W, th,
         # ge, dtype, stream

@@ -1,12 +1,17 @@
 """Adaptive recurrent SNN (ARSNN) sampling scan (counterpart of
-``eas_snn_tpu/ops/arsnn.py:arsnn_scan``), plain PyTorch.
+``eas_snn_tpu/ops/arsnn.py:arsnn_scan``), plain PyTorch, differentiable.
 
 A gated recurrent LIF runs over Tm micro-steps; each spike closes the
 current temporal slice of its (pixel, channel) and writes a readout of the
 accumulated membrane into the next of Ts slots. The data-dependent scatter
 of the reference is a dense masked one-hot write, as in the JAX package,
-whose deploy path also runs this scan as plain XLA. Layout NCHW:
+whose deploy and train paths also run this scan as plain XLA. Layout NCHW:
 events (Tm, N, Cin, H, W) -> aggregation (Ts, N, C, H, W).
+
+Gradients flow as in the JAX scan: through the spike function's surrogate
+(the caller's ``spike_fn``), the gates, currents and readouts; the control
+masks come from the detached spike, and the int8 slot counters and
+last-spike times carry none.
 """
 
 from __future__ import annotations
@@ -79,7 +84,7 @@ def arsnn_scan(
         vmem, v_noreset, spike = gated_lif_update(
             vmem, gate, c_in_all[t] + c_rec, thresh, vreset, spike_fn)
         vavg = vavg + v_noreset
-        spiked = spike > 0.5
+        spiked = spike.detach() > 0.5
         valid = spiked & (seg < Ts)
         if readout == "sum":
             v = vavg
@@ -97,7 +102,7 @@ def arsnn_scan(
         vavg = torch.where(spiked, torch.zeros((), dtype=dt, device=dev), vavg)
 
     # residual write for elements that never closed their last slot
-    valid = (spike <= 0.5) & (seg < Ts)
+    valid = (spike.detach() <= 0.5) & (seg < Ts)
     if readout == "sum":
         v = vavg
     elif readout == "last":

@@ -1,6 +1,12 @@
-"""Host-side postprocess: confidence filter and class-aware hard NMS, in
-numpy (the port's own copy of ``eas_snn_tpu/ops/boxes.py:nms_numpy`` and
-``postprocess_numpy``, after the reference's yolox/utils/boxes.py:33-77).
+"""Box geometry for the losses, in torch (the port's counterparts of
+``eas_snn_tpu/ops/boxes.py:cxcywh2xyxy``, ``pairwise_iou`` and
+``iou_loss``; reference yolox/utils/boxes.py:80-103, models/losses.py),
+and the host-side postprocess: confidence filter and class-aware hard
+NMS, in numpy (its own copy of ``nms_numpy`` and ``postprocess_numpy``,
+after the reference's yolox/utils/boxes.py:33-77). Boxes are 'cxcywh'
+(centre x/y, width, height) unless a name says 'xyxy' (corners). The
+losses use the 'iou' loss only; the JAX package's xyxy IoU and 'giou'
+loss have no caller and are not ported.
 """
 
 from __future__ import annotations
@@ -8,8 +14,42 @@ from __future__ import annotations
 from typing import List, Optional
 
 import numpy as np
+import torch
 
-__all__ = ["nms_numpy", "postprocess"]
+__all__ = ["cxcywh2xyxy", "pairwise_iou", "iou_loss", "nms_numpy",
+           "postprocess"]
+
+
+def cxcywh2xyxy(b: torch.Tensor) -> torch.Tensor:
+    cx, cy, w, h = b.unbind(-1)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+
+def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IoU between (..., M, 4) and (..., A, 4) cxcywh boxes: (..., M, A)."""
+    a, b = a[..., :, None, :], b[..., None, :, :]
+    tl = torch.maximum(a[..., :2] - a[..., 2:] / 2, b[..., :2] - b[..., 2:] / 2)
+    br = torch.minimum(a[..., :2] + a[..., 2:] / 2, b[..., :2] + b[..., 2:] / 2)
+    area_a, area_b = a[..., 2] * a[..., 3], b[..., 2] * b[..., 3]
+    valid = (tl < br).all(-1)
+    wh = br - tl
+    inter = wh[..., 0] * wh[..., 1] * valid
+    return inter / (area_a + area_b - inter + 1e-12)
+
+
+def iou_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Elementwise 1 - IoU^2 of aligned (..., 4) cxcywh boxes."""
+    tl = torch.maximum(pred[..., :2] - pred[..., 2:] / 2,
+                       target[..., :2] - target[..., 2:] / 2)
+    br = torch.minimum(pred[..., :2] + pred[..., 2:] / 2,
+                       target[..., :2] + target[..., 2:] / 2)
+    area_p = pred[..., 2] * pred[..., 3]
+    area_g = target[..., 2] * target[..., 3]
+    en = (tl < br).all(-1).to(pred.dtype)
+    wh = br - tl
+    area_i = wh[..., 0] * wh[..., 1] * en
+    iou = area_i / (area_p + area_g - area_i + 1e-16)
+    return 1.0 - iou ** 2
 
 
 def nms_numpy(boxes: np.ndarray, scores: np.ndarray, iou_thr: float) -> np.ndarray:

@@ -4,6 +4,10 @@
 spikingjelly ``ParametricLIFNode(init_tau=2.0, decay_input=False,
 v_reset=None)``: v <- v * (1 - sigmoid(w)) + x ; s = H(v - thresh) ;
 v <- v - thresh * s. Time is the leading axis of a sequence: (T, ...).
+With a spike function from ``surrogate.get_spike_fn`` the scan is
+differentiable in x and w through the surrogate (the reset keeps its
+gradient, as spikingjelly's ``detach_reset=False``): the autograd oracle
+of the train PLIF op (``plif.plif_train``).
 """
 
 from __future__ import annotations

@@ -219,7 +219,8 @@ def test_whole_slice_matches_jax_f32(small):
     pm = _port(v)
     feats = {}
     pm.backbone.backbone.register_forward_hook(lambda m, i, o: feats.update(o))
-    got = pm(torch.from_numpy(ev)).numpy()
+    with torch.no_grad():
+        got = pm(torch.from_numpy(ev)).numpy()
     assert got.shape == want.shape == (2, 84, 7)
     for stage in ("dark3", "dark4", "dark5"):
         s_j = np.asarray(jfeats[stage])
@@ -251,8 +252,9 @@ def test_use_spike_none_and_unported_modes(small):
     want = np.asarray(jax.jit(jm.apply)(v, jnp.asarray(ev[:1])))
     pm = EASYOLOX(use_spike="none", **SMALL).eval()
     pm.load_state_dict(state_dict_from_jax(v), strict=True)
-    np.testing.assert_allclose(pm(torch.from_numpy(ev[:1])).numpy(), want,
-                               rtol=1e-5, atol=1e-4)
+    with torch.no_grad():
+        got = pm(torch.from_numpy(ev[:1])).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
     for mode in ("full", "full_v2"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             EASYOLOX(use_spike=mode, **SMALL)
@@ -318,7 +320,38 @@ def test_flagship_sites_pass_the_kernel_wrappers_checks(monkeypatch, compute):
     reset_launches()
     assert out.shape == (1, 1680, 7)
     assert counts == {"plif_fwd": 35, "conv1x1_plif": 8, "conv3x3_plif": 6,
-                      "conv3x3s2_plif": 1}
+                      "conv3x3s2_plif": 1, "plif_train_fwd": 0,
+                      "plif_train_bwd": 0}
+
+
+def test_flagship_train_step_sites_pass_the_train_kernels_checks(
+        monkeypatch):
+    """One train step of the flagship (gen1_syolox_m, 256x320, bf16) on
+    meta tensors, as on the card: every one of the 50 spiking sites passes
+    the train kernels' layout checks, and a step launches each train
+    kernel once a site (the library replaced by stubs), no eval kernel."""
+    from eas_snn_tpu_torch.ops import _build, launch_counts, reset_launches
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
+    monkeypatch.setattr(_build, "get_lib", lambda name: Lib())
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
+    model = get_exp("gen1_syolox_m").get_model(device="cpu",
+                                               train=True).to("meta")
+    ev = torch.empty((1, 1, 4, 256, 320, 2), device="meta")
+    labels = torch.zeros((1, 50, 5), device="meta")
+    reset_launches()
+    losses = model(ev, labels)
+    losses["total_loss"].backward()
+    counts = launch_counts()
+    reset_launches()
+    assert counts == {"plif_fwd": 0, "conv1x1_plif": 0, "conv3x3_plif": 0,
+                      "conv3x3s2_plif": 0, "plif_train_fwd": 50,
+                      "plif_train_bwd": 50}
+    assert all(p.grad is not None for p in model.parameters())
 
 
 def test_calibrate_spiking_bn_makes_every_stage_fire():
@@ -377,13 +410,19 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a CUDA device is present: the default is valid here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_exp("gen1_syolox_m").get_model()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_exp("gen1_syolox_m").get_model(train=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_exp("gen1_syolox_m").get_trainer()
 
 
 _NO_JAX_RUN = """
 import sys
-for name in ("jax", "flax", "eas_snn_tpu"):
+for name in ("jax", "flax", "optax", "orbax", "eas_snn_tpu"):
     sys.modules[name] = None
 import torch
+import eas_snn_tpu_torch.core
+from eas_snn_tpu_torch.core import init_ema, train_step
 from eas_snn_tpu_torch.exp import get_exp
 exp = get_exp("gen1_syolox_s")
 exp.width, exp.depth = 0.125, 0.33
@@ -391,7 +430,14 @@ m = exp.get_model(device="cpu")
 ev = torch.poisson(torch.full((1, 1, 4, 32, 32, 2), 0.2))
 dets = exp.detect(m, ev)
 assert len(dets) == 1
-assert not any(k.split(".")[0] in ("jax", "flax", "eas_snn_tpu")
+m = exp.get_model(device="cpu", train=True)
+opt = exp.get_optimizer(m, 1)
+lab = torch.zeros(1, 50, 5)
+lab[0, 0] = torch.tensor([1.0, 16.0, 16.0, 12.0, 10.0])
+out = train_step(m, opt, init_ema(m), ev, lab, to_host=True)
+assert all(v == v for v in out.values()) and out["total_loss"] > 0
+assert not any(k.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                   "eas_snn_tpu")
                for k in sys.modules if sys.modules[k] is not None)
 print("ok")
 """
@@ -407,12 +453,14 @@ def test_port_runs_with_jax_blocked():
 
 def test_no_jax_import_in_port_sources():
     pat = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|eas_snn_tpu)(\.|\s|$)", re.M)
+        r"^\s*(import|from)\s+(jax|flax|optax|orbax|eas_snn_tpu)(\.|\s|$)",
+        re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, dirs, names in os.walk(os.path.join(REPO, "eas_snn_tpu_torch")):
         dirs[:] = [d for d in dirs if d != "_build"]  # kernel build output
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 15
+    assert len(files) > 20
+    assert any(f.endswith(os.path.join("core", "trainer.py")) for f in files)
     hits = [f for f in files if pat.search(open(f).read())]
     assert not hits, hits
     assert not pat.search("import eas_snn_tpu_torch\n"

@@ -27,7 +27,9 @@ from eas_snn_tpu.ops.surrogate import get_spike_fn as j_spike_fn
 from eas_snn_tpu_torch.ops import conv_plif as pcp
 from eas_snn_tpu_torch.ops.conv_plif_policy import should_fuse
 from eas_snn_tpu_torch.ops.lif import plif_scan
-from eas_snn_tpu_torch.ops.plif import plif_forward, plif_forward_plain
+from eas_snn_tpu_torch.ops.plif import (plif_forward, plif_forward_plain,
+                                        plif_train_backward,
+                                        plif_train_forward)
 from eas_snn_tpu_torch.ops.surrogate import get_spike_fn, spike_ge
 
 T = 3
@@ -161,7 +163,8 @@ def test_plif_rejects_other_devices_and_dtypes():
 
 
 @pytest.mark.parametrize("case", [
-    "plif_hw", "plif_3d", "c1_channels", "c1_row", "c3_channels", "c3_row"])
+    "plif_hw", "plif_3d", "c1_channels", "c1_row", "c3_channels", "c3_row",
+    "train_fwd_hw", "train_bwd_hw", "train_bwd_steps"])
 def test_wrappers_refuse_layouts_the_kernels_cannot_copy(monkeypatch, case):
     """On a non-CPU tensor a wrapper raises for a layout that does not
     split into the kernel's whole aligned copies (meta tensors stand in
@@ -193,6 +196,18 @@ def test_wrappers_refuse_layouts_the_kernels_cannot_copy(monkeypatch, case):
         # int8 W must be a multiple of 4
         "c3_row": lambda: pcp.conv3x3s2_plif(meta(6, 8, 4, 6), z(3, 8, 24),
                                              z(8), T, w),
+        # the train kernels: H*W in 16-byte vectors, T at most 8
+        "train_fwd_hw": lambda: plif_train_forward(
+            meta(6, 8, 3, 2, dtype=torch.bfloat16), z(1), z(8), z(8), z(8),
+            T),
+        "train_bwd_hw": lambda: plif_train_backward(
+            meta(6, 8, 3, 2, dtype=torch.float32),
+            meta(6, 8, 3, 2, dtype=torch.float32), z(1), z(8), z(8), z(8),
+            T),
+        "train_bwd_steps": lambda: plif_train_backward(
+            meta(9, 8, 4, 2, dtype=torch.bfloat16),
+            meta(9, 8, 4, 2, dtype=torch.bfloat16), z(1), z(8), z(8), z(8),
+            9),
     }
     with pytest.raises(ValueError, match="kernel"):
         calls[case]()
