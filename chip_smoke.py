@@ -19,14 +19,37 @@ Phases, each of which fails the run (exit code 1, no result line):
    unfused chain's (cuDNN conv + BN + PLIF kernel) and the bound;
 3. main path: ``get_exp("gen1_syolox_m").deploy().get_model("cuda")`` and
    ``detect`` on Poisson(0.2) events; frames/s, peak memory, detections,
-   and the launch counts, which must be 35 / 8 / 6 / 1 per forward;
+   and the launch counts, which must be 35 / 8 / 6 / 1 per forward plus
+   Tm of the whole-scan sampler kernel (``deploy()`` engages the fused
+   sampler route on the card); the kernels line reports these counts;
+3b. sampler kernels: the whole-scan sampler kernel (kernel 5) against its
+   plain version on the flagship's deploy events (bf16-rounded, B=128)
+   with the model's own f32 sampler weights, and the per-step kernel
+   (kernel 9) at the flagship step geometry in f32 and bf16 state, then
+   both at small shapes (every readout, soft and hard reset, depth 1 and
+   2, ksize 3, 5 and 7, H x W off the 32x32 tile). Tolerance: slots and
+   every state output bit-equal (both round after every operation and
+   sum the stencil in one order). Prints each kernel's time (CUDA
+   events), the plain version's, the bound and the default sampler
+   route's (the plain embedding: cuDNN convs and the eager chain);
+3c. sampler routes: the plain and the fused route of the same deploy
+   model through ``detect`` in turns (plain, fused, fused, plain): frames/s,
+   peak memory, launches (35 / 8 / 6 / 1 a forward, plus Tm of kernel 5 on
+   the fused route, never kernel 9), per-layer device ms and the idle share
+   of one profiled forward of each; then the per-step route (v1, kernel 9)
+   over the same events with the flagship sampler's conv stacks in f32
+   (cuDNN), held to kernel 5's slots (V1_TOL), Tm launches a scan; then
+   the Gen4 preset (gen4_rvt_syolox_m, 384x640, Tl=Tm=3): kernel 5
+   against its plain version at its sampler geometry (B=16, N=48) and 3
+   timed ``detect`` forwards with the fused route;
 4. card against CPU: the same model in f32 at B=2 on the card (kernels)
-   and on the CPU (plain versions): the sampler on the same events, the
-   analog stem, every spiking site, and the analog neck and head each on
-   the input the card gave it, then the free-running forward's per-stage
-   agreement and firing rates beside two chaos witnesses (the CPU
-   against itself with the sampler's output, or every conv weight, moved
-   up by one ulp);
+   and on the CPU (plain versions): the sampler on the same events (the
+   plain route, and the fused route: kernel 5 on the card, its plain
+   version on the CPU), the analog stem, every spiking site, and the
+   analog neck and head each on the input the card gave it, then the
+   free-running forward's per-stage agreement and firing rates beside two
+   chaos witnesses (the CPU against itself with the sampler's output, or
+   every conv weight, moved up by one ulp);
 5. train kernels: at every spiking site geometry of the flagship train
    step (B=64, bf16, found by hooks on the sites' neurons) the train PLIF
    forward (BN normalize fused, spikes in bf16) and backward (dx and the
@@ -76,8 +99,10 @@ from eas_snn_tpu_torch.core.train_state import (init_ema, optimizer_update,
                                                 train_step)
 from eas_snn_tpu_torch.exp import detect, get_exp
 from eas_snn_tpu_torch.models.blocks import PLIF, BaseConv
+from eas_snn_tpu_torch.models.embedding import fold_time
 from eas_snn_tpu_torch.ops import KERNEL_WRAPPERS, launch_counts, reset_launches
 from eas_snn_tpu_torch.ops import _build
+from eas_snn_tpu_torch.ops import arsnn_fused as af
 from eas_snn_tpu_torch.ops import conv_plif as cp
 from eas_snn_tpu_torch.ops.plif import (
     decay_multiplier, plif_forward, plif_forward_plain, plif_train_backward,
@@ -93,8 +118,18 @@ SPIKE_TOL = 1e-4      # conv sites: flips allowed only this near threshold
 SITE_TOL = 1e-4       # card vs CPU: share of a site's spikes that may flip
 ANALOG_TOL = 1e-5     # card vs CPU: |card - cpu| / (1 + |cpu|), f32 analog
 SUM_TOL = 1e-4        # train backward sums: |kernel - plain| / max|plain|
+# v1 (cuDNN f32 convs) vs v2 (in-kernel stencils) on the same events: the
+# share of slot values beyond 1e-5 relative (threshold ties of the
+# recurrence flipped by the convs' summation order)
+V1_TOL = 1e-4
+SAMPLER_OPS = 20      # f32 operations per element and step of the chain
+MIN_WRITTEN = 100     # non-zero slot values a sampler comparison must see
 PER_FORWARD = {"plif_fwd": 35, "conv1x1_plif": 8, "conv3x3_plif": 6,
                "conv3x3s2_plif": 1}
+# Gen4 (384x640): no site geometry is in the TPU's fusion table (its keys
+# are Gen1's), so all 50 spiking sites take the PLIF kernel
+GEN4_PER_FORWARD = {"plif_fwd": 50}
+GEN4_BATCH = 16
 PER_STEP = {"plif_train_fwd": 50, "plif_train_bwd": 50}
 KERNEL_INFO = {
     "plif_fwd": ("eas_snn_tpu_torch/csrc/plif.cu",
@@ -111,6 +146,10 @@ KERNEL_INFO = {
     "plif_train_bwd": ("eas_snn_tpu_torch/csrc/plif_bwd.cu",
                        "eas_snn_tpu/ops/plif_pallas.py:419, "
                        "eas_snn_tpu/ops/plif_pallas.py:338"),
+    "arsnn_v2": ("eas_snn_tpu_torch/csrc/arsnn_v2.cu",
+                 "eas_snn_tpu/ops/arsnn_pallas.py:579"),
+    "arsnn_step": ("eas_snn_tpu_torch/csrc/arsnn_step.cu",
+                   "eas_snn_tpu/ops/arsnn_pallas.py:147"),
 }
 FAILURES = []
 DEV = "cuda"
@@ -381,9 +420,18 @@ def phase_kernels(model, events, seed):
 
 # ---------------------------------------------------------------- phase 3
 
-def phase_main_path(exp, model, batches):
-    print(f"phase 3: main path, {len(batches)} forwards at B="
-          f"{batches[0].shape[0]} (detect: forward, filter, NMS)")
+def per_forward(v2_launches: int, base=PER_FORWARD) -> dict:
+    """Launches a forward must make: ``base``, plus ``v2_launches`` of
+    kernel 5 (Tm where the sampler must take the whole-scan route, else
+    0), fixed by the caller and not read off the routing under test."""
+    want = {k: base.get(k, 0) for k in KERNEL_WRAPPERS}
+    want["arsnn_v2"] = v2_launches
+    return want
+
+
+def run_detect(exp, model, batches):
+    """detect() over the batches from zeroed counts: (frames/s, counts,
+    peak GiB, detections)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -394,10 +442,27 @@ def phase_main_path(exp, model, batches):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = launch_counts()
-    frames = sum(int(b.shape[0]) for b in batches)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    frames = sum(int(b.shape[0] * b.shape[1]) for b in batches)
+    return (frames / dt, counts, torch.cuda.max_memory_allocated() / 2**30,
+            dets, dt)
+
+
+def check_counts(what, counts, forwards: int, v2_launches: int,
+                 base=PER_FORWARD) -> None:
+    want = {k: v * forwards
+            for k, v in per_forward(v2_launches, base).items()}
+    if counts != want:
+        fail(f"{what}: launch counts {counts}, expected {want}")
+
+
+def phase_main_path(exp, model, batches):
+    print(f"phase 3: main path, {len(batches)} forwards at B="
+          f"{batches[0].shape[0]} (detect: forward, filter, NMS; sampler "
+          f"route '{model.embedding.route(sampler_events(model, batches[0]))}'"
+          f", fused_sampler='{exp.fused_sampler}')")
+    fps, counts, peak, dets, dt = run_detect(exp, model, batches)
     n_det = [0 if d is None else len(d) for d in dets]
-    print(f"  frames/s {frames / dt:.2f} (host clock, {frames} frames in "
+    print(f"  frames/s {fps:.2f} (host clock, {len(dets)} frames in "
           f"{dt:.4f} s), peak memory {peak:.3f} GiB")
     print(f"  detections per image: mean {np.mean(n_det):.2f}, max "
           f"{max(n_det)}; launches {counts}")
@@ -405,9 +470,10 @@ def phase_main_path(exp, model, batches):
         if d is not None and not np.isfinite(d).all():
             fail("non-finite detections")
             break
-    want = {k: PER_FORWARD.get(k, 0) * len(batches) for k in KERNEL_WRAPPERS}
-    if counts != want:
-        fail(f"launch counts {counts}, expected {want}")
+    # deploy() sets fused_sampler='auto' (the route measured faster on the
+    # card, PERF.md), so on CUDA events every forward runs kernel 5 once a
+    # micro-step
+    check_counts("main path", counts, len(batches), exp.Tm)
     layer_times(model, batches[0])
     profile_call(lambda: model(batches[0]), "one forward")
     return counts
@@ -471,6 +537,312 @@ def profile_call(fn, what: str, top: int = 14) -> None:
           f"{1 - busy / wall_ms:.3f}, profiler on); top kernels:")
     for ms, n, key in rows[:top]:
         print(f"    {ms:9.3f} ms {n:5d}x  {key[:90]}")
+
+
+# ------------------------------------------------------ sampler kernels
+
+def sampler_events(model, events: torch.Tensor) -> torch.Tensor:
+    """The (Tm, N, 2, H, W) events the embedding hands a sampler kernel:
+    time-reversed, in its state dtype, contiguous."""
+    emb = model.embedding
+    ev = fold_time(events).permute(0, 1, 4, 2, 3)
+    if emb.state_dtype is not None:
+        ev = ev.to(emb.state_dtype)
+    return ev.contiguous()
+
+
+def _mismatch(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements whose bits differ (or values, for integer tensors)."""
+    if a.dtype.is_floating_point:
+        return int((_bits(a) != _bits(b)).sum())
+    return int((a != b).sum())
+
+
+def v2_bound(ev, Ts: int, depth: int, k: int, nw: int):
+    """Bound of one whole-scan call: the events read and the slots written
+    once; 2 flops a stencil multiply-add and SAMPLER_OPS a state element
+    and step, in f32."""
+    Tm, N, Cin, H, W = ev.shape
+    px = Tm * N * H * W
+    macs = px * (Cin * 4 + 2 * 4 + (depth - 1) * 2 * 16) * k * k
+    nbytes = ev.numel() * ev.element_size() + Ts * N * 2 * H * W * 4 + 4 * nw
+    return bound_ms(nbytes, 0.0, 2 * macs + SAMPLER_OPS * 2 * px)
+
+
+def check_v2(what, ev, iw, gw, kw, timed=False):
+    """Kernel 5 against its plain version: slots bit-equal. At least
+    MIN_WRITTEN slot values must be non-zero (the comparison must see
+    written slots), unless a hard reset zeroes the 'last' readout of every
+    spiking element (then only residuals are)."""
+    got = af.arsnn_fused_v2(ev, iw, gw, **kw)
+    want = af.arsnn_fused_v2_plain(ev, iw, gw, **kw)
+    torch.cuda.synchronize()
+    res = dict(mismatch=_mismatch(got, want), n=got.numel(),
+               max_abs_err=float((got - want).abs().max()),
+               written=float((want != 0).float().mean()),
+               n_written=int((want != 0).sum()))
+    if res["mismatch"] or not torch.isfinite(got).all():
+        fail(f"arsnn_v2 {what}: {res['mismatch']} of {res['n']} slot values "
+             "differ from the plain version (bit-equal expected)")
+    if res["n_written"] < MIN_WRITTEN and (kw["readout"], kw["vreset"]) != (
+            "last", 0.0):
+        fail(f"arsnn_v2 {what}: only {res['n_written']} slot values are "
+             "non-zero")
+    if timed:
+        del got, want
+        res["ms"] = cuda_ms(lambda: af.arsnn_fused_v2(ev, iw, gw, **kw), 5)
+        res["plain_ms"] = cuda_ms(
+            lambda: af.arsnn_fused_v2_plain(ev, iw, gw, **kw), 1, warmup=1)
+        nw = sum(w.numel() + b.numel() for w, b in iw + gw)
+        res["bound_ms"], res["bound_by"] = v2_bound(
+            ev, kw["Ts"], len(iw), iw[0][0].shape[-1], nw)
+    return res
+
+
+def default_route_ms(model, events) -> float:
+    """Device ms of the plain sampler route (cuDNN convs, the eager chain)
+    on the model's own events, the yardstick of both sampler kernels."""
+    emb = model.embedding
+    old, emb.fused_sampler = emb.fused_sampler, "never"
+    ms = cuda_ms(lambda: emb(events), 3)
+    emb.fused_sampler = old
+    return ms
+
+
+def cuda_ms_each(prepare, fn, iters: int = 10) -> float:
+    """Mean device time of fn() over calls that each start from state that
+    prepare() restores (CUDA events around each call alone)."""
+    times = []
+    for i in range(iters + 1):
+        prepare()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.mean([s.elapsed_time(e) for s, e in times[1:]]))
+
+
+def step_case(shape, dtype, gen, Ts=3, t=2, readout="sum", vreset=None,
+              attach=False, timed=False):
+    """Kernel 9 against its plain version on seeded state: every output
+    bit-equal. The four gate/current planes are channel slices of one
+    (N, 2C, H, W) conv output and one recurrent output, as the v1 scan
+    passes them."""
+    N, C, H, W = shape
+    dev = dict(device=DEV)
+    rn = lambda *s: torch.randn(s, generator=gen, **dev)  # noqa: E731
+    inp = (rn(N, 2 * C, H, W) * 1.5 + torch.tensor(
+        [0.0] * C + [0.8] * C, **dev).reshape(1, -1, 1, 1)).to(dtype)
+    rec = (rn(N, 2 * C, H, W) * 1.0).to(dtype)
+    planes = (inp[:, :C], rec[:, :C], inp[:, C:], rec[:, C:])
+    state0 = ((rn(*shape) + 0.5).to(dtype), (rn(*shape) * 2).to(dtype),
+              torch.randint(0, Ts + 1, shape, generator=gen, **dev).to(
+                  torch.int8),
+              torch.randint(-1, t, shape, generator=gen, **dev).to(torch.int8),
+              (rn(Ts, *shape) * 0.5).to(dtype))
+    kw = dict(Ts=Ts, thresh=1.0, vreset=vreset, readout=readout,
+              spike_attach=attach)
+    state = [x.clone() for x in state0]
+    got = af.fused_step(t, *planes, *state, **kw)
+    want = af.fused_step_plain(t, *planes, *state0, **kw)
+    torch.cuda.synchronize()
+    names = ("vmem", "vavg", "spike", "seg", "tlast", "agg")
+    mism = {n: _mismatch(g, w) for n, g, w in zip(names, got, want)}
+    res = dict(mismatch=sum(mism.values()), rate=float(want[2].float().mean()),
+               max_abs_err=max(float((g.float() - w.float()).abs().max())
+                               for g, w in zip(got, want)),
+               valid=int((want[3] != state0[2]).sum()))
+    what = f"arsnn_step at {tuple(shape)} {str(dtype)[6:]} {readout}"
+    if res["mismatch"]:
+        fail(f"{what}: outputs differ from the plain version {mism} "
+             "(bit-equal expected)")
+    if not 0.05 <= res["rate"] <= 0.95:
+        fail(f"{what}: firing rate {res['rate']:.4f} outside 5-95%")
+    if timed:
+        del got, want
+
+        def restore():
+            for x, x0 in zip(state, state0):
+                x.copy_(x0)
+
+        res["ms"] = cuda_ms_each(
+            restore, lambda: af.fused_step(t, *planes, *state, **kw))
+        res["plain_ms"] = cuda_ms(lambda: af.fused_step_plain(
+            t, *planes, *state0, **kw), 3, warmup=1)
+        M, es = N * C * H * W, inp.element_size()
+        # read 4 planes, vmem, vavg, seg, tlast; write vmem, vavg, spike,
+        # seg, tlast; one slot element read and written where valid
+        nbytes = M * (9 * es + 4) + res["valid"] * 2 * es
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 0.0,
+                                                    SAMPLER_OPS * M)
+    return res
+
+
+@torch.no_grad()
+def phase_sampler_kernels(model, events, seed):
+    """Kernels 5 and 9 against their plain versions (phase 3b)."""
+    emb = model.embedding
+    print("phase 3b: sampler kernels vs plain (ms a call)")
+    gen = torch.Generator(device=DEV).manual_seed(seed + 4)
+    ev = sampler_events(model, events)
+    iw, gw = emb.stack_weights()
+    kw = emb.scan_kwargs()
+    out = {}
+    r = check_v2("at the flagship", ev, iw, gw, kw, timed=True)
+    r["default_ms"] = default_route_ms(model, events)
+    print(f"  arsnn_v2 flagship events {tuple(ev.shape)} {str(ev.dtype)[6:]}, "
+          f"depth {len(iw)} k {iw[0][0].shape[-1]}: {r['mismatch']} of "
+          f"{r['n']} slots differ, {r['written']:.3f} non-zero; kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
+          f"{r['bound_ms']:.4f} ({r['bound_by']}); default route (plain "
+          f"embedding: cuDNN convs + eager chain) {r['default_ms']:.4f} ms",
+          flush=True)
+    out["arsnn_v2"] = r
+    # small shapes: every readout, both resets, depth 1-2, k 3-7, H x W
+    # off the 32x32 tile, f32 and bf16 events
+    cases = (("sum", None, True, False, 2, 3, torch.float32),
+             ("last", 0.0, False, True, 2, 5, torch.bfloat16),
+             ("avg", None, True, True, 1, 7, torch.float32),
+             ("avg", 0.0, False, False, 2, 7, torch.float32),
+             ("sum", 0.0, False, True, 1, 5, torch.bfloat16),
+             ("last", None, True, False, 1, 3, torch.float32))
+    worst = 0
+    for readout, vreset, wz, use_abs, depth, k, dt in cases:
+        dims = [(2, 4)] + [(4, 4)] * (depth - 1)
+        ws = [[(torch.randn(co, ci, k, k, generator=gen, device=DEV) * 0.4,
+                torch.randn(co, generator=gen, device=DEV) * 0.1)
+               for ci, co in dims] for _ in range(2)]
+        evs = (torch.randn((4, 3, 2, 40, 45), generator=gen, device=DEV)
+               * 2).to(dt)
+        rr = check_v2(f"{readout} depth {depth} k {k}", evs, *ws, dict(
+            Ts=3, thresh=1.0, vreset=vreset, readout=readout,
+            spike_attach=True, write_zero=wz, use_abs=use_abs))
+        worst = max(worst, rr["mismatch"])
+        r["max_abs_err"] = max(r["max_abs_err"], rr["max_abs_err"])
+    print(f"  arsnn_v2 at 40x45, 6 cases (sum/last/avg, soft/hard, depth "
+          f"1/2, k 3/5/7, f32/bf16 events): worst {worst} slots differ")
+
+    H, W = ev.shape[-2:]
+    shape = (ev.shape[1], 2, H, W)
+    out["arsnn_step"] = None
+    for dt in (torch.float32, torch.bfloat16):
+        rs = step_case(shape, dt, gen, timed=True)
+        rs["default_ms"] = r["default_ms"] / ev.shape[0]
+        print(f"  arsnn_step flagship step {shape} {str(dt)[6:]}: rate "
+              f"{rs['rate']:.3f}, {rs['mismatch']} outputs differ; kernel "
+              f"{rs['ms']:.4f} ms, plain {rs['plain_ms']:.4f}, bound "
+              f"{rs['bound_ms']:.4f} ({rs['bound_by']}); default route "
+              f"{rs['default_ms']:.4f} ms a micro-step (the plain "
+              "embedding's forward / Tm)", flush=True)
+        if dt == torch.float32:
+            out["arsnn_step"] = rs
+    worst = 0
+    for readout, vreset, attach in (("last", 0.0, True), ("avg", None, True),
+                                    ("avg", 0.0, False)):
+        for dt in (torch.float32, torch.bfloat16):
+            rs = step_case((2, 2, 20, 24), dt, gen, readout=readout,
+                           vreset=vreset, attach=attach)
+            worst = max(worst, rs["mismatch"])
+            out["arsnn_step"]["max_abs_err"] = max(
+                out["arsnn_step"]["max_abs_err"], rs["max_abs_err"])
+    print(f"  arsnn_step at 2x2x20x24, 6 cases (last/avg, soft/hard, "
+          f"spike_attach, f32/bf16): worst {worst} outputs differ")
+    return out
+
+
+@torch.no_grad()
+def phase_sampler_routes(exp, model, batches, seed):
+    """The plain and the fused route in turns, the v1 route, and the Gen4
+    preset (phase 3c). Returns {"arsnn_step": launches of the v1 scan}
+    (kernel 9 lies on no path that deploy() runs)."""
+    emb = model.embedding
+    B = batches[0].shape[0]
+    print(f"phase 3c: sampler routes through detect at B={B}, "
+          f"{len(batches)} forwards a run, in turns")
+    fps = {"never": [], "always": []}
+    for i, mode in enumerate(("never", "always", "always", "never")):
+        old, emb.fused_sampler = emb.fused_sampler, mode
+        f, counts, peak, _, _ = run_detect(exp, model, batches)
+        check_counts(f"route '{mode}'", counts, len(batches),
+                     exp.Tm if mode == "always" else 0)
+        fps[mode].append(f)
+        print(f"  run {i + 1} fused_sampler='{mode}': frames/s {f:.2f}, peak "
+              f"{peak:.3f} GiB; launches {counts}", flush=True)
+        if i < 2:
+            layer_times(model, batches[0])
+            profile_call(lambda: model(batches[0]), f"one forward ('{mode}')",
+                         top=8)
+        emb.fused_sampler = old
+    mean = {k: float(np.mean(v)) for k, v in fps.items()}
+    print(f"  frames/s mean: plain {mean['never']:.2f}, fused "
+          f"{mean['always']:.2f} (fused / plain "
+          f"{mean['always'] / mean['never']:.3f}; deploy() sets "
+          f"fused_sampler='{exp.fused_sampler}')")
+
+    # v1: the per-step kernel with the flagship's own conv stacks in f32
+    # (cuDNN, TF32 off) over the same events, held to kernel 5's slots
+    ev = sampler_events(model, batches[0]).float()
+    emb32 = copy.deepcopy(emb).float()
+    emb32.dtype = None
+    kw = emb.scan_kwargs()
+    v2 = af.arsnn_fused_v2(ev, *emb.stack_weights(), **kw)
+    torch.cuda.synchronize()
+    reset_launches()
+    v1 = af.arsnn_scan_fused(ev, emb32._apply_stack(emb32.input_conv),
+                             emb32._apply_stack(emb32.gate_conv), **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = {"arsnn_step": counts["arsnn_step"]}
+    rel = _rel_err(v1, v2)
+    share = float((rel > ANALOG_TOL).float().mean())
+    v1_ms = cuda_ms(lambda: af.arsnn_scan_fused(
+        ev, emb32._apply_stack(emb32.input_conv),
+        emb32._apply_stack(emb32.gate_conv), **kw), 3)
+    print(f"  v1 route (kernel 9, cuDNN f32 convs) over the same events: "
+          f"{v1_ms:.4f} ms a scan; slots vs kernel 5: share beyond "
+          f"{ANALOG_TOL:.0e} relative {share:.2e} (tolerance {V1_TOL:.0e}), "
+          f"max {float(rel.max()):.3e}; launches {counts}")
+    want = {k: 0 for k in counts}
+    want["arsnn_step"] = ev.shape[0]
+    if counts != want:
+        fail(f"v1 route: launch counts {counts}, expected {want}")
+    if share > V1_TOL or not torch.isfinite(v1).all():
+        fail("v1 route: slots disagree with kernel 5's")
+    del v1, v2, ev, emb32
+    torch.cuda.empty_cache()
+
+    # the Gen4 preset: kernel 5 at its geometry, 3 detect forwards
+    g4 = get_exp("gen4_rvt_syolox_m").deploy()
+    g4.fused_sampler = "always"
+    m4 = g4.get_model(device=DEV, seed=seed)
+    H, W = g4.test_size
+    gen = torch.Generator(device=DEV).manual_seed(seed + 5)
+    shape = (GEN4_BATCH, g4.Tl, g4.Tm, H, W, g4.in_dim)
+    b4 = [torch.poisson(torch.full(shape, 0.2, device=DEV), generator=gen)
+          for _ in range(3)]
+    calibrate_spiking_bn(m4, b4[0][:2])
+    ev4 = sampler_events(m4, b4[0])
+    r4 = check_v2("at Gen4", ev4, *m4.embedding.stack_weights(),
+                  m4.embedding.scan_kwargs(), timed=True)
+    r4["default_ms"] = default_route_ms(m4, b4[0])
+    print(f"  Gen4 ({g4.exp_name}, {H}x{W}) arsnn_v2 at {tuple(ev4.shape)}: "
+          f"{r4['mismatch']} of {r4['n']} slots differ, {r4['written']:.4f} "
+          f"non-zero; kernel "
+          f"{r4['ms']:.4f} ms, plain {r4['plain_ms']:.4f}, bound "
+          f"{r4['bound_ms']:.4f} ({r4['bound_by']}); default route "
+          f"{r4['default_ms']:.4f} ms")
+    f, counts, peak, dets, dt = run_detect(g4, m4, b4)
+    check_counts("Gen4 fused route", counts, len(b4), g4.Tm,
+                 GEN4_PER_FORWARD)
+    print(f"  Gen4 fused route: 3 forwards at B={GEN4_BATCH} (N="
+          f"{GEN4_BATCH * g4.Tl}): {f:.2f} frames/s ({len(dets)} frames in "
+          f"{dt:.4f} s, host clock), peak {peak:.3f} GiB; launches {counts}")
+    del m4, b4, ev4
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _ulp_up(x: torch.Tensor) -> torch.Tensor:
@@ -551,6 +923,15 @@ def phase_card_vs_cpu(seed, events):
     # the sampler on the same events, the stem on the card's sampler output
     _check_analog("sampler output", seen["embedding"],
                   cpu_model.embedding(events))
+    # the fused route's sampler: kernel 5 on the card, its plain version on
+    # the CPU
+    for m in (gpu_model, cpu_model):
+        m.embedding.fused_sampler = "always"
+    _check_analog("fused sampler output (kernel 5 vs its plain version)",
+                  gpu_model.embedding(events.to(DEV)).cpu(),
+                  cpu_model.embedding(events))
+    for m in (gpu_model, cpu_model):
+        m.embedding.fused_sampler = "never"
     _check_analog("stem output", seen["stem"],
                   cpu_model.backbone.backbone.stem(seen["stem_in"]))
 
@@ -875,6 +1256,11 @@ def main() -> int:
 
         per_kernel = phase_kernels(model, batches[0], SEED)
         counts = phase_main_path(exp, model, batches)
+        sk = phase_sampler_kernels(model, batches[0], SEED)
+        for kname in ("arsnn_v2", "arsnn_step"):
+            per_kernel[kname] = {k: sk[kname][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+        counts.update(phase_sampler_routes(exp, model, batches, SEED))
         del batches, model
         torch.cuda.empty_cache()
         small = torch.poisson(torch.full((2, exp.Tl, exp.Tm, H, W,
@@ -904,14 +1290,19 @@ def main() -> int:
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=counts[kname], max_abs_err=agg["max_abs_err"],
             ms=agg["ms"], plain_ms=agg["plain_ms"], bound_ms=agg["bound_ms"],
-            bound_by=("bytes" if agg["bytes_ms"] >= agg["ops_ms"]
-                      else "operations"),
+            bound_by=agg.get("bound_by") or (
+                "bytes" if agg["bytes_ms"] >= agg["ops_ms"] else "operations"),
             library_ms=None))
     print("kernel times: eval kernels per forward, train kernels per train "
           "step, each the sum over the kernel's sites of the per-call times "
-          "above; launches from phase 3 (eval) and phase 6 (train); no "
-          "single PyTorch call computes a fused site, the PLIF recurrence or "
-          "its backward, so library_ms is null")
+          "above; arsnn_v2 per forward at the flagship (one call, Tm "
+          "launches), arsnn_step per call at the flagship step geometry in "
+          "f32; launches from phase 3 (eval, arsnn_v2 included: deploy()'s "
+          "own route), phase 3c (arsnn_step: the v1 scan) and phase 6 "
+          "(train); no "
+          "single PyTorch call computes a fused site, the PLIF recurrence, "
+          "its backward, the sampler scan or its step, so library_ms is "
+          "null")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     if FAILURES:

@@ -3,8 +3,9 @@
 presets the port serves, its eval front door and its training factories.
 
 ``get_exp(name)`` gives a preset, ``exp.deploy()`` switches it to the
-deployment precision (the counterpart of the JAX ``tpu_deploy()`` without
-its space-to-depth sampler packing, a TPU layout trick),
+deployment precision and the fused sampler route (the counterpart of the
+JAX ``tpu_deploy()``, whose space-to-depth sampler packing is a TPU layout
+trick),
 ``exp.get_model()`` builds the seeded model on the card (in train mode
 with ``train=True``), ``exp.detect(model, events)`` runs the forward
 without gradients, then the confidence filter and NMS, and
@@ -74,6 +75,9 @@ class EventExp:
         self.embedding_state_dtype = None
         # conv+BN+PLIF site policy mode (ops/conv_plif_policy.py)
         self.conv_plif_fuse = "auto"
+        # 'never' | 'auto' | 'always': the fused sampler kernels (the JAX
+        # use_pallas; models/embedding.py)
+        self.fused_sampler = "never"
         # training (reference event_yolox_base.py:101-133)
         self.warmup_epochs = 0
         self.max_epoch = 300
@@ -95,11 +99,16 @@ class EventExp:
         self.nmsthre = 0.65
 
     def deploy(self) -> "EventExp":
-        """bf16 conv/BN compute and bf16 sampler state: the deployment
-        precision of the JAX ``tpu_deploy()``. int8 spike storage and the
-        site policy are the eval defaults already."""
+        """bf16 conv/BN compute, bf16 sampler state and the fused sampler
+        route ('auto': the whole-scan kernel on a CUDA device, which
+        computes in f32 on the bf16-rounded events): the deployment
+        precision of the JAX ``tpu_deploy()``, with the sampler route
+        measured fastest on the H100 (PERF.md) in place of the TPU's
+        space-to-depth packing. int8 spike storage and the site policy are
+        the eval defaults already."""
         self.compute_dtype = "bfloat16"
         self.embedding_state_dtype = "bfloat16"
+        self.fused_sampler = "auto"
         return self
 
     @property
@@ -128,7 +137,7 @@ class EventExp:
             vreset=None if self.reset is None else float(self.reset),
             compute_dtype=_DTYPES[self.compute_dtype],
             embedding_state_dtype=None if state_dt is None else _DTYPES[state_dt],
-            fuse=self.conv_plif_fuse,
+            fuse=self.conv_plif_fuse, fused_sampler=self.fused_sampler,
         )
         model.reset_parameters(torch.Generator().manual_seed(seed))
         return model.to(dev).train(train)
@@ -200,6 +209,16 @@ def _gen1_syolox(exp: EventExp, depth: float, width: float) -> EventExp:
     return exp
 
 
+def _gen4_rvt_syolox_m(exp: EventExp) -> EventExp:
+    """exps/default/gen4_rvt_syolox_m.py: the Gen1 recipe at M width on
+    1Mpx (RVT-preprocessed) histories, 384x640, 3 classes, Tl=Tm=Ts=T=3."""
+    _gen1_syolox(exp, 0.67, 0.75)
+    exp.num_classes = 3
+    exp.test_size = (384, 640)
+    exp.Tl, exp.Tm = 3, 3
+    return exp
+
+
 def _named(name: str, exp: EventExp) -> EventExp:
     exp.exp_name = name
     return exp
@@ -212,6 +231,9 @@ _PRESETS = {
     # exps/default/gen1_syolox_s.py
     "gen1_syolox_s": lambda: _named(
         "gen1_syolox_s", _gen1_syolox(EventExp(), 0.33, 0.50)),
+    # exps/default/gen4_rvt_syolox_m.py
+    "gen4_rvt_syolox_m": lambda: _named(
+        "gen4_rvt_syolox_m", _gen4_rvt_syolox_m(EventExp())),
 }
 
 

@@ -47,7 +47,7 @@ class EASYOLOX(nn.Module):
                  vreset: Optional[float] = 0.0,
                  compute_dtype: torch.dtype = torch.float32,
                  embedding_state_dtype: Optional[torch.dtype] = None,
-                 fuse: str = "auto"):
+                 fuse: str = "auto", fused_sampler: str = "never"):
         super().__init__()
         if use_spike in _LATER_MODES:
             raise NotImplementedError(
@@ -65,7 +65,7 @@ class EASYOLOX(nn.Module):
             write_zero=write_zero, use_abs=use_abs, thresh=thresh,
             vreset=vreset,
             dtype=compute_dtype if compute_dtype == torch.bfloat16 else None,
-            state_dtype=embedding_state_dtype,
+            state_dtype=embedding_state_dtype, fused_sampler=fused_sampler,
         )
         neuron = (Neuron(True, T, spike_fn, fuse=fuse)
                   if use_spike == "backbone" else Neuron())

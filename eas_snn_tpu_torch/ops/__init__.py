@@ -1,13 +1,15 @@
 """Ops of the port: surrogate spike functions, PLIF dynamics, the PLIF
-(eval and train) and conv+BN+PLIF kernel wrappers with their plain
-versions, the ARSNN scan, the fusion policy, box geometry and the NMS
-postprocess."""
+(eval and train), conv+BN+PLIF and fused ARSNN sampler kernel wrappers
+with their plain versions, the ARSNN scan, the fusion policy, box
+geometry and the NMS postprocess."""
 
+from .arsnn_fused import arsnn_fused_v2, fused_step
 from .conv_plif import conv1x1_plif, conv3x3_plif, conv3x3s2_plif
 from .plif import plif_forward, plif_train_backward, plif_train_forward
 
 __all__ = ["plif_forward", "plif_train_forward", "plif_train_backward",
            "conv1x1_plif", "conv3x3_plif", "conv3x3s2_plif",
+           "arsnn_fused_v2", "fused_step",
            "KERNEL_WRAPPERS", "reset_launches", "launch_counts"]
 
 # Every wrapper that launches a CUDA kernel, by kernel name.
@@ -18,6 +20,8 @@ KERNEL_WRAPPERS = {
     "conv3x3s2_plif": conv3x3s2_plif,
     "plif_train_fwd": plif_train_forward,
     "plif_train_bwd": plif_train_backward,
+    "arsnn_v2": arsnn_fused_v2,
+    "arsnn_step": fused_step,
 }
 
 

@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "build_all", "get_lib", "check", "stream_ptr",
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("plif", "plif_bwd", "conv_plif")
+SOURCES = ("plif", "plif_bwd", "conv_plif", "arsnn_step", "arsnn_v2")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -63,6 +63,15 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
         ),
     },
+    # gin, grec, cin, crec, in_sn, vmem, vavg, spike, seg, tlast, agg, M,
+    # CHW, t, Ts, th, vreset, hard, readout, attach, dtype, stream
+    "arsnn_step": {"arsnn_step": (_P,) * 4 + (_L,) + (_P,) * 6 + (
+        _L, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P)},
+    # ev, iw, ib, gw, gb, out, vmem, vavg, seg, tlast, sp_prev, sp_next, N,
+    # H, W, Tm, Ts, t, depth, ksize, th, vreset, hard, readout, write_zero,
+    # use_abs, dtype, stream
+    "arsnn_v2": {"arsnn_v2_step": (_P,) * 12 + (_I,) * 8 + (_F, _F) + (
+        _I,) * 5 + (_P,)},
 }
 
 

@@ -321,7 +321,7 @@ def test_flagship_sites_pass_the_kernel_wrappers_checks(monkeypatch, compute):
     assert out.shape == (1, 1680, 7)
     assert counts == {"plif_fwd": 35, "conv1x1_plif": 8, "conv3x3_plif": 6,
                       "conv3x3s2_plif": 1, "plif_train_fwd": 0,
-                      "plif_train_bwd": 0}
+                      "plif_train_bwd": 0, "arsnn_v2": 0, "arsnn_step": 0}
 
 
 def test_flagship_train_step_sites_pass_the_train_kernels_checks(
@@ -350,7 +350,7 @@ def test_flagship_train_step_sites_pass_the_train_kernels_checks(
     reset_launches()
     assert counts == {"plif_fwd": 0, "conv1x1_plif": 0, "conv3x3_plif": 0,
                       "conv3x3s2_plif": 0, "plif_train_fwd": 50,
-                      "plif_train_bwd": 50}
+                      "plif_train_bwd": 50, "arsnn_v2": 0, "arsnn_step": 0}
     assert all(p.grad is not None for p in model.parameters())
 
 
