@@ -6,7 +6,9 @@
 
 Phases, each of which fails the run (exit code 1, no result line):
 
-1. device: the card's name and power limit;
+1. device: the card's name and power limit; the build, with each
+   kernel's registers, spills and static shared memory from nvcc's
+   ``-Xptxas=-v`` report;
 2. kernels: builds the CUDA kernels from ``eas_snn_tpu_torch/csrc``, finds
    every geometry at which the flagship forward (SYOLOX-M, Gen1 256x320,
    T=3, deploy precision) calls each kernel, and there holds each kernel
@@ -16,7 +18,14 @@ Phases, each of which fails the run (exit code 1, no result line):
    membrane lies within 1e-4 of the threshold (the kernel and cuDNN sum
    the f32 preactivation in different orders). The firing rate must lie in
    1-99%. Prints the kernel's time (CUDA events), the plain version's, the
-   unfused chain's (cuDNN conv + BN + PLIF kernel) and the bound;
+   unfused chain's (cuDNN conv + BN + PLIF kernel), the bound and, for the
+   wgmma kernels, the launch plan (wgmma width x output-channel chunks,
+   grid, dynamic shared memory), then each kernel's sum a forward;
+2b. the wgmma kernels at every other spiking 1x1 and 3x3 stride-1 site of
+   the flagship forward (the sites the policy leaves on the unfused
+   chain), called directly with no change to routing: held to the plain
+   version with the tolerance of phase 2 and timed against the chain; a
+   site whose layout the wrapper refuses is listed as refused;
 3. main path: ``get_exp("gen1_syolox_m").deploy().get_model("cuda")`` and
    ``detect`` on Poisson(0.2) events; frames/s, peak memory, detections,
    and the launch counts, which must be 35 / 8 / 6 / 1 per forward plus
@@ -83,8 +92,11 @@ every plain version and comparison (cuDNN would run f32 convs in TF32).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -134,9 +146,9 @@ PER_STEP = {"plif_train_fwd": 50, "plif_train_bwd": 50}
 KERNEL_INFO = {
     "plif_fwd": ("eas_snn_tpu_torch/csrc/plif.cu",
                  "eas_snn_tpu/ops/plif_pallas.py:302"),
-    "conv1x1_plif": ("eas_snn_tpu_torch/csrc/conv_plif.cu",
+    "conv1x1_plif": ("eas_snn_tpu_torch/csrc/conv_wgmma.cu",
                      "eas_snn_tpu/ops/conv_plif_pallas.py:155"),
-    "conv3x3_plif": ("eas_snn_tpu_torch/csrc/conv_plif.cu",
+    "conv3x3_plif": ("eas_snn_tpu_torch/csrc/conv_wgmma.cu",
                      "eas_snn_tpu/ops/conv_plif_pallas.py:359"),
     "conv3x3s2_plif": ("eas_snn_tpu_torch/csrc/conv_plif.cu",
                        "eas_snn_tpu/ops/conv_plif_pallas.py:581"),
@@ -227,6 +239,48 @@ def calibrate_spiking_bn(model, events: torch.Tensor) -> None:
         h.remove()
 
 
+def _kernel_name(mangled: str) -> str:
+    """A mangled kernel name cut to its own name and template arguments:
+    the first length-prefixed identifier ending in "kernel", "total" or
+    "sums", and what follows it up to the parameter list."""
+    for j in range(1, len(mangled)):
+        if not (mangled[j - 1].isdigit() and not mangled[j].isdigit()):
+            continue
+        for k in (1, 2):
+            if j - k >= 0 and mangled[j - k:j].isdigit():
+                name = mangled[j:j + int(mangled[j - k:j])]
+                if name.endswith(("kernel", "total", "sums")) and \
+                        "_cu_" not in name:
+                    return name + mangled[j + len(name):].split("Ev")[0]
+    return mangled
+
+
+def print_ptxas(log: str) -> None:
+    """One line a kernel from nvcc's -Xptxas=-v report: registers, spill
+    stores / loads and static shared memory (the wgmma kernels' dynamic
+    shared memory is the plan's, printed in phase 2), and every ptxas
+    performance warning as it stands."""
+    name = None
+    for line in log.splitlines():
+        if "Performance Loss" in line:  # e.g. wgmma serialized by ptxas
+            print(f"  {line.strip()}")
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = _kernel_name(m.group(1)), "spills not reported"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = f"spill stores {m.group(1)}, loads {m.group(2)}"
+            continue
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            print(f"  ptxas {name}: {m.group(1)} registers, {spills}, "
+                  f"static smem {smem.group(1) if smem else 0}")
+            name = None
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -239,15 +293,24 @@ def nvidia_smi_line() -> str:
 
 def site_geometries(model, events):
     """Run one forward with pre-hooks on every spiking BaseConv and return
-    {key: [count, module, pieces' shapes, input dtype, kernel]}, where the
+    ({key: [count, module, pieces' shapes, input dtype, kernel]}, where the
     kernel is the one the site launches (the PLIF kernel for an unfused
-    site, whose input is then the conv+BN output)."""
+    site, whose input is then the conv+BN output), and the same for the
+    unfused 1x1 and 3x3 stride-1 sites with the wgmma kernel that would
+    serve them and their conv inputs)."""
     sites = OrderedDict()
+    others = OrderedDict()
 
     def hook(mod, args):
         x = args[0]
         pieces = tuple(x) if isinstance(x, (tuple, list)) else (x,)
         shapes = tuple(tuple(p.shape) for p in pieces)
+        if not mod.fused(pieces) and mod.stride == 1 and mod.ksize in (1, 3):
+            name = "conv1x1_plif" if mod.ksize == 1 else "conv3x3_plif"
+            key = (name, shapes, str(pieces[0].dtype), mod.weight.shape[0])
+            if key not in others:
+                others[key] = [0, mod, shapes, pieces[0].dtype, name]
+            others[key][0] += 1
         if mod.fused(pieces):
             name = ("conv1x1_plif" if mod.ksize == 1 else
                     "conv3x3_plif" if mod.stride == 1 else "conv3x3s2_plif")
@@ -277,7 +340,7 @@ def site_geometries(model, events):
     for k, v in rates.items():
         if not 0.01 <= v <= 0.99:
             fail(f"main path {k} fires at {v:.4f}, outside 1-99%")
-    return sites
+    return sites, others
 
 
 def _site_inputs(shapes, dtype, gen):
@@ -373,14 +436,51 @@ def check_conv_site(name, mod, shapes, dtype, gen):
               + wf.numel() * 2 + cout * 4 + 4 + n_out)
     res["bound_ms"], res["bound_by"] = bound_ms(
         nbytes, 2.0 * n_out * cin * k * k, PLIF_OPS * n_out)
+    if name != "conv3x3s2_plif":
+        plan = cp.conv_plan(k, tuple(s[1] for s in shapes), cout, TB // T, H,
+                            W, xs[0].element_size(),
+                            _build.sm_count(xs[0].device))
+        res["plan"] = (f"N{plan.width}x{plan.n_chunks} grid "
+                       f"{plan.grid_x}x{plan.n_chunks} smem {plan.smem}")
     return res
 
 
+def _print_site(name, count, shapes, dtype, r):
+    chain = "-" if r["chain_ms"] is None else f"{r['chain_ms']:8.4f}"
+    shp = "+".join("x".join(map(str, s)) for s in shapes)
+    print(f"  {name:15s} {count:3d} {shp:34s} {str(dtype)[6:]:9s} "
+          f"{r['rate']:6.3f} {r['mismatch']:5d} {r['ms']:8.4f} "
+          f"{r['plain_ms']:8.4f} {chain:>8s} {r['bound_ms']:8.4f} "
+          f"{r['bound_by']}" + (f"  {r['plan']}" if "plan" in r else ""),
+          flush=True)
+    if r["allowed"]:
+        print(f"    {r['allowed']} spikes differ within {SPIKE_TOL} of "
+              "the threshold (allowed)")
+
+
+def phase_other_sites(others, gen):
+    """The wgmma kernels called directly at every other spiking 1x1 and
+    3x3 stride-1 site of the flagship forward (the sites the TPU's policy
+    leaves on the unfused chain), with no change to routing: held to the
+    plain version like the fused sites, timed against the chain. A site
+    whose layout the wrapper refuses is listed as refused."""
+    print("phase 2b: the wgmma kernels at the unfused 1x1 / 3x3 stride-1 "
+          "sites (called directly; the forward keeps the chain there)")
+    for (name, *_), (count, mod, shapes, dtype, _) in others.items():
+        try:
+            r = check_conv_site(name, mod, shapes, dtype, gen)
+        except ValueError as e:
+            shp = "+".join("x".join(map(str, s)) for s in shapes)
+            print(f"  {name:15s} {count:3d} {shp:34s} refused: {e}")
+            continue
+        _print_site(name, count, shapes, dtype, r)
+
+
 def phase_kernels(model, events, seed):
-    sites = site_geometries(model, events)
+    sites, others = site_geometries(model, events)
     gen = torch.Generator(device=DEV).manual_seed(seed + 1)
-    per_kernel = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
-                          ops_ms=0.0, max_abs_err=0.0, sites=0)
+    per_kernel = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, chain_ms=0.0,
+                          bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0, sites=0)
                   for n in PER_FORWARD}
     print("phase 2: kernel vs plain at every flagship site geometry "
           "(times in ms per call)")
@@ -395,26 +495,24 @@ def phase_kernels(model, events, seed):
         if not 0.01 <= r["rate"] <= 0.99:
             fail(f"{name} at {shapes}: firing rate {r['rate']:.4f} outside "
                  "1-99%")
-        chain = "-" if r["chain_ms"] is None else f"{r['chain_ms']:8.4f}"
-        shp = "+".join("x".join(map(str, s)) for s in shapes)
-        print(f"  {name:15s} {count:3d} {shp:34s} {str(dtype)[6:]:9s} "
-              f"{r['rate']:6.3f} {r['mismatch']:5d} {r['ms']:8.4f} "
-              f"{r['plain_ms']:8.4f} {chain:>8s} {r['bound_ms']:8.4f} "
-              f"{r['bound_by']}", flush=True)
-        if r["allowed"]:
-            print(f"    {r['allowed']} spikes differ within {SPIKE_TOL} of "
-                  "the threshold (allowed)")
+        _print_site(name, count, shapes, dtype, r)
         agg = per_kernel[name]
         agg["sites"] += count
         agg["max_abs_err"] = max(agg["max_abs_err"], r["max_abs_err"])
-        for key in ("ms", "plain_ms", "bound_ms"):
-            agg[key] += count * r[key]
+        for key in ("ms", "plain_ms", "bound_ms", "chain_ms"):
+            agg[key] += count * (r[key] or 0.0)
         agg["bytes_ms" if r["bound_by"] == "bytes" else "ops_ms"] += (
             count * r["bound_ms"])
     for name, agg in per_kernel.items():
         if agg["sites"] != PER_FORWARD[name]:
             fail(f"{name}: {agg['sites']} sites found in the flagship "
                  f"forward, expected {PER_FORWARD[name]}")
+    for name in ("conv1x1_plif", "conv3x3_plif"):
+        agg = per_kernel[name]
+        print(f"  {name}: {agg['ms']:.4f} ms a forward over its "
+              f"{agg['sites']} sites, unfused chain {agg['chain_ms']:.4f}, "
+              f"bound {agg['bound_ms']:.4f}")
+    phase_other_sites(others, gen)
     return per_kernel
 
 
@@ -1238,9 +1336,14 @@ def main() -> int:
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    _build.build_all()
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-Xptxas=-v",)
+    log = io.StringIO()
+    with contextlib.redirect_stderr(log):
+        _build.build_all()
     print(f"built {len(_build.SOURCES)} kernel libraries in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s; nvcc's -Xptxas=-v report:",
+          flush=True)
+    print_ptxas(log.getvalue())
 
     with torch.no_grad():
         exp = get_exp("gen1_syolox_m").deploy()

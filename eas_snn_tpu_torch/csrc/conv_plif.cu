@@ -1,33 +1,26 @@
-// Whole-site conv + folded BatchNorm + PLIF (eval), int8 spikes out: a 1x1
-// conv over a virtual concat of up to 4 pieces, or a 3x3 conv with pad 1
-// and stride 1 or 2 (output (h, w) taps input (S*h + dy - 1, S*w + dx - 1),
-// zero outside).
+// Whole-site 3x3 stride-2 conv + folded BatchNorm + PLIF (eval), int8
+// spikes out: output (h, w) taps input (2h + dy - 1, 2w + dx - 1), zero
+// outside. (The 1x1 and the stride-1 3x3 are in conv_wgmma.cu.)
 //
 // Replaces: eas_snn_tpu/ops/conv_plif_pallas.py
-//   :_kernel    (pallas_call at :155, conv1x1_plif_fused)   -> conv1x1 kernel
-//   :_kernel3   (pallas_call at :359, conv3x3_plif_fused)   -> conv3x3, S=1
-//   :_kernel3s2 (pallas_call at :581, conv3x3s2_plif_fused) -> conv3x3, S=2
+//   :_kernel3s2 (pallas_call at :581, conv3x3s2_plif_fused)
 //
-// Inputs: pieces x_j (T*B, C_j, H, W), NCHW, of one dtype (int8, bf16 or
-// f32), never concatenated in memory; BN-folded weights in bf16, (Cout,
-// sum C_j) for 1x1 or (3, Cout, 3*Cin) with the last axis (dx, ci) for 3x3
-// (fold_conv1x1 / fold_conv3x3); the folded bias (Cout) in f32; the decay
-// a = 1 - sigmoid(w_plif) as a device scalar. Output (T*B, Cout, Ho, Wo).
-// The entry points refuse (cudaErrorInvalidValue) a layout whose rows or
-// weight rows do not split into whole aligned copies: every C_j a multiple
-// of 8, W (H*W for 1x1) a whole number of copies (16 bytes for 1x1, 4 for
-// 3x3) and every tensor 16-byte aligned.
+// Inputs: x (T*B, Cin, H, W), NCHW, int8, bf16 or f32; BN-folded weights
+// in bf16, (3, Cout, 3*Cin) with the last axis (dx, ci) (fold_conv3x3);
+// the folded bias (Cout) in f32; the decay a = 1 - sigmoid(w_plif) as a
+// device scalar. Output (T*B, Cout, ceil(H/2), ceil(W/2)). The entry point
+// refuses (cudaErrorInvalidValue) a layout whose rows or weight rows do
+// not split into whole aligned copies: Cin a multiple of 8, W a whole
+// number of 4-byte copies and every tensor 16-byte aligned.
 //
 // Design: a direct convolution on the tensor cores (mma.sync m16n8k16,
 // bf16 operands, f32 accumulation), M = Cout, N = output pixels, K = taps x
 // channels, with the PLIF recurrence in its epilogue. A block owns 64
-// output channels x 128 output pixels of one image b (1x1: 128
-// consecutive pixels; 3x3: an 8x16 tile) and loops t = 0..T-1. For each t
-// it walks the input channels in chunks (32 channels for 1x1, per concat
-// piece; 16 for 3x3). cp.async copies each chunk's input tile raw, in the
-// input's own dtype and with the 3x3 halo, plus the weights of all taps
-// into a ring of shared-memory stages (4 for 1x1, 3 for 3x3 stride 1, 2
-// for stride 2), so later chunks are in flight while one multiplies and
+// output channels x an 8x16 output tile of one image b and loops t =
+// 0..T-1. For each t it walks the input channels in chunks of 16.
+// cp.async copies each chunk's input tile raw, in the input's own dtype
+// and with the halo, plus the weights of all taps into a 2-stage ring of
+// shared memory, so the next chunk is in flight while one multiplies and
 // no register holds a load. Each warp multiplies its 32x32 sub-tile over
 // every tap, reading the fragments straight from shared memory and
 // rounding the input to bf16 as it reads it; a tap is an offset into the
@@ -36,14 +29,10 @@
 // registers across t, and stages the spikes in shared memory for
 // coalesced stores. The preactivation never reaches device memory.
 //
-// Bound on the H100: at the flagship sites (B=128) the 1x1 sites move
-// 0.1-0.5 GB for 2*Cin flops per output (byte-bound for Cin <= 384), the
-// 3x3 stride-1 site (96->96 at 32x40) does ~82 GFLOP against ~0.1 GB
-// (tensor-core bound, ~0.08 ms) and the stride-2 site (48->96 from
-// 128x160 bf16) moves ~0.94 GB (byte-bound, ~0.28 ms). This version is
-// still far from both: mma.sync reaches a fraction of the wgmma rate,
-// weights are re-read from L2 for every chunk and t, and a Cout of 48 or
-// 96 leaves part of the 64-row tile idle. TMA-fed wgmma is the follow-up.
+// Bound on the H100: the flagship site (48->96 from 128x160 bf16, B=128)
+// moves ~0.94 GB (byte-bound, ~0.28 ms). This version is still far from
+// it: mma.sync reaches a fraction of the wgmma rate, weights are re-read
+// from L2 for every chunk and t, and the 64-row tile is not sized to Cout.
 #include "common.cuh"
 
 namespace {
@@ -174,14 +163,15 @@ __host__ __device__ constexpr int round_up(int n, int m) {
 
 template <typename T, int KS, int S>
 struct Geo {
+  static_assert(KS == 3 && S == 2, "the 3x3 stride-2 site only");
   static constexpr int TAPS = KS * KS;
   static constexpr int P = (KS - 1) / 2;  // padding
-  static constexpr int KC = KS == 1 ? 32 : 16;  // channels a chunk
-  static constexpr int KP = KC / 2;             // weight words a row
-  static constexpr int STAGES = KS == 1 ? 4 : (S == 1 ? 3 : 2);
-  static constexpr int TH = KS == 1 ? 1 : 8;  // output tile rows x cols
-  static constexpr int TW = KS == 1 ? PX_TILE : 16;
-  static constexpr int CP = KS == 1 ? 16 : 4;  // bytes a copy
+  static constexpr int KC = 16;           // channels a chunk
+  static constexpr int KP = KC / 2;       // weight words a row
+  static constexpr int STAGES = 2;
+  static constexpr int TH = 8;  // output tile rows x cols
+  static constexpr int TW = 16;
+  static constexpr int CP = 4;  // bytes a copy
   static constexpr int EPC = CP / (int)sizeof(T);
   // the tile starts HALO_L columns left of the first output's first input,
   // a whole copy, so that copies stay aligned
@@ -213,8 +203,8 @@ __device__ __forceinline__ void locate(const Pieces& pc, int c, int& j,
   c0 = c * KC;
 }
 
-// A 1x1 site comes as H = 1, W = H*W. Every input row and weight row
-// splits into aligned copies (launch() refuses other layouts).
+// Every input row and weight row splits into aligned copies (launch()
+// refuses other layouts).
 template <typename T, int KS, int S>
 __global__ void __launch_bounds__(THREADS, 2) conv_plif_kernel(
     Pieces pc, const __nv_bfloat16* __restrict__ w,
@@ -286,10 +276,8 @@ __global__ void __launch_bounds__(THREADS, 2) conv_plif_kernel(
         const int tap = q / (CO_TILE * (G::KC / 8));
         const int r = (q / (G::KC / 8)) % CO_TILE, sg = q % (G::KC / 8);
         const int co = co0 + r, k = c0 + 8 * sg;
-        const long long idx =
-            KS == 1 ? (long long)co * Cin + coff + k
-                    : ((long long)(tap / 3) * Cout + co) * (3 * Cin) +
-                          (tap % 3) * Cin + k;
+        const long long idx = ((long long)(tap / 3) * Cout + co) * (3 * Cin) +
+                              (tap % 3) * Cin + k;
         load_w_seg(Ws + tap * CO_TILE * G::KP + w_word<G::KP>(r, 4 * sg), w,
                    idx, co, Cout, k, lim);
       }
@@ -383,21 +371,20 @@ cudaError_t launch(const Pieces& pc, const void* w, const void* bias,
   return cudaGetLastError();
 }
 
-template <int KS, int S>
 cudaError_t dispatch(int dtype, const Pieces& pc, const void* w,
                      const void* bias, const void* a, void* out, int B,
                      int steps, int Cout, int H, int W, float th, int ge,
                      cudaStream_t s) {
   switch (dtype) {
     case 0:
-      return launch<float, KS, S>(pc, w, bias, a, out, B, steps, Cout, H, W,
-                                  th, ge, s);
+      return launch<float, 3, 2>(pc, w, bias, a, out, B, steps, Cout, H, W,
+                                 th, ge, s);
     case 1:
-      return launch<__nv_bfloat16, KS, S>(pc, w, bias, a, out, B, steps,
-                                          Cout, H, W, th, ge, s);
+      return launch<__nv_bfloat16, 3, 2>(pc, w, bias, a, out, B, steps, Cout,
+                                         H, W, th, ge, s);
     case 2:
-      return launch<int8_t, KS, S>(pc, w, bias, a, out, B, steps, Cout, H, W,
-                                   th, ge, s);
+      return launch<int8_t, 3, 2>(pc, w, bias, a, out, B, steps, Cout, H, W,
+                                  th, ge, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -405,30 +392,12 @@ cudaError_t dispatch(int dtype, const Pieces& pc, const void* w,
 
 }  // namespace
 
-// ptrs/cins: host arrays of n_pieces (1..4) input pointers and channel
-// counts; dtype 0 = f32, 1 = bf16, 2 = int8 (all pieces alike).
-extern "C" int conv1x1_plif(const void** ptrs, const int* cins, int n_pieces,
-                            const void* w, const void* bias, const void* a,
-                            void* out, int B, int steps, int Cout, int H,
-                            int W, float th, int ge, int dtype,
-                            void* stream) {
-  if (n_pieces < 1 || n_pieces > 4) return (int)cudaErrorInvalidValue;
-  Pieces pc;
-  for (int j = 0; j < 4; ++j) {
-    pc.ptr[j] = j < n_pieces ? ptrs[j] : nullptr;
-    pc.cin[j] = j < n_pieces ? cins[j] : 0;
-    if (j < n_pieces && cins[j] < 1) return (int)cudaErrorInvalidValue;
-  }
-  pc.n = n_pieces;
-  return (int)dispatch<1, 1>(dtype, pc, w, bias, a, out, B, steps, Cout, 1,
-                             H * W, th, ge, (cudaStream_t)stream);
-}
-
-// x (T*B, Cin, H, W); stride 1 or 2; dtype as above.
-extern "C" int conv3x3_plif(const void* x, const void* w3, const void* bias,
-                            const void* a, void* out, int B, int steps,
-                            int Cin, int Cout, int H, int W, int stride,
-                            float th, int ge, int dtype, void* stream) {
+// x (T*B, Cin, H, W); dtype 0 = f32, 1 = bf16, 2 = int8.
+extern "C" int conv3x3s2_plif(const void* x, const void* w3,
+                              const void* bias, const void* a, void* out,
+                              int B, int steps, int Cin, int Cout, int H,
+                              int W, float th, int ge, int dtype,
+                              void* stream) {
   if (Cin < 1) return (int)cudaErrorInvalidValue;
   Pieces pc;
   pc.ptr[0] = x;
@@ -438,12 +407,6 @@ extern "C" int conv3x3_plif(const void* x, const void* w3, const void* bias,
     pc.cin[j] = 0;
   }
   pc.n = 1;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (stride == 1)
-    return (int)dispatch<3, 1>(dtype, pc, w3, bias, a, out, B, steps, Cout,
-                               H, W, th, ge, s);
-  if (stride == 2)
-    return (int)dispatch<3, 2>(dtype, pc, w3, bias, a, out, B, steps, Cout,
-                               H, W, th, ge, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch(dtype, pc, w3, bias, a, out, B, steps, Cout, H, W, th,
+                       ge, (cudaStream_t)stream);
 }

@@ -12,6 +12,7 @@ Nothing is built at import: the first kernel launch builds all libraries.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -23,12 +24,13 @@ from typing import Dict
 import torch
 
 __all__ = ["SOURCES", "build_all", "get_lib", "check", "stream_ptr",
-           "require_cuda"]
+           "sm_count", "require_cuda"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("plif", "plif_bwd", "conv_plif", "arsnn_step", "arsnn_v2")
+SOURCES = ("plif", "plif_bwd", "conv_plif", "conv_wgmma", "arsnn_step",
+           "arsnn_v2")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -51,16 +53,24 @@ _SIGNATURES = {
     "plif_bwd": {"plif_train_bwd": (_P,) * 13 + (_I,) * 5 + (_F, _I, _I, _F,
                                                              _F, _I, _P)},
     "conv_plif": {
-        # ptrs, cins, n_pieces, w, bias, a, out, B, steps, Cout, H, W, th,
-        # ge, dtype, stream
+        # x, w3, bias, a, out, B, steps, Cin, Cout, H, W, th, ge, dtype,
+        # stream
+        "conv3x3s2_plif": (
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
+        ),
+    },
+    "conv_wgmma": {
+        # ptrs, cins, n_pieces, w, bias, a, out, B, steps, Cout, H, W, nw,
+        # chunk, n_chunks, grid_x, th, ge, dtype, stream
         "conv1x1_plif": (
             ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P, _P, _P, _P,
-            _I, _I, _I, _I, _I, _F, _I, _I, _P,
+            _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
         ),
-        # x, w3, bias, a, out, B, steps, Cin, Cout, H, W, stride, th, ge,
-        # dtype, stream
+        # x, w3, bias, a, out, B, steps, Cin, Cout, H, W, nw, chunk,
+        # n_chunks, grid_x, th, ge, dtype, stream
         "conv3x3_plif": (
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+            _I, _I, _P,
         ),
     },
     # gin, grec, cin, crec, in_sn, vmem, vavg, spike, seg, tlast, agg, M,
@@ -151,6 +161,21 @@ def check(err: int, what: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device, which sizes the
+    persistent grids; for any other device (the meta tensors of the
+    layout checks) the H100 SXM's 132."""
+    if device.type != "cuda":
+        return 132
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def require_cuda(t: torch.Tensor, what: str) -> None:

@@ -20,6 +20,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from .arsnn_fused import sigmoid as _sigmoid_rounded
+
 __all__ = ["arsnn_scan", "gated_lif_update"]
 
 
@@ -35,6 +37,16 @@ def gated_lif_update(vmem, gate, current, thresh: float,
     else:
         v = v * (1.0 - spike) + vreset * spike
     return v, v_noreset, spike
+
+
+def _gate(x: torch.Tensor) -> torch.Tensor:
+    """The gate sigmoid as the JAX scan computes it: in bf16 XLA expands
+    ``jax.nn.sigmoid`` as 1/(1+exp(-x)) with a rounding after every op,
+    where ``torch.sigmoid`` rounds once. In f32 ``torch.sigmoid``, whose
+    gradient stays finite where exp(-x) overflows."""
+    if x.dtype == torch.bfloat16:
+        return _sigmoid_rounded(x)
+    return torch.sigmoid(x)
 
 
 def _onehot(seg: torch.Tensor, Ts: int) -> torch.Tensor:
@@ -80,7 +92,7 @@ def arsnn_scan(
     for t in range(Tm):
         state = gate_conv_fn(spike)
         g_rec, c_rec = state[:, :C], state[:, C:]
-        gate = torch.sigmoid(g_in_all[t] + g_rec)
+        gate = _gate(g_in_all[t] + g_rec)
         vmem, v_noreset, spike = gated_lif_update(
             vmem, gate, c_in_all[t] + c_rec, thresh, vreset, spike_fn)
         vavg = vavg + v_noreset

@@ -7,29 +7,35 @@ mul = rsqrt(var + eps) * scale. The site then computes, per time step,
 acc = bias_f + sum(bf16 w_f * bf16 x) in f32 and runs the PLIF recurrence
 on acc, so the preactivation never reaches device memory.
 
-Three ops, each a CUDA kernel (``csrc/conv_plif.cu``) on CUDA tensors and
-its plain PyTorch version on CPU tensors:
+Three ops, each a CUDA kernel on CUDA tensors and its plain PyTorch
+version on CPU tensors:
 
 * ``conv1x1_plif``: 1x1 conv over a virtual channel concat of up to 4
-  pieces;
-* ``conv3x3_plif``: 3x3, stride 1, pad 1;
+  pieces (``csrc/conv_wgmma.cu``, wgmma);
+* ``conv3x3_plif``: 3x3, stride 1, pad 1 (``csrc/conv_wgmma.cu``, wgmma);
 * ``conv3x3s2_plif``: 3x3, stride 2, pad 1; output (h, w) taps input
-  (2h+dy-1, 2w+dx-1).
+  (2h+dy-1, 2w+dx-1) (``csrc/conv_plif.cu``, mma.sync).
 
-All take int8, bf16 or f32 inputs in (T*B, C, H, W) layout. The kernels
-copy whole aligned segments only, so on the card every input's channel
-count must be a multiple of 8, its row (H*W for 1x1, W for 3x3) a whole
-number of copies (16 bytes for 1x1, 4 for 3x3) and its address 16-byte
-aligned; the wrappers raise otherwise. Every flagship site fits. The plain
-versions multiply bf16 values held in f32, so their products are exact;
-they run the convolution with TF32 off all the same, so that a plain
-version on the card sums in full f32.
+All take int8, bf16 or f32 inputs in (T*B, C, H, W) layout. On the card
+every input's channel count must be a multiple of 8 and its address
+16-byte aligned. The 1x1 kernel copies each channel's pixels in 16-byte
+pieces that never span two images, so H*W must fill whole 16-byte
+copies; the 3x3 kernels copy whole 4-byte row segments, so W must be a
+whole number of them. The wgmma kernels keep one chunk of the output
+channels' weights resident in shared memory (:func:`conv_plan` picks the
+chunks, and raises where even the narrowest does not fit). The wrappers
+raise otherwise. Every flagship site fits.
+
+The plain versions multiply bf16 values held in f32, so their products
+are exact; they run the convolution with TF32 off all the same, so that a
+plain version on the card sums in full f32.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple, Union
+import functools
+from typing import NamedTuple, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +55,9 @@ __all__ = [
     "conv1x1_plif",
     "conv3x3_plif",
     "conv3x3s2_plif",
+    "ConvPlan",
+    "conv_plan",
+    "wgmma_smem_bytes",
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -133,6 +142,96 @@ def conv3x3_plif_plain(x, w3, bias, T: int, w_plif, stride: int = 1,
                               w_plif, thresh, kind)
 
 
+# ------------------------------------------------ the wgmma kernels' plan
+# Constants of csrc/conv_wgmma.cu: the wgmma widths instantiated (N), the
+# shared memory a block may use and the pixels of a tile (M).
+WGMMA_WIDTHS = (32, 48, 64, 96)
+SMEM_LIMIT = 232_448
+M_TILE = 64
+H100_SMS = 132
+
+
+def _geo(ksize: int, itemsize: int) -> Tuple[int, ...]:
+    """(taps, channels a K chunk, bf16 stages, bytes a bf16 stage, raw
+    stages, bytes a raw stage, bytes a spike-stage row) of the source's
+    Geo<ksize, T> for ``itemsize``-byte inputs."""
+    if ksize == 1:
+        return (1, 64, 2, 8 * (M_TILE * 16 + 16), 4 if itemsize == 1 else 2,
+                4096 * itemsize, M_TILE + 16)
+    kc = 16 if itemsize == 4 else 32
+    row = (8 + 2 * (4 // itemsize)) * itemsize
+    return 9, kc, 2, kc // 8 * 10 * 10 * 16, 2, 10 * kc * row, 72
+
+
+def _ceil(n: int, m: int) -> int:
+    return -(-n // m)
+
+
+def _r128(n: int) -> int:
+    return _ceil(n, 128) * 128
+
+
+class ConvPlan(NamedTuple):
+    """How a wgmma conv kernel covers a site: blocks of ``grid_x`` x
+    ``n_chunks``; block (x, y) owns output channels [y*chunk, (y+1)*chunk)
+    (the last chunk clipped at Cout), multiplies them as one wgmma of
+    width ``width`` >= chunk, and walks the 64-pixel tiles 2x + c +
+    2*grid_x*i with its two consumer warpgroups c = 0, 1."""
+    width: int
+    chunk: int
+    n_chunks: int
+    k_pad: int
+    smem: int
+    n_tiles: int
+    grid_x: int
+
+
+def wgmma_smem_bytes(ksize: int, width: int, k_pad: int,
+                     itemsize: int) -> int:
+    """Dynamic shared memory of one block (``Smem`` in the source), each
+    part 128-byte aligned: resident weights, bias, two bf16 rings, two raw
+    rings, two spike stages, barriers."""
+    taps, _, stages, stage, raw_stages, raw, out_ld = _geo(ksize, itemsize)
+    return (_r128(taps * k_pad * width * 2) + _r128(width * 4)
+            + 2 * stages * stage + 2 * raw_stages * raw
+            + _r128(2 * width * out_ld) + 2 * 2 * stages * 8)
+
+
+@functools.lru_cache(maxsize=256)
+def conv_plan(ksize: int, cins: Tuple[int, ...], cout: int, B: int, H: int,
+              W: int, itemsize: int, num_sms: int = H100_SMS) -> ConvPlan:
+    """The launch plan of the 1x1 (``ksize`` 1) or 3x3 stride-1 wgmma
+    kernel at a site; B is the batch without T, ``itemsize`` the input's
+    bytes an element, K padded to whole K chunks in every piece. Takes the
+    fewest output-channel chunks whose resident weights fit in shared
+    memory, each chunk a multiple of 8 channels run at the narrowest wgmma
+    width that holds it. Raises ValueError where even the narrowest does
+    not fit."""
+    kc = _geo(ksize, itemsize)[1]
+    k_pad = sum(_ceil(c, kc) * kc for c in cins)
+    for n in range(1, _ceil(cout, 8) + 1):
+        chunk = _ceil(_ceil(cout, n), 8) * 8
+        width = next((w for w in WGMMA_WIDTHS if w >= chunk), None)
+        if width is None:
+            continue
+        smem = wgmma_smem_bytes(ksize, width, k_pad, itemsize)
+        if smem <= SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(
+            f"conv{ksize}x{ksize}_plif: the kernel keeps a chunk of the "
+            f"weights resident in shared memory, and {ksize * ksize} taps x "
+            f"{k_pad} channels do not fit in {SMEM_LIMIT} bytes even for "
+            f"{WGMMA_WIDTHS[0]} output channels")
+    if ksize == 1:
+        n_tiles = _ceil(B * H * W, M_TILE)
+    else:
+        n_tiles = B * _ceil(H, 8) * _ceil(W, 8)
+    n_chunks = _ceil(cout, chunk)
+    grid_x = max(1, min(_ceil(n_tiles, 2), num_sms // n_chunks))
+    return ConvPlan(width, chunk, n_chunks, k_pad, smem, n_tiles, grid_x)
+
+
 def _check_layout(xs: Sequence[torch.Tensor], row: int, copy: int,
                   what: str) -> None:
     """Raise unless the kernel's whole aligned copies cover every piece:
@@ -179,15 +278,18 @@ def conv1x1_plif(x: Pieces, w_oc: torch.Tensor, bias: torch.Tensor, T: int,
         _build.require_cuda(p, "conv1x1_plif")
     _check_layout(xs, H * W, 16, "conv1x1_plif")
     dev = xs[0].device
+    plan = conv_plan(1, tuple(p.shape[1] for p in xs), cout, TB // T, H, W,
+                     xs[0].element_size(), _build.sm_count(dev))
     w16, b32, a = _operands(w_oc, bias, w_plif, dev, "conv1x1_plif")
     out = torch.empty((TB, cout, H, W), dtype=torch.int8, device=dev)
     n = len(xs)
     ptrs = (ctypes.c_void_p * n)(*[p.data_ptr() for p in xs])
     cins = (ctypes.c_int * n)(*[p.shape[1] for p in xs])
-    err = _build.get_lib("conv_plif").conv1x1_plif(
+    err = _build.get_lib("conv_wgmma").conv1x1_plif(
         ptrs, cins, n, w16.data_ptr(), b32.data_ptr(), a.data_ptr(),
-        out.data_ptr(), TB // T, T, cout, H, W, float(thresh),
-        int(spike_ge(kind)), _DTYPE_CODE[xs[0].dtype], _build.stream_ptr(dev),
+        out.data_ptr(), TB // T, T, cout, H, W, plan.width, plan.chunk,
+        plan.n_chunks, plan.grid_x, float(thresh), int(spike_ge(kind)),
+        _DTYPE_CODE[xs[0].dtype], _build.stream_ptr(dev),
     )
     _build.check(err, "conv1x1_plif")
     conv1x1_plif.launches += 1
@@ -209,16 +311,25 @@ def _conv3x3(x, w3, bias, T, w_plif, thresh, kind, stride, wrapper):
         return conv3x3_plif_plain(x, w3, bias, T, w_plif, stride, thresh,
                                   kind)
     _build.require_cuda(x, what)
-    _check_layout((x,), W, 4, what)
     dev = x.device
+    _check_layout((x,), W, 4, what)
+    if stride == 1:
+        plan = conv_plan(3, (cin,), cout, TB // T, H, W, x.element_size(),
+                         _build.sm_count(dev))
     w16, b32, a = _operands(w3, bias, w_plif, dev, what)
     ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     out = torch.empty((TB, cout, ho, wo), dtype=torch.int8, device=dev)
-    err = _build.get_lib("conv_plif").conv3x3_plif(
-        x.data_ptr(), w16.data_ptr(), b32.data_ptr(), a.data_ptr(),
-        out.data_ptr(), TB // T, T, cin, cout, H, W, stride, float(thresh),
-        int(spike_ge(kind)), _DTYPE_CODE[x.dtype], _build.stream_ptr(dev),
-    )
+    args = (w16.data_ptr(), b32.data_ptr(), a.data_ptr(), out.data_ptr(),
+            TB // T, T, cin, cout, H, W)
+    tail = (float(thresh), int(spike_ge(kind)), _DTYPE_CODE[x.dtype],
+            _build.stream_ptr(dev))
+    if stride == 1:
+        err = _build.get_lib("conv_wgmma").conv3x3_plif(
+            x.data_ptr(), *args, plan.width, plan.chunk, plan.n_chunks,
+            plan.grid_x, *tail)
+    else:
+        err = _build.get_lib("conv_plif").conv3x3s2_plif(
+            x.data_ptr(), *args, *tail)
     _build.check(err, what)
     wrapper.launches += 1
     return out

@@ -164,7 +164,8 @@ def test_plif_rejects_other_devices_and_dtypes():
 
 @pytest.mark.parametrize("case", [
     "plif_hw", "plif_3d", "c1_channels", "c1_row", "c3_channels", "c3_row",
-    "train_fwd_hw", "train_bwd_hw", "train_bwd_steps"])
+    "c3s1_row", "c1_weights", "c3_weights", "train_fwd_hw", "train_bwd_hw",
+    "train_bwd_steps"])
 def test_wrappers_refuse_layouts_the_kernels_cannot_copy(monkeypatch, case):
     """On a non-CPU tensor a wrapper raises for a layout that does not
     split into the kernel's whole aligned copies (meta tensors stand in
@@ -188,14 +189,21 @@ def test_wrappers_refuse_layouts_the_kernels_cannot_copy(monkeypatch, case):
                                         T, w),
         "c1_channels": lambda: pcp.conv1x1_plif(
             (meta(6, 8, 4, 4), meta(6, 4, 4, 4)), z(8, 12), z(8), T, w),
-        # int8 H*W must be a multiple of 16
+        # int8 H*W must be a multiple of 16 (whole 16-byte copies)
         "c1_row": lambda: pcp.conv1x1_plif(meta(6, 8, 3, 4), z(8, 8), z(8),
                                            T, w),
         "c3_channels": lambda: pcp.conv3x3_plif(meta(6, 12, 4, 4),
                                                 z(3, 8, 36), z(8), T, w),
-        # int8 W must be a multiple of 4
+        # int8 W must be a multiple of 4 (whole 4-byte row copies)
         "c3_row": lambda: pcp.conv3x3s2_plif(meta(6, 8, 4, 6), z(3, 8, 24),
                                              z(8), T, w),
+        "c3s1_row": lambda: pcp.conv3x3_plif(meta(6, 8, 4, 6), z(3, 8, 24),
+                                             z(8), T, w),
+        # a chunk of the weights must stay resident in shared memory
+        "c1_weights": lambda: pcp.conv1x1_plif(meta(6, 4096, 4, 4),
+                                               z(8, 4096), z(8), T, w),
+        "c3_weights": lambda: pcp.conv3x3_plif(meta(6, 512, 4, 4),
+                                               z(3, 8, 1536), z(8), T, w),
         # the train kernels: H*W in 16-byte vectors, T at most 8
         "train_fwd_hw": lambda: plif_train_forward(
             meta(6, 8, 3, 2, dtype=torch.bfloat16), z(1), z(8), z(8), z(8),
@@ -337,6 +345,89 @@ def test_conv_plif_real_valued_vs_reference(site):
     jpre = _jax_preact(xs, w16, bias, stride, ksize)
     np.testing.assert_allclose(nhwc(preact.numpy()), jpre, rtol=0, atol=1e-5)
     assert_spikes_match(nhwc(got.numpy()), want, margins(jpre, wp))
+
+
+# ------------------------------------------- the wgmma kernels' launch plan
+
+# (ksize, cins, cout, H, W): every flagship site the TPU's policy table
+# fuses onto the wgmma kernels (ops/conv_plif_policy.py), then the small
+# shapes of this file's conv tests.
+PLAN_SITES = [
+    (1, (96,), 48, 64, 80), (1, (48, 48), 96, 64, 80),
+    (3, (96,), 96, 32, 40), (1, (96, 96), 192, 32, 40),
+    (1, (384,), 192, 16, 20), (1, (192, 192), 384, 16, 20),
+    (1, (384, 384), 768, 8, 10),
+    (1, (16,), 24, 5, 6), (1, (8, 24), 24, 5, 6), (3, (8,), 16, 8, 6),
+    (1, (16, 24), 32, 8, 10), (3, (16,), 32, 8, 10),
+]
+
+
+def _tile_pixels(ksize, tile, B, H, W):
+    """The output pixels (b, h, w) of one 64-pixel tile, as the kernel
+    maps them: 1x1, 64 consecutive of the flattened (b, h, w); 3x3, an 8x8
+    block, row-major over the 8-wide tiles of each image."""
+    if ksize == 1:
+        r = np.arange(64 * tile, 64 * tile + 64)
+        r = r[r < B * H * W]
+        return {(int(i) // (H * W), int(i) % (H * W) // W, int(i) % W)
+                for i in r}
+    tw = -(-W // 8)
+    per = tw * -(-H // 8)
+    b, rem = divmod(tile, per)
+    h0, w0 = (rem // tw) * 8, (rem % tw) * 8
+    return {(b, h, w) for h in range(h0, min(h0 + 8, H))
+            for w in range(w0, min(w0 + 8, W))}
+
+
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+@pytest.mark.parametrize("B", [2, 128])
+@pytest.mark.parametrize("site", PLAN_SITES)
+def test_conv_plan_covers_every_output_once(site, B, itemsize):
+    """The host's launch plan for the wgmma kernels, at every flagship
+    fused geometry (B=128 as deployed, B=2 as the card-vs-CPU check runs
+    it) and the small shapes of this file: legal wgmma widths, shared
+    memory within a block's 232,448 bytes, and the blocks' tiles and
+    channel chunks cover every output pixel and channel exactly once."""
+    ksize, cins, cout, H, W = site
+    plan = pcp.conv_plan(ksize, cins, cout, B, H, W, itemsize)
+    assert plan.width in pcp.WGMMA_WIDTHS
+    assert plan.width % 8 == 0 and plan.width <= 256
+    assert plan.chunk % 8 == 0 and plan.chunk <= plan.width
+    assert plan.smem <= pcp.SMEM_LIMIT
+    assert plan.smem == pcp.wgmma_smem_bytes(ksize, plan.width, plan.k_pad,
+                                             itemsize)
+    assert plan.k_pad >= sum(cins)
+    chans = [c for y in range(plan.n_chunks)
+             for c in range(y * plan.chunk, min((y + 1) * plan.chunk, cout))]
+    assert sorted(chans) == list(range(cout))
+    assert plan.n_chunks * plan.grid_x <= pcp.H100_SMS
+    tiles = [2 * x + c + 2 * plan.grid_x * i for x in range(plan.grid_x)
+             for c in (0, 1) for i in range(plan.n_tiles)
+             if 2 * x + c + 2 * plan.grid_x * i < plan.n_tiles]
+    assert sorted(tiles) == list(range(plan.n_tiles))
+    seen = []
+    for t in tiles:
+        seen += _tile_pixels(ksize, t, B, H, W)
+    assert len(seen) == len(set(seen)) == B * H * W
+
+
+def test_conv_plan_sizes_the_flagship_sites():
+    """Flagship (B=128, int8 spikes): Cout 48 and 96 run whole, 192 in two
+    chunks of 96, 384 in four and 768 in eight; nothing is padded to 64
+    output channels, and the 3x3 keeps all 9 x 96 x 96 weights resident."""
+    want = {(1, (96,), 48, 64, 80): (48, 1), (1, (48, 48), 96, 64, 80):
+            (96, 1), (3, (96,), 96, 32, 40): (96, 1),
+            (1, (96, 96), 192, 32, 40): (96, 2),
+            (1, (384,), 192, 16, 20): (96, 2),
+            (1, (192, 192), 384, 16, 20): (96, 4),
+            (1, (384, 384), 768, 8, 10): (96, 8)}
+    for (ksize, cins, cout, H, W), (width, n) in want.items():
+        plan = pcp.conv_plan(ksize, cins, cout, 128, H, W, 1)
+        assert (plan.width, plan.chunk, plan.n_chunks) == (width, width, n)
+    plan = pcp.conv_plan(3, (96,), 96, 128, 32, 40, 1)
+    assert plan.k_pad == 96 and plan.grid_x == pcp.H100_SMS
+    with pytest.raises(ValueError, match="resident"):
+        pcp.conv_plan(3, (512,), 8, 2, 4, 4, 1)
 
 
 def test_fold_conv3x3_matches_jax_exactly():

@@ -197,6 +197,46 @@ def test_scan_fused_matches_jax(case):
     assert (want != 0).mean() > 0.2
 
 
+@pytest.mark.parametrize("readout,vreset", [("sum", None), ("last", None),
+                                            ("avg", 0.0)])
+def test_plain_scan_bf16_gate_chain_equals_jax_bitwise(readout, vreset):
+    """The port's plain ``arsnn_scan`` in bf16 against the JAX
+    ``arsnn_scan`` in bf16, bit for bit: the aggregation (every written
+    membrane and slot) and, through the JAX scan's recorded last-spike
+    times, every spike. The input and gate "convs" are 1x1 maps scaled by
+    powers of two (g = x, c = x/2 on the events; g = 3/4 s - 1/2, c = s/2
+    on the spikes), exact in bf16 on both sides, so the comparison sees
+    only the gate chain: XLA expands ``jax.nn.sigmoid`` in bf16 as
+    1/(1+exp(-x)) rounded after every op, which ``torch.sigmoid``, with
+    its single rounding, does not equal (it differs from it in about a
+    third of N(0, 3) bf16 inputs)."""
+    from eas_snn_tpu.ops.arsnn import arsnn_scan as jscan
+    from eas_snn_tpu_torch.ops.arsnn import arsnn_scan as tscan
+    from eas_snn_tpu_torch.ops.surrogate import get_spike_fn as tspike
+
+    rng = np.random.default_rng(11)
+    Tm, N, H, W, C = 6, 2, 16, 16, 2
+    ev = (rng.standard_normal((Tm, N, H, W, C)) * 3.0).astype(np.float32)
+    kw = dict(Ts=3, thresh=1.0, vreset=vreset, readout=readout)
+
+    want, t_last = jscan(
+        jnp.asarray(ev, jnp.bfloat16),
+        lambda x: jnp.concatenate([x, x * 0.5], -1),
+        lambda s: jnp.concatenate([s * 0.75 - 0.5, s * 0.5], -1),
+        spike_fn=get_spike_fn("rect", 1.0), record=True, **kw)
+    got = tscan(
+        nchw(ev).to(torch.bfloat16),
+        lambda x: torch.cat([x, x * 0.5], 1),
+        lambda s: torch.cat([s * 0.75 - 0.5, s * 0.5], 1),
+        spike_fn=tspike("rect", 1.0), **kw)
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.dtype == torch.bfloat16
+    assert (want != 0).mean() > 0.2
+    t_last = np.asarray(t_last)
+    assert 0 < (t_last >= 0).mean() < 1
+    np.testing.assert_array_equal(nhwc(got), want)
+
+
 # ------------------------------------------------------ v2: whole scan
 
 V2_CASES = {
