@@ -21,11 +21,12 @@ Phases, each of which fails the run (exit code 1, no result line):
    unfused chain's (cuDNN conv + BN + PLIF kernel), the bound and, for the
    wgmma kernels, the launch plan (wgmma width x output-channel chunks,
    grid, dynamic shared memory), then each kernel's sum a forward;
-2b. the wgmma kernels at every other spiking 1x1 and 3x3 stride-1 site of
-   the flagship forward (the sites the policy leaves on the unfused
-   chain), called directly with no change to routing: held to the plain
-   version with the tolerance of phase 2 and timed against the chain; a
-   site whose layout the wrapper refuses is listed as refused;
+2b. the wgmma kernels at every other spiking 1x1 and 3x3 site of the
+   flagship forward, both strides (the sites the policy leaves on the
+   unfused chain, the dark3-dark5 downsamples among them), called
+   directly with no change to routing: held to the plain version with the
+   tolerance of phase 2 and timed against the chain; a site whose layout
+   or weights the wrapper refuses is listed as refused, with the reason;
 3. main path: ``get_exp("gen1_syolox_m").deploy().get_model("cuda")`` and
    ``detect`` on Poisson(0.2) events; frames/s, peak memory, detections,
    and the launch counts, which must be 35 / 8 / 6 / 1 per forward plus
@@ -36,10 +37,13 @@ Phases, each of which fails the run (exit code 1, no result line):
    with the model's own f32 sampler weights, and the per-step kernel
    (kernel 9) at the flagship step geometry in f32 and bf16 state, then
    both at small shapes (every readout, soft and hard reset, depth 1 and
-   2, ksize 3, 5 and 7, H x W off the 32x32 tile). Tolerance: slots and
-   every state output bit-equal (both round after every operation and
-   sum the stencil in one order). Prints each kernel's time (CUDA
-   events), the plain version's, the bound and the default sampler
+   2, ksize 3, 5 and 7, H x W off the 32x32 tile, W a multiple of 4 or
+   not). Tolerance: slots and every state output bit-equal (kernel 5's
+   stencils are FMAs, which its plain version emulates exactly, in one
+   order; every other operation is rounded on its own on both sides).
+   Prints each kernel's time (CUDA
+   events), the plain version's, the bound (kernel 5's: its multiply-adds
+   as FMAs, beside the floor of unfused ones) and the default sampler
    route's (the plain embedding: cuDNN convs and the eager chain);
 3c. sampler routes: the plain and the fused route of the same deploy
    model through ``detect`` in turns (plain, fused, fused, plain): frames/s,
@@ -150,7 +154,7 @@ KERNEL_INFO = {
                      "eas_snn_tpu/ops/conv_plif_pallas.py:155"),
     "conv3x3_plif": ("eas_snn_tpu_torch/csrc/conv_wgmma.cu",
                      "eas_snn_tpu/ops/conv_plif_pallas.py:359"),
-    "conv3x3s2_plif": ("eas_snn_tpu_torch/csrc/conv_plif.cu",
+    "conv3x3s2_plif": ("eas_snn_tpu_torch/csrc/conv_wgmma.cu",
                        "eas_snn_tpu/ops/conv_plif_pallas.py:581"),
     "plif_train_fwd": ("eas_snn_tpu_torch/csrc/plif.cu",
                        "eas_snn_tpu/ops/plif_pallas.py:389"),
@@ -296,8 +300,8 @@ def site_geometries(model, events):
     ({key: [count, module, pieces' shapes, input dtype, kernel]}, where the
     kernel is the one the site launches (the PLIF kernel for an unfused
     site, whose input is then the conv+BN output), and the same for the
-    unfused 1x1 and 3x3 stride-1 sites with the wgmma kernel that would
-    serve them and their conv inputs)."""
+    unfused 1x1 and 3x3 sites with the wgmma kernel that would serve them
+    and their conv inputs)."""
     sites = OrderedDict()
     others = OrderedDict()
 
@@ -305,8 +309,9 @@ def site_geometries(model, events):
         x = args[0]
         pieces = tuple(x) if isinstance(x, (tuple, list)) else (x,)
         shapes = tuple(tuple(p.shape) for p in pieces)
-        if not mod.fused(pieces) and mod.stride == 1 and mod.ksize in (1, 3):
-            name = "conv1x1_plif" if mod.ksize == 1 else "conv3x3_plif"
+        if not mod.fused(pieces) and mod.ksize in (1, 3):
+            name = ("conv1x1_plif" if mod.ksize == 1 else
+                    "conv3x3_plif" if mod.stride == 1 else "conv3x3s2_plif")
             key = (name, shapes, str(pieces[0].dtype), mod.weight.shape[0])
             if key not in others:
                 others[key] = [0, mod, shapes, pieces[0].dtype, name]
@@ -436,12 +441,11 @@ def check_conv_site(name, mod, shapes, dtype, gen):
               + wf.numel() * 2 + cout * 4 + 4 + n_out)
     res["bound_ms"], res["bound_by"] = bound_ms(
         nbytes, 2.0 * n_out * cin * k * k, PLIF_OPS * n_out)
-    if name != "conv3x3s2_plif":
-        plan = cp.conv_plan(k, tuple(s[1] for s in shapes), cout, TB // T, H,
-                            W, xs[0].element_size(),
-                            _build.sm_count(xs[0].device))
-        res["plan"] = (f"N{plan.width}x{plan.n_chunks} grid "
-                       f"{plan.grid_x}x{plan.n_chunks} smem {plan.smem}")
+    plan = cp.conv_plan(k, tuple(s[1] for s in shapes), cout, TB // T, H, W,
+                        xs[0].element_size(), _build.sm_count(xs[0].device),
+                        mod.stride)
+    res["plan"] = (f"N{plan.width}x{plan.n_chunks} grid "
+                   f"{plan.grid_x}x{plan.n_chunks} smem {plan.smem}")
     return res
 
 
@@ -460,12 +464,14 @@ def _print_site(name, count, shapes, dtype, r):
 
 def phase_other_sites(others, gen):
     """The wgmma kernels called directly at every other spiking 1x1 and
-    3x3 stride-1 site of the flagship forward (the sites the TPU's policy
-    leaves on the unfused chain), with no change to routing: held to the
-    plain version like the fused sites, timed against the chain. A site
-    whose layout the wrapper refuses is listed as refused."""
-    print("phase 2b: the wgmma kernels at the unfused 1x1 / 3x3 stride-1 "
-          "sites (called directly; the forward keeps the chain there)")
+    3x3 site of the flagship forward, both strides (the sites the TPU's
+    policy leaves on the unfused chain), with no change to routing: held
+    to the plain version like the fused sites, timed against the chain. A
+    site whose layout or weights the wrapper refuses is listed as refused,
+    with the reason."""
+    print("phase 2b: the wgmma kernels at the unfused 1x1 / 3x3 / 3x3 "
+          "stride-2 sites (called directly; the forward keeps the chain "
+          "there)")
     for (name, *_), (count, mod, shapes, dtype, _) in others.items():
         try:
             r = check_conv_site(name, mod, shapes, dtype, gen)
@@ -507,7 +513,7 @@ def phase_kernels(model, events, seed):
         if agg["sites"] != PER_FORWARD[name]:
             fail(f"{name}: {agg['sites']} sites found in the flagship "
                  f"forward, expected {PER_FORWARD[name]}")
-    for name in ("conv1x1_plif", "conv3x3_plif"):
+    for name in ("conv1x1_plif", "conv3x3_plif", "conv3x3s2_plif"):
         agg = per_kernel[name]
         print(f"  {name}: {agg['ms']:.4f} ms a forward over its "
               f"{agg['sites']} sites, unfused chain {agg['chain_ms']:.4f}, "
@@ -656,15 +662,21 @@ def _mismatch(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a != b).sum())
 
 
-def v2_bound(ev, Ts: int, depth: int, k: int, nw: int):
+def v2_bound(ev, Ts: int, depth: int, k: int, nw: int, fused: bool = True):
     """Bound of one whole-scan call: the events read and the slots written
-    once; 2 flops a stencil multiply-add and SAMPLER_OPS a state element
-    and step, in f32."""
+    once; the stencil multiply-adds the scan needs (the input stack at
+    every step, the gate stack at all but t = 0, where it sees no spikes
+    and its output is its biases' alone) as FMAs (2 flops each at the f32
+    rate: one instruction), or with ``fused`` False as the unfused floor (a
+    multiply and an add, two instructions each at that rate); SAMPLER_OPS
+    a state element and step, in f32."""
     Tm, N, Cin, H, W = ev.shape
-    px = Tm * N * H * W
-    macs = px * (Cin * 4 + 2 * 4 + (depth - 1) * 2 * 16) * k * k
+    px = N * H * W
+    inner = (depth - 1) * 16  # a 4 -> 4 layer
+    macs = px * k * k * (Tm * (Cin * 4 + inner) + (Tm - 1) * (2 * 4 + inner))
     nbytes = ev.numel() * ev.element_size() + Ts * N * 2 * H * W * 4 + 4 * nw
-    return bound_ms(nbytes, 0.0, 2 * macs + SAMPLER_OPS * 2 * px)
+    return bound_ms(nbytes, 0.0, (2 if fused else 4) * macs
+                    + SAMPLER_OPS * 2 * px * Tm)
 
 
 def check_v2(what, ev, iw, gw, kw, timed=False):
@@ -692,8 +704,9 @@ def check_v2(what, ev, iw, gw, kw, timed=False):
         res["plain_ms"] = cuda_ms(
             lambda: af.arsnn_fused_v2_plain(ev, iw, gw, **kw), 1, warmup=1)
         nw = sum(w.numel() + b.numel() for w, b in iw + gw)
-        res["bound_ms"], res["bound_by"] = v2_bound(
-            ev, kw["Ts"], len(iw), iw[0][0].shape[-1], nw)
+        geo = (ev, kw["Ts"], len(iw), iw[0][0].shape[-1], nw)
+        res["bound_ms"], res["bound_by"] = v2_bound(*geo)
+        res["unfused_ms"] = v2_bound(*geo, fused=False)[0]
     return res
 
 
@@ -795,9 +808,10 @@ def phase_sampler_kernels(model, events, seed):
           f"depth {len(iw)} k {iw[0][0].shape[-1]}: {r['mismatch']} of "
           f"{r['n']} slots differ, {r['written']:.3f} non-zero; kernel "
           f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
-          f"{r['bound_ms']:.4f} ({r['bound_by']}); default route (plain "
-          f"embedding: cuDNN convs + eager chain) {r['default_ms']:.4f} ms",
-          flush=True)
+          f"{r['bound_ms']:.4f} ({r['bound_by']}: the multiply-adds as "
+          f"FMAs; unfused floor {r['unfused_ms']:.4f}); default route "
+          f"(plain embedding: cuDNN convs + eager chain) "
+          f"{r['default_ms']:.4f} ms", flush=True)
     out["arsnn_v2"] = r
     # small shapes: every readout, both resets, depth 1-2, k 3-7, H x W
     # off the 32x32 tile, f32 and bf16 events
@@ -807,21 +821,26 @@ def phase_sampler_kernels(model, events, seed):
              ("avg", 0.0, False, False, 2, 7, torch.float32),
              ("sum", 0.0, False, True, 1, 5, torch.bfloat16),
              ("last", None, True, False, 1, 3, torch.float32))
+    # at 40x45 the state moves pixel by pixel, at 40x44 as vectors (and
+    # through shared memory at depth 2)
     worst = 0
-    for readout, vreset, wz, use_abs, depth, k, dt in cases:
-        dims = [(2, 4)] + [(4, 4)] * (depth - 1)
-        ws = [[(torch.randn(co, ci, k, k, generator=gen, device=DEV) * 0.4,
-                torch.randn(co, generator=gen, device=DEV) * 0.1)
-               for ci, co in dims] for _ in range(2)]
-        evs = (torch.randn((4, 3, 2, 40, 45), generator=gen, device=DEV)
-               * 2).to(dt)
-        rr = check_v2(f"{readout} depth {depth} k {k}", evs, *ws, dict(
-            Ts=3, thresh=1.0, vreset=vreset, readout=readout,
-            spike_attach=True, write_zero=wz, use_abs=use_abs))
-        worst = max(worst, rr["mismatch"])
-        r["max_abs_err"] = max(r["max_abs_err"], rr["max_abs_err"])
-    print(f"  arsnn_v2 at 40x45, 6 cases (sum/last/avg, soft/hard, depth "
-          f"1/2, k 3/5/7, f32/bf16 events): worst {worst} slots differ")
+    for W in (45, 44):
+        for readout, vreset, wz, use_abs, depth, k, dt in cases:
+            dims = [(2, 4)] + [(4, 4)] * (depth - 1)
+            ws = [[(torch.randn(co, ci, k, k, generator=gen, device=DEV)
+                    * 0.4, torch.randn(co, generator=gen, device=DEV) * 0.1)
+                   for ci, co in dims] for _ in range(2)]
+            evs = (torch.randn((4, 3, 2, 40, W), generator=gen, device=DEV)
+                   * 2).to(dt)
+            rr = check_v2(f"{readout} depth {depth} k {k} at 40x{W}", evs,
+                          *ws, dict(Ts=3, thresh=1.0, vreset=vreset,
+                                    readout=readout, spike_attach=True,
+                                    write_zero=wz, use_abs=use_abs))
+            worst = max(worst, rr["mismatch"])
+            r["max_abs_err"] = max(r["max_abs_err"], rr["max_abs_err"])
+    print(f"  arsnn_v2 at 40x45 and 40x44, 6 cases each (sum/last/avg, "
+          f"soft/hard, depth 1/2, k 3/5/7, f32/bf16 events): worst {worst} "
+          "slots differ")
 
     H, W = ev.shape[-2:]
     shape = (ev.shape[1], 2, H, W)
@@ -975,7 +994,9 @@ def phase_card_vs_cpu(seed, events):
 
     * the sampler (plain PyTorch on both sides) on the same events, and the
       analog stem on the card's sampler output: every value within
-      ANALOG_TOL relative (f32 sums in another order);
+      ANALOG_TOL relative (f32 sums in another order); the fused route's
+      sampler, kernel 5 on the card against its plain version on the CPU
+      (both round each stencil term once, as an FMA), the same way;
     * every spiking site: it may differ from the card's spikes in at most
       SITE_TOL of its outputs (threshold ties; a wrong kernel differs at
       the firing rate, ~20%);

@@ -1,11 +1,13 @@
 // Whole-site conv + folded BatchNorm + PLIF (eval) on Hopper's warpgroup
 // tensor-core products (wgmma), int8 spikes out: a 1x1 conv over a
-// virtual concat of up to 4 pieces, and a 3x3 conv with stride 1 and pad 1.
+// virtual concat of up to 4 pieces, and a 3x3 conv with pad 1 and stride
+// 1 or 2.
 //
 // Replaces: eas_snn_tpu/ops/conv_plif_pallas.py
-//   :_kernel  (pallas_call at :155, conv1x1_plif_fused) -> conv1x1_plif
-//   :_kernel3 (pallas_call at :359, conv3x3_plif_fused) -> conv3x3_plif
-// (the stride-2 3x3, :_kernel3s2 at :581, stays in conv_plif.cu).
+//   :_kernel    (pallas_call at :155, conv1x1_plif_fused) -> conv1x1_plif
+//   :_kernel3   (pallas_call at :359, conv3x3_plif_fused) -> conv3x3_plif
+//   :_kernel3s2 (pallas_call at :581, conv3x3s2_plif_fused)
+//                                                      -> conv3x3s2_plif
 //
 // Computes, per time step t: acc = bias_f + sum bf16(w_f) * bf16(x) in f32
 // and the f32 PLIF recurrence on acc; spikes (T*B, Cout, Ho, Wo) int8.
@@ -38,9 +40,18 @@
 // the 3x3 a bf16 stage holds the 10x10 halo tile, pixel-major per 8-channel
 // group, and tap (dy, dx) is the same descriptor with its start moved by
 // (dy*10 + dx)*16 bytes (the stride between core matrices along M is one
-// halo row): no im2col is built and no element is widened twice. Each
-// chunk issues a fixed, fully unrolled run of products (K is padded to
-// whole chunks with zeros), so the compiler never serializes them. The
+// halo row): no im2col is built and no element is widened twice. At
+// stride 2 the 8 rows of a core matrix (8 output pixels of a row) read
+// every other input pixel, so a stage holds the 17x17 input halo of the
+// 8x8 output tile as four 9x9 parity planes (even / odd input rows x even
+// / odd input columns), which the producers scatter into as they widen;
+// output (h, w) reads input (2h + dy - 1, 2w + dx - 1), so tap (dy, dx)
+// starts at plane (dy & 1, dx & 1), pixel (dy / 2, dx / 2), and SBO is
+// one plane row: the 9 taps again share one stage. Its K chunks are 16
+// channels (dark2's 48 in 3 chunks, and the 9 taps' resident weights
+// leave room for 4 raw stages). Each chunk issues a fixed, fully unrolled
+// run of products (K is padded to whole chunks with zeros), so the
+// compiler never serializes them. The
 // epilogue adds the bias, steps the membranes with plif_step, stages the
 // spikes in shared memory and stores whole NCHW row segments (1x1: up to
 // 16 bytes; 3x3: the tile's 8-byte rows). The preactivation never reaches
@@ -48,7 +59,9 @@
 //
 // Bound on the H100 at the flagship sites (B=128, T=3): the 3x3 site
 // (96 -> 96 at 32x40, int8) does 81.5 GFLOP of bf16 products against
-// 0.1 GB (tensor-core bound, 0.087 ms at 989 TFLOP/s); the 1x1 sites move
+// 0.1 GB (tensor-core bound, 0.087 ms at 989 TFLOP/s); the stride-2 site
+// (48 -> 96 from 128x160, bf16) moves 0.94 GB, mostly its input (byte
+// bound, 0.28 ms), for 34 GFLOP; the 1x1 sites move
 // 0.07-0.28 GB for 2*Cin flops an output (byte-bound, 0.02-0.085 ms, but
 // for 768 -> 768 at 8x10, operation-bound at 0.039 ms). The products
 // themselves run near that bound (the consumers alone take 0.08 ms at the
@@ -58,9 +71,9 @@
 // Layout rules (the entry points return cudaErrorInvalidValue, and the
 // wrappers raise, otherwise): every C_j a multiple of 8, every tensor
 // 16-byte aligned; 1x1: H*W*sizeof(T) a multiple of 16 (a copy never
-// spans images); 3x3: W*sizeof(T) a multiple of 4; and the chunk's
-// resident weights plus the rings within the 232,448 bytes of shared
-// memory a block may use (conv_plif.py:conv_plan).
+// spans images); 3x3 (both strides): W*sizeof(T) a multiple of 4; and the
+// chunk's resident weights plus the rings within the 232,448 bytes of
+// shared memory a block may use (conv_plif.py:conv_plan).
 #include "common.cuh"
 
 namespace {
@@ -69,6 +82,10 @@ constexpr int M_TILE = 64;    // output pixels a consumer tile (one wgmma M)
 constexpr int THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int TILE = 8;       // 3x3: output tile rows and columns
 constexpr int SMEM_LIMIT = 232448;
+// The convolutions (the OP template argument): 1x1, 3x3 stride 1, and
+// 3x3 stride 2 copying 4 or (C3X3S2V, where W * sizeof(T) is a multiple
+// of 16) 16 bytes at a time.
+constexpr int C1X1 = 0, C3X3 = 1, C3X3S2 = 2, C3X3S2V = 3;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -238,7 +255,7 @@ __host__ __device__ constexpr int round_up(int n, int m) {
   return (n + m - 1) / m * m;
 }
 
-template <int KS, typename T>
+template <int OP, typename T>
 struct Geo;
 
 // 1x1: a tile is 64 consecutive pixels of the flattened (b, h, w); a K
@@ -251,7 +268,7 @@ struct Geo;
 // pixels x 16 bytes plus a 16-byte pad (the 16-byte stores of 8 groups
 // fall on 8 bank quads).
 template <typename T>
-struct Geo<1, T> {
+struct Geo<C1X1, T> {
   static constexpr int TAPS = 1, KC = 64, STAGES = 2;
   static constexpr int RAW_STAGES = sizeof(T) == 1 ? 4 : 2;
   static constexpr int PX = 16 / (int)sizeof(T);  // pixels a copy
@@ -261,6 +278,7 @@ struct Geo<1, T> {
   static constexpr int STAGE = (KC / 8) * A_LBO;
   static constexpr int RAW = KC * ROW;
   static constexpr int OUT_LD = M_TILE + 16;  // bytes a spike-stage row
+  __device__ static constexpr int tap_off(int) { return 0; }
 };
 
 // 3x3, stride 1: a tile is 8x8 output pixels; a K chunk is KC channels.
@@ -273,7 +291,7 @@ struct Geo<1, T> {
 // pixel: output row i of the tile reads halo row i + dy, so SBO is one
 // halo row.
 template <typename T>
-struct Geo<3, T> {
+struct Geo<C3X3, T> {
   static constexpr int TAPS = 9, STAGES = 2, RAW_STAGES = 2;
   static constexpr int KC = sizeof(T) == 4 ? 16 : 32;
   static constexpr int TH = TILE, TW = TILE, IH = TH + 2, IW = TW + 2;
@@ -285,15 +303,57 @@ struct Geo<3, T> {
   static constexpr int STAGE = (KC / 8) * A_LBO;
   static constexpr int RAW = KC * IH * RB;
   static constexpr int OUT_LD = TH * TW + 8;  // bytes a spike-stage row
+  // bytes from the stage's start to tap (dy, dx) of output (0, 0)
+  __device__ static constexpr int tap_off(int tap) {
+    return ((tap / 3) * IW + tap % 3) * 16;
+  }
 };
+
+// 3x3, stride 2: a tile is 8x8 output pixels, reading the 17x17 input
+// halo from row 2*oh0 - 1 and column 2*ow0 - 1; a K chunk is 16 channels.
+// cp.async brings, for each channel and each of the 17 halo rows, the row
+// segment [2*ow0 - EPC, 2*ow0 + 16) in whole aligned CB-byte copies of EPC
+// elements (the halo's first column is odd: the copies start EPC - 1
+// columns before it, and the scatter drops those): raw [channel][row][RW].
+// The bf16 stage holds, for each 8-channel group, the four 9x9 parity
+// planes [row parity][column parity][9][9], pixel-major at 16 bytes a
+// pixel (the odd planes use 8x8 of theirs); halo pixel (i, j) lies in
+// plane (i & 1, j & 1) at (i / 2, j / 2), so output row h of the tile
+// reads plane row h + dy / 2 of tap (dy, dx): SBO is one plane row.
+template <typename T, int CB>
+struct GeoS2 {
+  static constexpr int TAPS = 9, STAGES = 2, KC = 16;
+  static constexpr int RAW_STAGES = sizeof(T) == 4 ? 2 : CB == 16 ? 3 : 4;
+  static constexpr int TH = TILE, TW = TILE;
+  static constexpr int IH = 2 * TH + 1;              // halo rows
+  static constexpr int PW = TW + 1;                  // plane rows, columns
+  static constexpr int EPC = CB / (int)sizeof(T);    // elements a copy
+  static constexpr int RW = 2 * TW + EPC;            // elements a raw row
+  static constexpr int RB = RW * (int)sizeof(T);     // bytes a raw row
+  static constexpr int PLANE = PW * PW * 16;
+  static constexpr int A_LBO = 4 * PLANE;
+  static constexpr int A_SBO = PW * 16;
+  static constexpr int STAGE = (KC / 8) * A_LBO;
+  static constexpr int RAW = KC * IH * RB;
+  static constexpr int OUT_LD = TH * TW + 8;  // bytes a spike-stage row
+  __device__ static constexpr int tap_off(int tap) {
+    return (((tap / 3) & 1) * 2 + ((tap % 3) & 1)) * PLANE +
+           (((tap / 3) >> 1) * PW + ((tap % 3) >> 1)) * 16;
+  }
+};
+
+template <typename T>
+struct Geo<C3X3S2, T> : GeoS2<T, 4> {};
+template <typename T>
+struct Geo<C3X3S2V, T> : GeoS2<T, 16> {};
 
 // Shared memory, each part 128-byte aligned: resident weights [tap][k/8]
 // [n][8 k] (K-major, core matrices of 8 channels n x 8 k), the chunk's
 // bias, for each consumer a ring of STAGES bf16 stages, its producers'
 // RAW_STAGES raw stages and its spike stage, and the barriers.
-template <int KS, typename T>
+template <int OP, typename T>
 struct Smem {
-  using G = Geo<KS, T>;
+  using G = Geo<OP, T>;
   int bias, ring, raw, out, bars, bytes;
   __host__ __device__ Smem(int nw, int kp) {
     bias = round_up(G::TAPS * kp * nw * 2, 128);
@@ -323,6 +383,19 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                    smem_u32(dst)),
                "l"(src), "r"(ok ? 16 : 0)
                : "memory");
+}
+
+// CB (4 or 16) bytes global -> shared; ok = false zero-fills.
+template <int CB>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src,
+                                           bool ok) {
+  if constexpr (CB == 16)
+    cp_async16(dst, src, ok);
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(ok ? 4 : 0)
+                 : "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -409,7 +482,7 @@ template <typename T>
 __device__ __forceinline__ void issue1(unsigned char* raw, const Pieces& pc,
                                        const Site& s, const Chunk& ch,
                                        int tile, int t, int ptid) {
-  using G = Geo<1, T>;
+  using G = Geo<C1X1, T>;
   constexpr int PER = M_TILE / G::PX;  // copies a channel
   static_assert(64 % PER == 0, "a thread's copies share one pixel group");
   const T* x = static_cast<const T*>(pc.ptr[ch.j]);
@@ -432,7 +505,7 @@ template <typename T>
 __device__ __forceinline__ void issue3(unsigned char* raw, const Pieces& pc,
                                        const Site& s, const Chunk& ch,
                                        int tile, int t, int ptid) {
-  using G = Geo<3, T>;
+  using G = Geo<C3X3, T>;
   constexpr int ROW_COPIES = G::RW / G::EPC;
   const T* x = static_cast<const T*>(pc.ptr[0]);
   const int C = pc.cin[0];
@@ -454,13 +527,49 @@ __device__ __forceinline__ void issue3(unsigned char* raw, const Pieces& pc,
   }
 }
 
+// 3x3 stride-2 copies of one chunk, by the 64 producer threads: a thread
+// takes (halo row, copy) pairs, works out each one's source and whether it
+// lies in the image once, and issues its copy for the chunk's 16 channels;
+// copies outside the image (or past Cin) zero-fill.
+template <int OP, typename T>
+__device__ __forceinline__ void issue3s2(unsigned char* raw,
+                                         const Pieces& pc, const Site& s,
+                                         const Chunk& ch, int tile, int t,
+                                         int ptid) {
+  using G = Geo<OP, T>;
+  constexpr int CB = G::EPC * (int)sizeof(T);  // bytes a copy
+  constexpr int ROW_COPIES = G::RW / G::EPC;
+  const T* x = static_cast<const T*>(pc.ptr[0]);
+  const int C = pc.cin[0];
+  const int b = tile / s.tiles_img, rem = tile % s.tiles_img;
+  const int h0 = (rem / s.tiles_w) * 2 * G::TH - 1;
+  const int c0w = (rem % s.tiles_w) * 2 * G::TW - G::EPC;
+  const long long HW = (long long)s.H * s.W;
+  const T* img = x + (((long long)t * s.B + b) * C + ch.c0) * HW;
+  const int ncl = C - ch.c0;  // channels of the chunk in the input
+  for (int pr = ptid; pr < G::IH * ROW_COPIES; pr += 64) {
+    const int row = pr / ROW_COPIES, k = pr - row * ROW_COPIES;
+    const int h = h0 + row, w = c0w + k * G::EPC;
+    const bool in = h >= 0 && h < s.H && w >= 0 && w < s.W;
+    const T* src = img + (in ? (long long)h * s.W + w : 0);
+    unsigned char* dst = raw + row * G::RB + k * CB;
+#pragma unroll 4
+    for (int cl = 0; cl < G::KC; ++cl) {
+      const bool ok = in && cl < ncl;
+      cp_async_n<CB>(dst, ok ? src : x, ok);
+      src += HW;
+      dst += G::IH * G::RB;
+    }
+  }
+}
+
 // 1x1 widen: thread ptid takes channel group ptid % 8 and row group
 // ptid / 8: 8 channels x 8 pixels read, widened, transposed, and 8
 // 16-byte stores of 8 channels (one a pixel).
 template <typename T>
 __device__ __forceinline__ void widen1(unsigned char* st,
                                        const unsigned char* raw, int ptid) {
-  using G = Geo<1, T>;
+  using G = Geo<C1X1, T>;
   const int cg = ptid & 7, rg = ptid >> 3;
   uint32_t v[8][4];
 #pragma unroll
@@ -495,7 +604,7 @@ __device__ __forceinline__ void widen1(unsigned char* st,
 template <typename T>
 __device__ __forceinline__ void widen3(unsigned char* st,
                                        const unsigned char* raw, int ptid) {
-  using G = Geo<3, T>;
+  using G = Geo<C3X3, T>;
   constexpr int PIX = G::IH * G::IW;
   constexpr int CS = G::IH * G::RB;  // raw bytes between channels
   if constexpr (sizeof(T) == 1) {
@@ -547,18 +656,71 @@ __device__ __forceinline__ void widen3(unsigned char* st,
   }
 }
 
+// Element e of a 4-byte raw word as the bf16 multiply operand's bits.
+template <typename T>
+__device__ __forceinline__ uint32_t word_bf16(uint32_t x, int e) {
+  if constexpr (sizeof(T) == 1)
+    return __bfloat16_as_ushort(
+        __float2bfloat16_rn((float)(int8_t)(x >> (8 * e))));
+  else if constexpr (sizeof(T) == 2)
+    return (x >> (16 * e)) & 0xffff;
+  else
+    return __bfloat16_as_ushort(__float2bfloat16_rn(__uint_as_float(x)));
+}
+
+// 3x3 stride-2 widen and scatter: one (8-channel group, halo row, raw
+// word) item at a time: the word of each of the 8 channels (4 / sizeof(T)
+// halo pixels), widened and packed into one 16-byte store a pixel, into
+// the parity plane of the pixel's row and column; the EPC - 1 columns
+// copied before the halo are dropped.
+template <int OP, typename T>
+__device__ __forceinline__ void widen3s2(unsigned char* st,
+                                         const unsigned char* raw,
+                                         int ptid) {
+  using G = Geo<OP, T>;
+  constexpr int EPW = 4 / (int)sizeof(T);  // elements a word
+  constexpr int OFF = G::EPC - 1;          // raw elements before the halo
+  constexpr int W0 = OFF / EPW;            // first word with a halo pixel
+  constexpr int WORDS = G::RB / 4 - W0;    // words with halo pixels a row
+  constexpr int CS = G::IH * G::RB;        // raw bytes between channels
+  constexpr int n = G::KC / 8 * G::IH * WORDS;
+  for (int q = ptid; q < n; q += 64) {
+    const int cg = q / (G::IH * WORDS);
+    const int i = (q / WORDS) % G::IH, w = W0 + q % WORDS;
+    const unsigned char* r = raw + (8 * cg * G::IH + i) * G::RB + 4 * w;
+    uint32_t x[8];
+#pragma unroll
+    for (int cc = 0; cc < 8; ++cc)
+      x[cc] = *reinterpret_cast<const uint32_t*>(r + cc * CS);
+    unsigned char* row = st + cg * G::A_LBO + (i & 1) * 2 * G::PLANE +
+                         (i >> 1) * G::PW * 16;
+#pragma unroll
+    for (int e = 0; e < EPW; ++e) {
+      const int j = EPW * w + e - OFF;  // halo column
+      if (j < 0) continue;
+      uint4 o;
+      o.x = word_bf16<T>(x[0], e) | (word_bf16<T>(x[1], e) << 16);
+      o.y = word_bf16<T>(x[2], e) | (word_bf16<T>(x[3], e) << 16);
+      o.z = word_bf16<T>(x[4], e) | (word_bf16<T>(x[5], e) << 16);
+      o.w = word_bf16<T>(x[6], e) | (word_bf16<T>(x[7], e) << 16);
+      *reinterpret_cast<uint4*>(row + (j & 1) * G::PLANE + (j >> 1) * 16) =
+          o;
+    }
+  }
+}
+
 // ---------------------------------------------------------------- kernel
 
-template <typename T, int KS, int NW>
+template <typename T, int OP, int NW>
 __global__ void __launch_bounds__(THREADS, 1) conv_wgmma_kernel(
     Pieces pc, const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
     const float* __restrict__ a_ptr, int8_t* __restrict__ out, Site s,
     int chunk) {
-  using G = Geo<KS, T>;
+  using G = Geo<OP, T>;
   constexpr int R = NW / 2;  // accumulators (and membranes) a thread
   constexpr int STAGES = G::STAGES, RS = G::RAW_STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<KS, T> lay(NW, s.kp);
+  const Smem<OP, T> lay(NW, s.kp);
   const int kp8 = s.kp / 8;
   unsigned char* sW = smem;
   float* sBias = reinterpret_cast<float*>(smem + lay.bias);
@@ -585,9 +747,9 @@ __global__ void __launch_bounds__(THREADS, 1) conv_wgmma_kernel(
     const bool ok = n < nvalid && kp < pc.cin[j];
     const long long co = n0 + n;
     const long long idx =
-        KS == 1 ? co * Cin + coff + kp
-                : ((long long)(tap / 3) * s.Cout + co) * (3 * Cin) +
-                      (tap % 3) * Cin + kp;
+        OP == C1X1 ? co * Cin + coff + kp
+                   : ((long long)(tap / 3) * s.Cout + co) * (3 * Cin) +
+                         (tap % 3) * Cin + kp;
     cp_async16(sW + ((tap * kp8 + kg) * NW + n) * 16, ok ? w + idx : w, ok);
   }
   for (int n = tid; n < NW; n += THREADS)
@@ -631,10 +793,12 @@ __global__ void __launch_bounds__(THREADS, 1) conv_wgmma_kernel(
         const Work wk = work_at(q, first, stride, s.steps, nck);
         const Chunk ch = chunk_at<G::KC>(pc, wk.ci);
         unsigned char* dst = raw + (q % RS) * G::RAW;
-        if constexpr (KS == 1)
+        if constexpr (OP == C1X1)
           issue1<T>(dst, pc, s, ch, wk.tile, wk.t, ptid);
-        else
+        else if constexpr (OP == C3X3)
           issue3<T>(dst, pc, s, ch, wk.tile, wk.t, ptid);
+        else
+          issue3s2<OP, T>(dst, pc, s, ch, wk.tile, wk.t, ptid);
       }
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     };
@@ -647,10 +811,12 @@ __global__ void __launch_bounds__(THREADS, 1) conv_wgmma_kernel(
       const int st = q % STAGES, k = q / STAGES;
       if (k > 0) mbar_wait(&empty[st], (k - 1) & 1);
       const unsigned char* src = raw + (q % RS) * G::RAW;
-      if constexpr (KS == 1)
+      if constexpr (OP == C1X1)
         widen1<T>(ring + st * G::STAGE, src, ptid);
-      else
+      else if constexpr (OP == C3X3)
         widen3<T>(ring + st * G::STAGE, src, ptid);
+      else
+        widen3s2<OP, T>(ring + st * G::STAGE, src, ptid);
       fence_proxy_async();
       mbar_arrive(&full[st]);
     }
@@ -664,7 +830,6 @@ __global__ void __launch_bounds__(THREADS, 1) conv_wgmma_kernel(
   const uint32_t ring_a = smem_u32(ring), w_a = smem_u32(sW);
   int8_t* sO = reinterpret_cast<int8_t*>(smem + lay.out) + c * NW * G::OUT_LD;
   const float a = *a_ptr;
-  const int HW = s.H * s.W;
   float acc[R], v[R];
   int prev = 0;
   for (int q = 0; q < nq; ++q) {
@@ -680,11 +845,10 @@ __global__ void __launch_bounds__(THREADS, 1) conv_wgmma_kernel(
     const uint32_t sa = ring_a + st * G::STAGE;
 #pragma unroll
     for (int tap = 0; tap < G::TAPS; ++tap) {
-      const int toff = (tap / 3) * (TILE + 2) + tap % 3;
 #pragma unroll
       for (int ks = 0; ks < G::KC / 16; ++ks) {
-        const uint64_t da = make_desc(sa + 2 * ks * G::A_LBO + toff * 16,
-                                      G::A_LBO, G::A_SBO);
+        const uint64_t da = make_desc(
+            sa + 2 * ks * G::A_LBO + G::tap_off(tap), G::A_LBO, G::A_SBO);
         const uint64_t db = make_desc(
             w_a + ((tap * kp8 + ch.kp0 / 8 + 2 * ks) * NW) * 16, NW * 16,
             128);
@@ -704,7 +868,8 @@ __global__ void __launch_bounds__(THREADS, 1) conv_wgmma_kernel(
     // epilogue: bias and one PLIF step a value; the spikes go to the
     // stage sO[n][pixel], then out as NCHW row segments. 1x1: 16-, 8- or
     // 4-byte segments (the tile's 64 pixels of a channel are contiguous
-    // within an image); 3x3: the 8-byte rows of the 8x8 tile.
+    // within an image); 3x3 (both strides): the 8-byte rows of the 8x8
+    // tile.
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int row = 16 * wq + g + ((i & 2) ? 8 : 0);
@@ -713,7 +878,8 @@ __global__ void __launch_bounds__(THREADS, 1) conv_wgmma_kernel(
       sO[col * G::OUT_LD + row] = plif_step(v[i], pre, a, s.th, s.ge);
     }
     named_sync(1 + c, 128);
-    if constexpr (KS == 1) {
+    if constexpr (OP == C1X1) {
+      const int HW = s.H * s.W;
       const int vec = HW % 16 == 0 ? 16 : HW % 8 == 0 ? 8 : 4;
       const int per = M_TILE / vec;
       for (int e = ctid; e < nvalid * per; e += 128) {
@@ -736,13 +902,14 @@ __global__ void __launch_bounds__(THREADS, 1) conv_wgmma_kernel(
       }
     } else {
       const int b = wk.tile / s.tiles_img, rem = wk.tile % s.tiles_img;
+      const int HWo = s.Ho * s.Wo;
       const int oh0 = (rem / s.tiles_w) * G::TH;
       const int ow0 = (rem % s.tiles_w) * G::TW;
       for (int e = ctid; e < nvalid * G::TH; e += 128) {
         const int n = e / G::TH, oy = e % G::TH, oh = oh0 + oy;
         if (oh >= s.Ho) continue;
         int8_t* dst = out +
-                      ((wk.t * (long long)s.B + b) * s.Cout + n0 + n) * HW +
+                      ((wk.t * (long long)s.B + b) * s.Cout + n0 + n) * HWo +
                       (long long)oh * s.Wo + ow0;
         const int8_t* src = sO + n * G::OUT_LD + oy * G::TW;
         if (s.Wo % 8 == 0) {
@@ -759,46 +926,46 @@ __global__ void __launch_bounds__(THREADS, 1) conv_wgmma_kernel(
 
 // ---------------------------------------------------------------- launch
 
-template <typename T, int KS, int NW>
+template <typename T, int OP, int NW>
 cudaError_t launch_nw(const Pieces& pc, const void* w, const void* bias,
                       const void* a, void* out, const Site& s, int chunk,
                       int n_chunks, int grid_x, cudaStream_t stream) {
   Site st = s;
-  st.kp = padded_k<Geo<KS, T>::KC>(pc);
-  const int bytes = Smem<KS, T>(NW, st.kp).bytes;
+  st.kp = padded_k<Geo<OP, T>::KC>(pc);
+  const int bytes = Smem<OP, T>(NW, st.kp).bytes;
   if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
   static int set_bytes = 0;
   if (bytes > set_bytes) {
     const cudaError_t e = cudaFuncSetAttribute(
-        conv_wgmma_kernel<T, KS, NW>,
+        conv_wgmma_kernel<T, OP, NW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     set_bytes = bytes;
   }
-  conv_wgmma_kernel<T, KS, NW><<<dim3(grid_x, n_chunks), THREADS, bytes,
+  conv_wgmma_kernel<T, OP, NW><<<dim3(grid_x, n_chunks), THREADS, bytes,
                                  stream>>>(
       pc, (const __nv_bfloat16*)w, (const float*)bias, (const float*)a,
       (int8_t*)out, st, chunk);
   return cudaGetLastError();
 }
 
-template <typename T, int KS>
+template <typename T, int OP>
 cudaError_t launch_t(int nw, const Pieces& pc, const void* w,
                      const void* bias, const void* a, void* out,
                      const Site& s, int chunk, int n_chunks, int grid_x,
                      cudaStream_t stream) {
   switch (nw) {
     case 32:
-      return launch_nw<T, KS, 32>(pc, w, bias, a, out, s, chunk, n_chunks,
+      return launch_nw<T, OP, 32>(pc, w, bias, a, out, s, chunk, n_chunks,
                                   grid_x, stream);
     case 48:
-      return launch_nw<T, KS, 48>(pc, w, bias, a, out, s, chunk, n_chunks,
+      return launch_nw<T, OP, 48>(pc, w, bias, a, out, s, chunk, n_chunks,
                                   grid_x, stream);
     case 64:
-      return launch_nw<T, KS, 64>(pc, w, bias, a, out, s, chunk, n_chunks,
+      return launch_nw<T, OP, 64>(pc, w, bias, a, out, s, chunk, n_chunks,
                                   grid_x, stream);
     case 96:
-      return launch_nw<T, KS, 96>(pc, w, bias, a, out, s, chunk, n_chunks,
+      return launch_nw<T, OP, 96>(pc, w, bias, a, out, s, chunk, n_chunks,
                                   grid_x, stream);
     default:
       return cudaErrorInvalidValue;
@@ -807,7 +974,7 @@ cudaError_t launch_t(int nw, const Pieces& pc, const void* w,
 
 // Checks what the host decided (the wrapper's conv_plan) and dispatches
 // on the input dtype: 0 = f32, 1 = bf16, 2 = int8.
-template <int KS>
+template <int OP>
 cudaError_t launch(int dtype, const Pieces& pc, const void* w,
                    const void* bias, const void* a, void* out, Site s,
                    int nw, int chunk, int n_chunks, int grid_x,
@@ -824,18 +991,19 @@ cudaError_t launch(int dtype, const Pieces& pc, const void* w,
          (uintptr_t)pc.ptr[j] % 16 == 0;
   // 1x1: H*W in whole 16-byte copies; 3x3: rows of whole 4-byte copies
   const int esize = dtype == 0 ? 4 : dtype == 1 ? 2 : 1;
-  ok = ok && (KS == 1 ? ((long long)s.H * s.W * esize) % 16
-                      : (s.W * esize) % 4) == 0;
+  ok = ok && (OP == C1X1 ? ((long long)s.H * s.W * esize) % 16
+                         : (s.W * esize) % 4) == 0;
   if (!ok) return cudaErrorInvalidValue;
-  if (KS == 1) {
+  if (OP == C1X1) {
     s.Ho = s.H;
     s.Wo = s.W;
     s.R = s.B * s.H * s.W;
     s.tiles_w = s.tiles_img = 0;
     s.n_tiles = (s.R + M_TILE - 1) / M_TILE;
   } else {
-    s.Ho = s.H;
-    s.Wo = s.W;
+    const int stride = OP == C3X3S2 || OP == C3X3S2V ? 2 : 1;
+    s.Ho = (s.H - 1) / stride + 1;
+    s.Wo = (s.W - 1) / stride + 1;
     s.R = 0;
     s.tiles_w = (s.Wo + TILE - 1) / TILE;
     s.tiles_img = s.tiles_w * ((s.Ho + TILE - 1) / TILE);
@@ -843,13 +1011,13 @@ cudaError_t launch(int dtype, const Pieces& pc, const void* w,
   }
   switch (dtype) {
     case 0:
-      return launch_t<float, KS>(nw, pc, w, bias, a, out, s, chunk, n_chunks,
+      return launch_t<float, OP>(nw, pc, w, bias, a, out, s, chunk, n_chunks,
                                  grid_x, stream);
     case 1:
-      return launch_t<__nv_bfloat16, KS>(nw, pc, w, bias, a, out, s, chunk,
+      return launch_t<__nv_bfloat16, OP>(nw, pc, w, bias, a, out, s, chunk,
                                          n_chunks, grid_x, stream);
     case 2:
-      return launch_t<int8_t, KS>(nw, pc, w, bias, a, out, s, chunk,
+      return launch_t<int8_t, OP>(nw, pc, w, bias, a, out, s, chunk,
                                   n_chunks, grid_x, stream);
     default:
       return cudaErrorInvalidValue;
@@ -883,16 +1051,17 @@ extern "C" int conv1x1_plif(const void** ptrs, const int* cins, int n_pieces,
   s.W = W;
   s.th = th;
   s.ge = ge;
-  return (int)launch<1>(dtype, pc, w, bias, a, out, s, nw, chunk, n_chunks,
-                        grid_x, (cudaStream_t)stream);
+  return (int)launch<C1X1>(dtype, pc, w, bias, a, out, s, nw, chunk,
+                           n_chunks, grid_x, (cudaStream_t)stream);
 }
 
-// x (T*B, Cin, H, W), stride 1, pad 1; arguments as above.
-extern "C" int conv3x3_plif(const void* x, const void* w3, const void* bias,
-                            const void* a, void* out, int B, int steps,
-                            int Cin, int Cout, int H, int W, int nw,
-                            int chunk, int n_chunks, int grid_x, float th,
-                            int ge, int dtype, void* stream) {
+namespace {
+
+template <int OP>
+int conv3x3_entry(const void* x, const void* w3, const void* bias,
+                  const void* a, void* out, int B, int steps, int Cin,
+                  int Cout, int H, int W, int nw, int chunk, int n_chunks,
+                  int grid_x, float th, int ge, int dtype, void* stream) {
   Pieces pc;
   pc.ptr[0] = x;
   pc.cin[0] = Cin;
@@ -909,6 +1078,37 @@ extern "C" int conv3x3_plif(const void* x, const void* w3, const void* bias,
   s.W = W;
   s.th = th;
   s.ge = ge;
-  return (int)launch<3>(dtype, pc, w3, bias, a, out, s, nw, chunk, n_chunks,
-                        grid_x, (cudaStream_t)stream);
+  return (int)launch<OP>(dtype, pc, w3, bias, a, out, s, nw, chunk, n_chunks,
+                         grid_x, (cudaStream_t)stream);
+}
+
+}  // namespace
+
+// x (T*B, Cin, H, W), stride 1, pad 1; arguments as above.
+extern "C" int conv3x3_plif(const void* x, const void* w3, const void* bias,
+                            const void* a, void* out, int B, int steps,
+                            int Cin, int Cout, int H, int W, int nw,
+                            int chunk, int n_chunks, int grid_x, float th,
+                            int ge, int dtype, void* stream) {
+  return conv3x3_entry<C3X3>(x, w3, bias, a, out, B, steps, Cin, Cout, H, W,
+                             nw, chunk, n_chunks, grid_x, th, ge, dtype,
+                             stream);
+}
+
+// x (T*B, Cin, H, W), stride 2, pad 1: out (T*B, Cout, ceil(H/2),
+// ceil(W/2)); arguments as above.
+extern "C" int conv3x3s2_plif(const void* x, const void* w3,
+                              const void* bias, const void* a, void* out,
+                              int B, int steps, int Cin, int Cout, int H,
+                              int W, int nw, int chunk, int n_chunks,
+                              int grid_x, float th, int ge, int dtype,
+                              void* stream) {
+  const int esize = dtype == 0 ? 4 : dtype == 1 ? 2 : 1;
+  if ((W * esize) % 16 == 0)
+    return conv3x3_entry<C3X3S2V>(x, w3, bias, a, out, B, steps, Cin, Cout,
+                                  H, W, nw, chunk, n_chunks, grid_x, th, ge,
+                                  dtype, stream);
+  return conv3x3_entry<C3X3S2>(x, w3, bias, a, out, B, steps, Cin, Cout, H,
+                               W, nw, chunk, n_chunks, grid_x, th, ge, dtype,
+                               stream);
 }

@@ -29,8 +29,7 @@ __all__ = ["SOURCES", "build_all", "get_lib", "check", "stream_ptr",
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("plif", "plif_bwd", "conv_plif", "conv_wgmma", "arsnn_step",
-           "arsnn_v2")
+SOURCES = ("plif", "plif_bwd", "conv_wgmma", "arsnn_step", "arsnn_v2")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -52,13 +51,6 @@ _SIGNATURES = {
     # B, C, HW, nb, th, ge, kind, p0, p1, dtype, stream
     "plif_bwd": {"plif_train_bwd": (_P,) * 13 + (_I,) * 5 + (_F, _I, _I, _F,
                                                              _F, _I, _P)},
-    "conv_plif": {
-        # x, w3, bias, a, out, B, steps, Cin, Cout, H, W, th, ge, dtype,
-        # stream
-        "conv3x3s2_plif": (
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
-        ),
-    },
     "conv_wgmma": {
         # ptrs, cins, n_pieces, w, bias, a, out, B, steps, Cout, H, W, nw,
         # chunk, n_chunks, grid_x, th, ge, dtype, stream
@@ -67,11 +59,10 @@ _SIGNATURES = {
             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
         ),
         # x, w3, bias, a, out, B, steps, Cin, Cout, H, W, nw, chunk,
-        # n_chunks, grid_x, th, ge, dtype, stream
-        "conv3x3_plif": (
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-            _I, _I, _P,
-        ),
+        # n_chunks, grid_x, th, ge, dtype, stream (stride 1 and 2)
+        **{name: (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                  _I, _F, _I, _I, _P)
+           for name in ("conv3x3_plif", "conv3x3s2_plif")},
     },
     # gin, grec, cin, crec, in_sn, vmem, vavg, spike, seg, tlast, agg, M,
     # CHW, t, Ts, th, vreset, hard, readout, attach, dtype, stream

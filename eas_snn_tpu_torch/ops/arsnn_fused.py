@@ -15,8 +15,9 @@ CPU tensors; on a CUDA tensor they launch the kernel or raise):
   both depth-stacked conv stacks computed inside the kernel as f32
   stencils, whatever dtype the events and the state come in. The stencil
   sums in the JAX kernel's order: the bias first, then for dy, ci, dx (and
-  each output channel) ``out = out + w * x``, the multiply and the add each
-  rounded; ReLU after every layer but the last; the intermediate layer's
+  each output channel) ``out = fma(w, x, out)``, one fused multiply-add
+  rounded once (:func:`fma_f32` emulates it exactly in the plain
+  version); ReLU after every layer but the last; the intermediate layer's
   input is zero outside the image.
 
 Both kernels spike with an exact Heaviside ``v - thresh > 0`` (no
@@ -29,6 +30,7 @@ times are int8.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -37,19 +39,41 @@ from . import _build
 
 __all__ = ["fused_step", "fused_step_plain", "arsnn_scan_fused",
            "arsnn_fused_v2", "arsnn_fused_v2_plain", "v2_supported",
-           "sigmoid", "READOUTS"]
+           "sigmoid", "fma_f32", "READOUTS"]
 
 READOUTS = ("sum", "last", "avg")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # int8 slot counters and last-spike times: t - t_last must fit
 MAX_STEPS = 127
 V2_KSIZES = (1, 3, 5, 7)   # the v2 kernel's compiled stencil sizes
+# elements of one f64 temporary of the v2 plain version's stencils: its
+# scan runs over chunks of the batch that keep each below this
+PLAIN_CHUNK_ELEMS = 1 << 24
 Weights = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _onehot(seg: torch.Tensor, Ts: int) -> torch.Tensor:
     iota = torch.arange(Ts, dtype=seg.dtype, device=seg.device)
     return seg[None] == iota.reshape((Ts,) + (1,) * seg.dim())
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """``a * b + c`` on f32 tensors (broadcast) rounded once to f32, as a
+    fused multiply-add (CUDA's ``__fmaf_rn``) computes it, emulated
+    exactly in f64: the product of two f32 values is exact in f64; TwoSum
+    gives the f64 sum ``s`` and its rounding error ``e`` exactly; rounding
+    to odd (where ``e != 0`` and the last bit of ``s`` is even, ``s`` steps
+    to its neighbour toward ``e``) makes the one conversion to f32 round
+    as the exact ``a * b + c`` would (53 bits >= 24 + 2)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    z = s - p
+    e = (p - (s - z)).add_(c - z)
+    step = ((s.view(torch.int64) & 1) == 0) & (e != 0)
+    toward = torch.copysign(torch.full_like(s, math.inf), e)
+    return torch.where(step, torch.nextafter(s, toward), s).float()
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -278,9 +302,9 @@ def _flat_weights(weights: Weights) -> Tuple[torch.Tensor, torch.Tensor]:
 def _stencil_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                    ) -> torch.Tensor:
     """One stencil layer in the JAX kernel's order: (N, ci, H, W) f32 ->
-    (N, co, H, W), bias first, then for dy, ci, dx: out += w * shifted x
-    (multiply and add rounded separately; the co axis is batched, which
-    does not change any channel's order)."""
+    (N, co, H, W), bias first, then for dy, ci, dx: out = fma(w, shifted
+    x, out), each multiply-add rounded once (:func:`fma_f32`; the co axis
+    is batched, which does not change any channel's order)."""
     N, ci_n, H, W = x.shape
     co_n, _, k, _ = w.shape
     p = k // 2
@@ -290,8 +314,8 @@ def _stencil_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
         for ci in range(ci_n):
             band = xp[:, ci:ci + 1, dy:dy + H]
             for dx in range(k):
-                out = out + w[:, ci, dy, dx].reshape(1, co_n, 1, 1) * \
-                    band[..., dx:dx + W]
+                out = fma_f32(w[:, ci, dy, dx].reshape(1, co_n, 1, 1),
+                              band[..., dx:dx + W], out)
     return out
 
 
@@ -309,10 +333,27 @@ def arsnn_fused_v2_plain(events: torch.Tensor, input_weights: Weights,
                          spike_attach: bool = False, write_zero: bool = False,
                          use_abs: bool = False) -> torch.Tensor:
     """Plain version of the whole-scan kernel, all in f32: (Tm, N, Cin, H,
-    W) events (any float dtype, widened) -> (Ts, N, C, H, W) f32."""
+    W) events (any float dtype, widened) -> (Ts, N, C, H, W) f32. The
+    batch elements are independent, so it scans chunks of them one after
+    the other (the f64 temporaries of :func:`fma_f32` stay below
+    PLAIN_CHUNK_ELEMS elements each)."""
     _check_readout(readout)
     del spike_attach  # the spike is exactly 1 wherever a slot is written
     ev = events.float()
+    N, H, W = ev.shape[1], ev.shape[3], ev.shape[4]
+    co = max(w.shape[0] for w, _ in list(input_weights) + list(gate_weights))
+    step = max(1, PLAIN_CHUNK_ELEMS // (co * H * W))
+    kw = dict(Ts=Ts, thresh=thresh, vreset=vreset, readout=readout,
+              write_zero=write_zero, use_abs=use_abs)
+    return torch.cat([_scan_plain(ev[:, n:n + step], input_weights,
+                                  gate_weights, **kw)
+                      for n in range(0, N, step)], dim=1)
+
+
+def _scan_plain(ev: torch.Tensor, input_weights: Weights,
+                gate_weights: Weights, *, Ts: int, thresh: float,
+                vreset: Optional[float], readout: str, write_zero: bool,
+                use_abs: bool) -> torch.Tensor:
     Tm, N, _, H, W = ev.shape
     C = input_weights[-1][0].shape[0] // 2
     f32 = dict(dtype=torch.float32, device=ev.device)
@@ -381,16 +422,17 @@ def arsnn_fused_v2(events: torch.Tensor, input_weights: Weights,
     iw, ib = (p.to(dev) for p in _flat_weights(input_weights))
     gw, gb = (p.to(dev) for p in _flat_weights(gate_weights))
     f32 = dict(dtype=torch.float32, device=dev)
-    out = torch.zeros((Ts, N, 2, H, W), **f32)
-    # device-memory state between the Tm launches: membrane and no-reset
-    # integral (f32), slot counter and last-spike time (int8), and the
-    # spikes double-buffered (u8) so that step t's gate stencil reads
-    # step t-1's spikes of its neighbours
+    out = torch.empty((Ts, N, 2, H, W), **f32)  # every value written
+    # device-memory state between the Tm launches, each tensor 16-byte
+    # aligned: membrane and no-reset integral (f32), slot counter and
+    # last-spike time (int8), and the spikes double-buffered (u8) so that
+    # step t's gate stencil reads step t-1's spikes of its neighbours
     vmem = torch.empty((N, 2, H, W), **f32)
     vavg = torch.empty_like(vmem)
     seg = torch.empty((N, 2, H, W), dtype=torch.int8, device=dev)
     tlast = torch.empty_like(seg)
-    spikes = torch.empty((2, N, 2, H, W), dtype=torch.uint8, device=dev)
+    spikes = [torch.empty((N, 2, H, W), dtype=torch.uint8, device=dev)
+              for _ in range(2)]
     lib = _build.get_lib("arsnn_v2")
     stream = _build.stream_ptr(dev)
     for t in range(Tm):

@@ -14,17 +14,17 @@ version on CPU tensors:
   pieces (``csrc/conv_wgmma.cu``, wgmma);
 * ``conv3x3_plif``: 3x3, stride 1, pad 1 (``csrc/conv_wgmma.cu``, wgmma);
 * ``conv3x3s2_plif``: 3x3, stride 2, pad 1; output (h, w) taps input
-  (2h+dy-1, 2w+dx-1) (``csrc/conv_plif.cu``, mma.sync).
+  (2h+dy-1, 2w+dx-1) (``csrc/conv_wgmma.cu``, wgmma).
 
 All take int8, bf16 or f32 inputs in (T*B, C, H, W) layout. On the card
 every input's channel count must be a multiple of 8 and its address
 16-byte aligned. The 1x1 kernel copies each channel's pixels in 16-byte
 pieces that never span two images, so H*W must fill whole 16-byte
-copies; the 3x3 kernels copy whole 4-byte row segments, so W must be a
-whole number of them. The wgmma kernels keep one chunk of the output
-channels' weights resident in shared memory (:func:`conv_plan` picks the
-chunks, and raises where even the narrowest does not fit). The wrappers
-raise otherwise. Every flagship site fits.
+copies; the 3x3 kernels (both strides) copy whole 4-byte row segments,
+so W must be a whole number of them. The kernels keep one chunk of the
+output channels' weights resident in shared memory (:func:`conv_plan`
+picks the chunks, and raises where even the narrowest does not fit). The
+wrappers raise otherwise. Every flagship site fits.
 
 The plain versions multiply bf16 values held in f32, so their products
 are exact; they run the convolution with TF32 off all the same, so that a
@@ -151,15 +151,30 @@ M_TILE = 64
 H100_SMS = 132
 
 
-def _geo(ksize: int, itemsize: int) -> Tuple[int, ...]:
+def s2_copy_bytes(W: int, itemsize: int) -> int:
+    """Bytes a copy of the stride-2 kernel's producers: 16 where an input
+    row is a whole number of 16-byte copies (C3X3S2V), else 4."""
+    return 16 if (W * itemsize) % 16 == 0 else 4
+
+
+def _geo(ksize: int, itemsize: int, stride: int = 1,
+         copy: int = 4) -> Tuple[int, ...]:
     """(taps, channels a K chunk, bf16 stages, bytes a bf16 stage, raw
     stages, bytes a raw stage, bytes a spike-stage row) of the source's
-    Geo<ksize, T> for ``itemsize``-byte inputs."""
+    Geo for ``itemsize``-byte inputs: C1X1, C3X3, or with ``stride`` 2
+    C3X3S2 (``copy`` 4) and C3X3S2V (16)."""
     if ksize == 1:
         return (1, 64, 2, 8 * (M_TILE * 16 + 16), 4 if itemsize == 1 else 2,
                 4096 * itemsize, M_TILE + 16)
+    if stride == 2:
+        # 16-channel chunks; four 9x9 parity planes a group of 8; 17 halo
+        # rows of 16 + copy / itemsize elements
+        raw_stages = 2 if itemsize == 4 else 3 if copy == 16 else 4
+        return (9, 16, 2, 2 * 4 * 9 * 9 * 16, raw_stages,
+                16 * 17 * (16 * itemsize + copy), 72)
+    epc = 4 // itemsize  # elements a 4-byte copy
     kc = 16 if itemsize == 4 else 32
-    row = (8 + 2 * (4 // itemsize)) * itemsize
+    row = (8 + 2 * epc) * itemsize
     return 9, kc, 2, kc // 8 * 10 * 10 * 16, 2, 10 * kc * row, 72
 
 
@@ -186,12 +201,13 @@ class ConvPlan(NamedTuple):
     grid_x: int
 
 
-def wgmma_smem_bytes(ksize: int, width: int, k_pad: int,
-                     itemsize: int) -> int:
+def wgmma_smem_bytes(ksize: int, width: int, k_pad: int, itemsize: int,
+                     stride: int = 1, copy: int = 4) -> int:
     """Dynamic shared memory of one block (``Smem`` in the source), each
     part 128-byte aligned: resident weights, bias, two bf16 rings, two raw
     rings, two spike stages, barriers."""
-    taps, _, stages, stage, raw_stages, raw, out_ld = _geo(ksize, itemsize)
+    taps, _, stages, stage, raw_stages, raw, out_ld = _geo(ksize, itemsize,
+                                                           stride, copy)
     return (_r128(taps * k_pad * width * 2) + _r128(width * 4)
             + 2 * stages * stage + 2 * raw_stages * raw
             + _r128(2 * width * out_ld) + 2 * 2 * stages * 8)
@@ -199,34 +215,40 @@ def wgmma_smem_bytes(ksize: int, width: int, k_pad: int,
 
 @functools.lru_cache(maxsize=256)
 def conv_plan(ksize: int, cins: Tuple[int, ...], cout: int, B: int, H: int,
-              W: int, itemsize: int, num_sms: int = H100_SMS) -> ConvPlan:
-    """The launch plan of the 1x1 (``ksize`` 1) or 3x3 stride-1 wgmma
-    kernel at a site; B is the batch without T, ``itemsize`` the input's
-    bytes an element, K padded to whole K chunks in every piece. Takes the
-    fewest output-channel chunks whose resident weights fit in shared
-    memory, each chunk a multiple of 8 channels run at the narrowest wgmma
-    width that holds it. Raises ValueError where even the narrowest does
-    not fit."""
-    kc = _geo(ksize, itemsize)[1]
+              W: int, itemsize: int, num_sms: int = H100_SMS,
+              stride: int = 1) -> ConvPlan:
+    """The launch plan of the 1x1 (``ksize`` 1) or 3x3 (``stride`` 1 or 2)
+    wgmma kernel at a site with (H, W) inputs; B is the batch without T,
+    ``itemsize`` the input's bytes an element, K padded to whole K chunks
+    in every piece. Takes the fewest output-channel chunks whose resident
+    weights fit in shared memory, each chunk a multiple of 8 channels run
+    at the narrowest wgmma width that holds it. Raises ValueError where
+    even the narrowest does not fit."""
+    if stride not in (1, 2) or (ksize == 1 and stride != 1):
+        raise ValueError(f"no {ksize}x{ksize} kernel of stride {stride}")
+    copy = s2_copy_bytes(W, itemsize) if stride == 2 else 4
+    kc = _geo(ksize, itemsize, stride, copy)[1]
     k_pad = sum(_ceil(c, kc) * kc for c in cins)
     for n in range(1, _ceil(cout, 8) + 1):
         chunk = _ceil(_ceil(cout, n), 8) * 8
         width = next((w for w in WGMMA_WIDTHS if w >= chunk), None)
         if width is None:
             continue
-        smem = wgmma_smem_bytes(ksize, width, k_pad, itemsize)
+        smem = wgmma_smem_bytes(ksize, width, k_pad, itemsize, stride, copy)
         if smem <= SMEM_LIMIT:
             break
     else:
+        name = f"conv{ksize}x{ksize}{'s2' if stride == 2 else ''}_plif"
         raise ValueError(
-            f"conv{ksize}x{ksize}_plif: the kernel keeps a chunk of the "
+            f"{name}: the kernel keeps a chunk of the "
             f"weights resident in shared memory, and {ksize * ksize} taps x "
             f"{k_pad} channels do not fit in {SMEM_LIMIT} bytes even for "
             f"{WGMMA_WIDTHS[0]} output channels")
     if ksize == 1:
         n_tiles = _ceil(B * H * W, M_TILE)
     else:
-        n_tiles = B * _ceil(H, 8) * _ceil(W, 8)
+        ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+        n_tiles = B * _ceil(ho, 8) * _ceil(wo, 8)
     n_chunks = _ceil(cout, chunk)
     grid_x = max(1, min(_ceil(n_tiles, 2), num_sms // n_chunks))
     return ConvPlan(width, chunk, n_chunks, k_pad, smem, n_tiles, grid_x)
@@ -313,23 +335,16 @@ def _conv3x3(x, w3, bias, T, w_plif, thresh, kind, stride, wrapper):
     _build.require_cuda(x, what)
     dev = x.device
     _check_layout((x,), W, 4, what)
-    if stride == 1:
-        plan = conv_plan(3, (cin,), cout, TB // T, H, W, x.element_size(),
-                         _build.sm_count(dev))
+    plan = conv_plan(3, (cin,), cout, TB // T, H, W, x.element_size(),
+                     _build.sm_count(dev), stride)
     w16, b32, a = _operands(w3, bias, w_plif, dev, what)
     ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     out = torch.empty((TB, cout, ho, wo), dtype=torch.int8, device=dev)
-    args = (w16.data_ptr(), b32.data_ptr(), a.data_ptr(), out.data_ptr(),
-            TB // T, T, cin, cout, H, W)
-    tail = (float(thresh), int(spike_ge(kind)), _DTYPE_CODE[x.dtype],
-            _build.stream_ptr(dev))
-    if stride == 1:
-        err = _build.get_lib("conv_wgmma").conv3x3_plif(
-            x.data_ptr(), *args, plan.width, plan.chunk, plan.n_chunks,
-            plan.grid_x, *tail)
-    else:
-        err = _build.get_lib("conv_plif").conv3x3s2_plif(
-            x.data_ptr(), *args, *tail)
+    err = getattr(_build.get_lib("conv_wgmma"), what)(
+        x.data_ptr(), w16.data_ptr(), b32.data_ptr(), a.data_ptr(),
+        out.data_ptr(), TB // T, T, cin, cout, H, W, plan.width, plan.chunk,
+        plan.n_chunks, plan.grid_x, float(thresh), int(spike_ge(kind)),
+        _DTYPE_CODE[x.dtype], _build.stream_ptr(dev))
     _build.check(err, what)
     wrapper.launches += 1
     return out

@@ -164,8 +164,8 @@ def test_plif_rejects_other_devices_and_dtypes():
 
 @pytest.mark.parametrize("case", [
     "plif_hw", "plif_3d", "c1_channels", "c1_row", "c3_channels", "c3_row",
-    "c3s1_row", "c1_weights", "c3_weights", "train_fwd_hw", "train_bwd_hw",
-    "train_bwd_steps"])
+    "c3s1_row", "c1_weights", "c3_weights", "c3s2_channels", "c3s2_row_bf16",
+    "c3s2_weights", "train_fwd_hw", "train_bwd_hw", "train_bwd_steps"])
 def test_wrappers_refuse_layouts_the_kernels_cannot_copy(monkeypatch, case):
     """On a non-CPU tensor a wrapper raises for a layout that does not
     split into the kernel's whole aligned copies (meta tensors stand in
@@ -204,6 +204,14 @@ def test_wrappers_refuse_layouts_the_kernels_cannot_copy(monkeypatch, case):
                                                z(8, 4096), z(8), T, w),
         "c3_weights": lambda: pcp.conv3x3_plif(meta(6, 512, 4, 4),
                                                z(3, 8, 1536), z(8), T, w),
+        # stride 2: channels in 8s, bf16 W even (whole 4-byte copies), and
+        # 9 taps x 384 channels x 32 outputs do not stay resident (dark5)
+        "c3s2_channels": lambda: pcp.conv3x3s2_plif(
+            meta(6, 12, 8, 8), z(3, 8, 36), z(8), T, w),
+        "c3s2_row_bf16": lambda: pcp.conv3x3s2_plif(
+            meta(6, 8, 8, 7, dtype=torch.bfloat16), z(3, 8, 24), z(8), T, w),
+        "c3s2_weights": lambda: pcp.conv3x3s2_plif(
+            meta(6, 384, 16, 20), z(3, 768, 1152), z(768), T, w),
         # the train kernels: H*W in 16-byte vectors, T at most 8
         "train_fwd_hw": lambda: plif_train_forward(
             meta(6, 8, 3, 2, dtype=torch.bfloat16), z(1), z(8), z(8), z(8),
@@ -409,6 +417,115 @@ def test_conv_plan_covers_every_output_once(site, B, itemsize):
     for t in tiles:
         seen += _tile_pixels(ksize, t, B, H, W)
     assert len(seen) == len(set(seen)) == B * H * W
+
+
+# (cins, cout, H, W) of the stride-2 kernel: the dark2-dark4 downsamples,
+# odd and ragged sizes, and the small shapes of this file's conv tests
+PLAN_SITES_S2 = [
+    ((48,), 96, 128, 160), ((96,), 192, 64, 80), ((192,), 384, 32, 40),
+    ((16,), 24, 9, 12), ((8,), 16, 8, 6), ((24,), 8, 17, 20),
+]
+
+
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+@pytest.mark.parametrize("B", [2, 128])
+@pytest.mark.parametrize("site", PLAN_SITES_S2)
+def test_conv_plan_stride2_covers_every_output_once(site, B, itemsize):
+    """The stride-2 kernel's plan: K in 16-channel chunks, the four parity
+    planes and the raw stages (16-byte copies where an input row is whole
+    16-byte copies, else 4-byte) within the 232,448 bytes, and the blocks'
+    8x8 output tiles over (ceil(H/2), ceil(W/2)) and channel chunks cover
+    every output exactly once. Where the plan refuses (dark4 in bf16 or
+    f32), even 32 resident output channels overflow."""
+    cins, cout, H, W = site
+    k_pad = -(-cins[0] // 16) * 16
+    copy = pcp.s2_copy_bytes(W, itemsize)
+    assert copy == (16 if W * itemsize % 16 == 0 else 4)
+    try:
+        plan = pcp.conv_plan(3, cins, cout, B, H, W, itemsize, stride=2)
+    except ValueError as e:
+        assert "resident" in str(e) and cins[0] >= 192
+        assert pcp.wgmma_smem_bytes(3, 32, k_pad, itemsize, 2,
+                                    copy) > pcp.SMEM_LIMIT
+        return
+    assert plan.width in pcp.WGMMA_WIDTHS and plan.chunk <= plan.width
+    assert plan.k_pad == k_pad
+    assert plan.smem == pcp.wgmma_smem_bytes(3, plan.width, plan.k_pad,
+                                             itemsize, 2,
+                                             copy) <= pcp.SMEM_LIMIT
+    chans = [c for y in range(plan.n_chunks)
+             for c in range(y * plan.chunk, min((y + 1) * plan.chunk, cout))]
+    assert sorted(chans) == list(range(cout))
+    assert plan.n_chunks * plan.grid_x <= pcp.H100_SMS
+    ho, wo = (H + 1) // 2, (W + 1) // 2
+    tiles = [2 * x + c + 2 * plan.grid_x * i for x in range(plan.grid_x)
+             for c in (0, 1) for i in range(plan.n_tiles)
+             if 2 * x + c + 2 * plan.grid_x * i < plan.n_tiles]
+    assert sorted(tiles) == list(range(plan.n_tiles))
+    seen = []
+    for t in tiles:
+        seen += _tile_pixels(3, t, B, ho, wo)
+    assert len(seen) == len(set(seen)) == B * ho * wo
+
+
+def test_conv_plan_sizes_the_downsample_sites():
+    """At B=128: the fused dark2 downsample (48 -> 96 from 128x160, bf16)
+    runs whole, its 9 x 48 x 96 weights resident (K 48 in 3 chunks of
+    16); dark3 (96 -> 192, int8) takes 3 chunks of 64 and dark4 (192 ->
+    384) 12 of 32; dark5 (384 -> 768) is refused: 9 taps x 384 channels
+    do not fit even for 32 outputs. A 3x3 has no other stride and a 1x1
+    none but 1."""
+    want = {((48,), 96, 128, 160, 2): (96, 1, 217_024),
+            ((96,), 192, 64, 80, 1): (64, 3, 213_824),
+            ((192,), 384, 32, 40, 1): (32, 12, 200_384)}
+    for (cins, cout, H, W, isz), (width, n, smem) in want.items():
+        plan = pcp.conv_plan(3, cins, cout, 128, H, W, isz, stride=2)
+        assert (plan.width, plan.chunk, plan.n_chunks, plan.smem) == (
+            width, width, n, smem)
+    plan = pcp.conv_plan(3, (48,), 96, 128, 128, 160, 2, stride=2)
+    assert plan.k_pad == 48 and plan.grid_x == pcp.H100_SMS
+    assert plan.n_tiles == 128 * 8 * 10
+    with pytest.raises(ValueError, match="conv3x3s2_plif.*resident"):
+        pcp.conv_plan(3, (384,), 768, 128, 16, 20, 1, stride=2)
+    for ksize, stride in ((3, 3), (1, 2)):
+        with pytest.raises(ValueError, match="stride"):
+            pcp.conv_plan(ksize, (8,), 8, 1, 8, 8, 1, stride=stride)
+
+
+def test_conv3x3s2_wrapper_launches_the_wgmma_kernel_with_its_plan(
+        monkeypatch):
+    """On a non-CPU tensor ``conv3x3s2_plif`` launches the wgmma library's
+    ``conv3x3s2_plif`` once with the stride-2 plan (width, chunk, chunks,
+    grid), the geometry of the input and an int8 (T*B, Cout, ceil(H/2),
+    ceil(W/2)) output, and counts the launch (meta tensors stand in for
+    CUDA ones)."""
+    from eas_snn_tpu_torch.ops import _build
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
+    monkeypatch.setattr(_build, "get_lib", lambda name: calls.append(
+        ("lib", name)) or Lib())
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(pcp, "_operands", lambda w, b, wp, dev, what: (
+        w, b, wp))
+    x = torch.empty((6, 48, 9, 12), dtype=torch.bfloat16, device="meta")
+    w3 = torch.zeros((3, 96, 144), device="meta")
+    before = pcp.conv3x3s2_plif.launches
+    out = pcp.conv3x3s2_plif(x, w3, torch.zeros(96, device="meta"), T,
+                             torch.zeros((), device="meta"))
+    assert out.shape == (6, 96, 5, 6) and out.dtype == torch.int8
+    assert pcp.conv3x3s2_plif.launches == before + 1
+    assert calls[0] == ("lib", "conv_wgmma")
+    name, args = calls[1]
+    plan = pcp.conv_plan(3, (48,), 96, 6 // T, 9, 12, 2, 132, 2)
+    assert name == "conv3x3s2_plif"
+    assert args[5:15] == (6 // T, T, 48, 96, 9, 12, plan.width, plan.chunk,
+                          plan.n_chunks, plan.grid_x)
+    assert args[17] == 1  # bf16
 
 
 def test_conv_plan_sizes_the_flagship_sites():

@@ -13,6 +13,7 @@ other numbers than the plain scan.
 import functools
 import importlib.util
 import os
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -330,6 +331,104 @@ def test_fused_v2_first_step_runs_the_gate_stack_on_zero_spikes():
     out = pf.arsnn_fused_v2(ev, iw, gw, **kw)
     torch.testing.assert_close(out, torch.full_like(out, 1.5))
     assert float(pf.arsnn_fused_v2(ev, iw, [zeros(2)], **kw).abs().max()) == 0
+
+
+def _round_f32(x: Fraction) -> np.float32:
+    """The f32 nearest the rational x, ties to even."""
+    c0 = np.float32(float(x))
+    cands = (np.nextafter(c0, np.float32(-np.inf)), c0,
+             np.nextafter(c0, np.float32(np.inf)))
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - x),
+                                     int(np.array(c).view(np.int32)) & 1))
+
+
+def test_fma_f32_rounds_once_as_exact_rationals():
+    """``fma_f32`` (the v2 plain version's multiply-add) against a * b + c
+    computed exactly with fractions and rounded once to f32, ties to even:
+    2,400 values with plain draws, operands scaled by 2^30 and 2^-30,
+    near-cancellations (c within 1e-6 relative of -a*b) and cases where
+    the f64 sum lands exactly on an f32 tie that the exact sum is off (a
+    plain f64 sum, then a conversion, rounds those the wrong way). The
+    unfused ``a * b + c`` in f32 differs from it on many."""
+    rng = np.random.default_rng(8)
+    n = 600
+    a, b, c = (rng.standard_normal(4 * n).astype(np.float32) for _ in "abc")
+    a[:n] *= np.float32(2.0 ** 30)
+    b[n:2 * n] *= np.float32(2.0 ** -30)
+    c[2 * n:3 * n] = -(a[2 * n:3 * n] * b[2 * n:3 * n]) * (
+        1 + 1e-6 * rng.standard_normal(n)).astype(np.float32)
+    # (1 + 2^-12)^2 = 1 + 2^-11 + 2^-24: an f32 tie, broken by a tiny c
+    tie = np.float32(1 + 2.0 ** -12) * np.float32(
+        [1, -1] * (n // 2)) * np.float32(2.0) ** rng.integers(
+            -20, 20, n).astype(np.float32)
+    a[3 * n:], b[3 * n:] = tie, np.abs(tie)
+    c[3 * n:] = np.float32(2.0 ** -60) * np.sign(
+        rng.standard_normal(n)).astype(np.float32) * np.abs(tie) ** 2
+    got = pf.fma_f32(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    want = np.array([_round_f32(Fraction(float(x)) * Fraction(float(y))
+                                + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    unfused = (torch.from_numpy(a) * torch.from_numpy(b)
+               + torch.from_numpy(c)).numpy()
+    assert (unfused != want).sum() > 100
+    via_f64 = (torch.from_numpy(a).double() * torch.from_numpy(b).double()
+               + torch.from_numpy(c).double()).float().numpy()
+    assert (via_f64[3 * n:] != want[3 * n:]).sum() > n // 4
+
+
+def test_stencil_plain_rounds_once_per_multiply_add():
+    """``_stencil_plain`` equals a scalar loop of ``fma_f32`` in the JAX
+    kernel's order (bias, then dy, ci, dx) at every output, and so differs
+    from the same loop with the multiply and the add rounded apart."""
+    rng = np.random.default_rng(9)
+    N, ci_n, co_n, k, H, W = 1, 2, 4, 3, 5, 6
+    x = torch.from_numpy(rng.standard_normal((N, ci_n, H, W)).astype(
+        np.float32) * 2)
+    w = torch.from_numpy(rng.standard_normal((co_n, ci_n, k, k)).astype(
+        np.float32) * 0.4)
+    b = torch.from_numpy(rng.standard_normal(co_n).astype(np.float32) * 0.1)
+    got = pf._stencil_plain(x, w, b)
+    xp = F.pad(x, (1, 1, 1, 1))
+    want = torch.empty_like(got)
+    unfused = torch.empty_like(got)
+    for co in range(co_n):
+        for h in range(H):
+            for j in range(W):
+                acc = acc_u = b[co]
+                for dy in range(k):
+                    for ci in range(ci_n):
+                        for dx in range(k):
+                            wv, xv = w[co, ci, dy, dx], xp[0, ci, h + dy,
+                                                           j + dx]
+                            acc = pf.fma_f32(wv, xv, acc)
+                            acc_u = acc_u + wv * xv
+                want[0, co, h, j], unfused[0, co, h, j] = acc, acc_u
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (got != unfused).any()
+
+
+def test_fused_v2_plain_scans_the_batch_in_chunks(monkeypatch):
+    """The plain version scans the batch in chunks that keep its f64
+    temporaries small; the batch elements are independent, so any chunking
+    gives the same slots bit for bit."""
+    rng = np.random.default_rng(10)
+    Tm, N, H, W = 3, 5, 12, 13
+    ev = torch.from_numpy((rng.standard_normal((Tm, N, 2, H, W)) * 2).astype(
+        np.float32))
+
+    def conv(ci, co):
+        return (torch.from_numpy(rng.standard_normal((co, ci, 3, 3)).astype(
+            np.float32) * 0.4), torch.from_numpy(
+                rng.standard_normal(co).astype(np.float32) * 0.1))
+
+    iw, gw = [conv(2, 4), conv(4, 4)], [conv(2, 4), conv(4, 4)]
+    kw = dict(Ts=3, thresh=1.0, vreset=None, readout="avg")
+    whole = pf.arsnn_fused_v2_plain(ev, iw, gw, **kw)
+    monkeypatch.setattr(pf, "PLAIN_CHUNK_ELEMS", 2 * 4 * H * W)
+    chunked = pf.arsnn_fused_v2_plain(ev, iw, gw, **kw)
+    assert (whole != 0).float().mean() > 0.05
+    torch.testing.assert_close(chunked, whole, rtol=0, atol=0)
 
 
 # ------------------------------------------------------ the embedding
