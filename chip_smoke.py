@@ -17,21 +17,32 @@ Phases, each of which fails the run (exit code 1, no result line):
    operation); conv+PLIF spikes equal except where the plain version's
    membrane lies within 1e-4 of the threshold (the kernel and cuDNN sum
    the f32 preactivation in different orders). The firing rate must lie in
-   1-99%. Prints the kernel's time (CUDA events), the plain version's, the
-   unfused chain's (cuDNN conv + BN + PLIF kernel), the bound and, for the
-   wgmma kernels, the launch plan (wgmma width x output-channel chunks,
-   grid, dynamic shared memory), then each kernel's sum a forward;
+   1-99%. The PLIF kernel is called as its unfused site calls it (the
+   neuron with its BN's kept eval terms) and must launch nothing else.
+   Prints the wrapper's call time (CUDA events, back to back), the
+   kernel's own device time (torch.profiler, by kernel name) with the
+   other kernels a call launches, the plain version's time, the unfused
+   chain's (cuDNN conv + BN + PLIF kernel), the bound and, for the wgmma
+   kernels, the launch plan (wgmma width x output-channel chunks, grid,
+   dynamic shared memory), then each kernel's sum a forward; then the
+   PLIF kernel off the flagship's layouts (a ragged H*W in bf16 and f32,
+   planes of three vectors, an unaligned x, T = 9), bit-equal;
 2b. the wgmma kernels at every other spiking 1x1 and 3x3 site of the
    flagship forward, both strides (the sites the policy leaves on the
    unfused chain, the dark3-dark5 downsamples among them), called
    directly with no change to routing: held to the plain version with the
-   tolerance of phase 2 and timed against the chain; a site whose layout
-   or weights the wrapper refuses is listed as refused, with the reason;
+   tolerance of phase 2 and timed (call and kernel) against the chain; a
+   site whose layout or weights the wrapper refuses is listed as refused,
+   with the reason;
 3. main path: ``get_exp("gen1_syolox_m").deploy().get_model("cuda")`` and
    ``detect`` on Poisson(0.2) events; frames/s, peak memory, detections,
    and the launch counts, which must be 35 / 8 / 6 / 1 per forward plus
    Tm of the whole-scan sampler kernel (``deploy()`` engages the fused
    sampler route on the card); the kernels line reports these counts;
+   per-layer device ms and a profile of one forward; then the calls of
+   rsqrt, sigmoid and rsub (the sites' eval constants) in one backbone
+   forward, which only the 15 fused sites may make (the unfused sites keep
+   theirs);
 3b. sampler kernels: the whole-scan sampler kernel (kernel 5) against its
    plain version on the flagship's deploy events (bf16-rounded, B=128)
    with the model's own f32 sampler weights, and the per-step kernel
@@ -41,8 +52,9 @@ Phases, each of which fails the run (exit code 1, no result line):
    not). Tolerance: slots and every state output bit-equal (kernel 5's
    stencils are FMAs, which its plain version emulates exactly, in one
    order; every other operation is rounded on its own on both sides).
-   Prints each kernel's time (CUDA
-   events), the plain version's, the bound (kernel 5's: its multiply-adds
+   Prints each kernel's call time (CUDA
+   events) and own device time (torch.profiler), the plain version's, the
+   bound (kernel 5's: its multiply-adds
    as FMAs, beside the floor of unfused ones) and the default sampler
    route's (the plain embedding: cuDNN convs and the eager chain);
 3c. sampler routes: the plain and the fused route of the same deploy
@@ -71,10 +83,14 @@ Phases, each of which fails the run (exit code 1, no result line):
    Tolerance: spikes and dx bit-equal (both round after every f32
    operation and divide exactly); each sum within SUM_TOL of the plain
    one relative to the largest magnitude of its vector (f32 sums taken in
-   another order). Also one identity-BN case (the backward of kernel 1)
-   and, at small shapes, the rect, sigmoid and tanh surrogates and f32
-   storage. Prints each kernel's time per call (CUDA events), the plain
-   version's and the bound;
+   another order); a second backward on the same inputs must give the
+   same bits (deterministic sums), and the backward must make one launch
+   a call and no other. Also one identity-BN case (the backward of kernel
+   1) and, at small shapes, the rect, sigmoid and tanh surrogates, f32
+   storage and a ragged H*W (7x9) in bf16 and f32. Prints each kernel's
+   call time (CUDA events) and own device time (torch.profiler), the
+   plain version's, the bound and the backward's plan (items a thread,
+   blocks, waves);
 6. train step: ``get_exp("gen1_syolox_m").get_model("cuda", train=True)``
    (bf16 conv/BN, f32 sampler state) at B=64 on Poisson(0.2) events and
    labels of 1-8 random boxes, Adam (``fixed`` 1e-3) with EMA: 2 warm-up
@@ -84,7 +100,8 @@ Phases, each of which fails the run (exit code 1, no result line):
    device idle share of one profiled step and the losses. Fails unless
    every loss and gradient is finite, the total loss falls from the first
    step to the last, and the train PLIF kernels launch exactly 50 + 50
-   times a step;
+   times a step (counted by the wrappers, and in the profiled step by
+   kernel name);
 7. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -121,8 +138,9 @@ from eas_snn_tpu_torch.ops import _build
 from eas_snn_tpu_torch.ops import arsnn_fused as af
 from eas_snn_tpu_torch.ops import conv_plif as cp
 from eas_snn_tpu_torch.ops.plif import (
-    decay_multiplier, plif_forward, plif_forward_plain, plif_train_backward,
-    plif_train_backward_plain, plif_train_forward, plif_train_forward_plain)
+    decay_multiplier, plif_bwd_plan, plif_forward, plif_forward_plain,
+    plif_train_backward, plif_train_backward_plain, plif_train_forward,
+    plif_train_forward_plain)
 from eas_snn_tpu_torch.ops.surrogate import train_alpha
 
 HBM_BYTES_PER_S = 3.35e12
@@ -192,6 +210,63 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_us(e) -> float:
+    """A profiler row's own device time in us (the attribute's name
+    differs across torch versions)."""
+    us = getattr(e, "self_device_time_total", None)
+    return getattr(e, "self_cuda_time_total", 0) if us is None else us
+
+
+def kernel_ms(fn, symbol: str, iters: int = 10, launches: int = 1):
+    """The kernel's own device time a call of fn(), which launches it
+    ``launches`` times: the mean device time of the launches of kernels
+    whose name holds ``symbol`` that torch.profiler records over ``iters``
+    calls (after two warm-up calls), times ``launches``. The profiler does
+    not always record every launch of a short window (seen on the H100:
+    6 of 10, once none), so the time is taken a launch, not a call, and a
+    window that recorded no launch of the kernel is profiled again, at
+    most three windows. Returns (ms, recorded launches a call, recorded
+    launches of other kernels a call: the wrapper's side kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us, n, side = 0.0, 0, 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if symbol in e.key:
+                us, n = us + _device_us(e), n + e.count
+            else:
+                side += e.count
+        if n:
+            return us / 1e3 / n * launches, n / iters, side / iters
+        print(f"  (the profiler recorded no {symbol} launch in {iters} "
+              "calls: profiled again)")
+    fail(f"no {symbol} launch in three profiles: its time is not measured")
+    return float("nan"), 0.0, side / iters
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Host-clock ms a call of fn() takes to enqueue its work (no
+    synchronize between calls): where it exceeds the kernel's time, the
+    back-to-back call time is the host's."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / iters
+
+
 def bound_ms(nbytes: float, tc_flops: float, f32_ops: float):
     """(bound in ms, 'bytes' or 'operations') for one call."""
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -245,16 +320,15 @@ def calibrate_spiking_bn(model, events: torch.Tensor) -> None:
 
 def _kernel_name(mangled: str) -> str:
     """A mangled kernel name cut to its own name and template arguments:
-    the first length-prefixed identifier ending in "kernel", "total" or
-    "sums", and what follows it up to the parameter list."""
+    the first length-prefixed identifier ending in "kernel", and what
+    follows it up to the parameter list."""
     for j in range(1, len(mangled)):
         if not (mangled[j - 1].isdigit() and not mangled[j].isdigit()):
             continue
         for k in (1, 2):
             if j - k >= 0 and mangled[j - k:j].isdigit():
                 name = mangled[j:j + int(mangled[j - k:j])]
-                if name.endswith(("kernel", "total", "sums")) and \
-                        "_cu_" not in name:
+                if name.endswith("kernel") and "_cu_" not in name:
                     return name + mangled[j + len(name):].split("Ev")[0]
     return mangled
 
@@ -362,14 +436,17 @@ def _site_inputs(shapes, dtype, gen):
 
 def check_plif_site(mod, shapes, dtype, gen):
     """The PLIF kernel with the site's BN folded in, on conv outputs drawn
-    so that the BN output is about N(0.6, 1)."""
+    so that the BN output is about N(0.6, 1), called as the unfused site
+    calls it (its neuron with its BN's eval terms: both kept on the site,
+    so a call launches the kernel and nothing else)."""
     T, th, kind = mod.neuron.T, mod.neuron.thresh, mod.act.kind
     bn = mod.bn.eval_terms()
     mean, mul, bias = (p.reshape(1, -1, 1, 1) for p in bn)
     z = torch.randn(shapes[0], device=DEV, generator=gen) + 0.6
     x = ((z - bias) / mul + mean).to(dtype)
     w = mod.act.w
-    got = plif_forward(x, T, w, th, kind, bn=bn)
+    run = lambda: mod.act(x, bn=mod.bn.eval_terms())  # noqa: E731
+    got = run()
     want = plif_forward_plain(x, T, w, th, kind, bn=bn)
     torch.cuda.synchronize()
     mism = int((got != want).sum())
@@ -378,9 +455,18 @@ def check_plif_site(mod, shapes, dtype, gen):
     if mism:
         fail(f"plif_fwd at {shapes[0]}: {mism} spikes differ (bit-equal "
              "expected)")
-    res["ms"] = cuda_ms(lambda: plif_forward(x, T, w, th, kind, bn=bn), 20)
+    res["ms"] = cuda_ms(run, 20)
+    res["kernel_ms"], _, res["side"] = kernel_ms(run, "plif_fwd_kernel")
+    if res["side"]:
+        fail(f"plif_fwd at {shapes[0]}: the site launches {res['side']} "
+             "other kernels a call (its eval constants are kept: none "
+             "expected)")
     res["plain_ms"] = cuda_ms(
         lambda: plif_forward_plain(x, T, w, th, kind, bn=bn), 3, warmup=1)
+    # yardstick: a PyTorch pass that moves the same bytes (x read, one
+    # byte an element written): what the card gives this byte pattern
+    out1 = torch.empty(x.shape, dtype=torch.bool, device=DEV)
+    res["same_bytes_ms"] = cuda_ms(lambda: torch.ge(x, 0.0, out=out1), 20)
     n = x.numel()
     res["bound_ms"], res["bound_by"] = bound_ms(
         n * (x.element_size() + 1) + 12 * x.shape[1] + 4, 0.0,
@@ -423,6 +509,7 @@ def check_conv_site(name, mod, shapes, dtype, gen):
              "threshold")
     del pre, margin, want, got
     res["ms"] = cuda_ms(run, 10)
+    res["kernel_ms"], _, res["side"] = kernel_ms(run, "conv_wgmma_kernel")
     res["plain_ms"] = cuda_ms(plain, 3, warmup=1)
     # the unfused chain this site would otherwise run: cuDNN conv in the
     # compute dtype, BN, then the PLIF kernel
@@ -454,6 +541,7 @@ def _print_site(name, count, shapes, dtype, r):
     shp = "+".join("x".join(map(str, s)) for s in shapes)
     print(f"  {name:15s} {count:3d} {shp:34s} {str(dtype)[6:]:9s} "
           f"{r['rate']:6.3f} {r['mismatch']:5d} {r['ms']:8.4f} "
+          f"{r['kernel_ms']:8.4f} {r['side']:4.0f} "
           f"{r['plain_ms']:8.4f} {chain:>8s} {r['bound_ms']:8.4f} "
           f"{r['bound_by']}" + (f"  {r['plan']}" if "plan" in r else ""),
           flush=True)
@@ -485,14 +573,17 @@ def phase_other_sites(others, gen):
 def phase_kernels(model, events, seed):
     sites, others = site_geometries(model, events)
     gen = torch.Generator(device=DEV).manual_seed(seed + 1)
-    per_kernel = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, chain_ms=0.0,
-                          bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0, sites=0)
+    per_kernel = {n: dict(ms=0.0, kernel_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                          chain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                          max_abs_err=0.0, sites=0, same_bytes_ms=0.0)
                   for n in PER_FORWARD}
     print("phase 2: kernel vs plain at every flagship site geometry "
-          "(times in ms per call)")
+          "(times in ms per call: ms = the wrapper's call, CUDA events "
+          "back to back; kernel = the kernel's own device time, "
+          "torch.profiler; side = other kernels a call)")
     print(f"  {'kernel':15s} {'x':>3s} {'input':34s} {'dtype':9s} "
-          f"{'rate':>6s} {'mism':>5s} {'ms':>8s} {'plain':>8s} "
-          f"{'chain':>8s} {'bound':>8s} by")
+          f"{'rate':>6s} {'mism':>5s} {'ms':>8s} {'kernel':>8s} "
+          f"{'side':>4s} {'plain':>8s} {'chain':>8s} {'bound':>8s} by")
     for (name, *_), (count, mod, shapes, dtype, _) in sites.items():
         if name == "plif_fwd":
             r = check_plif_site(mod, shapes, dtype, gen)
@@ -505,21 +596,60 @@ def phase_kernels(model, events, seed):
         agg = per_kernel[name]
         agg["sites"] += count
         agg["max_abs_err"] = max(agg["max_abs_err"], r["max_abs_err"])
-        for key in ("ms", "plain_ms", "bound_ms", "chain_ms"):
-            agg[key] += count * (r[key] or 0.0)
+        for key in ("ms", "kernel_ms", "plain_ms", "bound_ms", "chain_ms",
+                    "same_bytes_ms"):
+            agg[key] += count * (r.get(key) or 0.0)
         agg["bytes_ms" if r["bound_by"] == "bytes" else "ops_ms"] += (
             count * r["bound_ms"])
     for name, agg in per_kernel.items():
         if agg["sites"] != PER_FORWARD[name]:
             fail(f"{name}: {agg['sites']} sites found in the flagship "
                  f"forward, expected {PER_FORWARD[name]}")
-    for name in ("conv1x1_plif", "conv3x3_plif", "conv3x3s2_plif"):
-        agg = per_kernel[name]
+    for name, agg in per_kernel.items():
+        chain = (f", unfused chain {agg['chain_ms']:.4f}"
+                 if name != "plif_fwd" else
+                 f", torch.ge of x into a bool tensor (the same bytes) "
+                 f"{agg['same_bytes_ms']:.4f}")
         print(f"  {name}: {agg['ms']:.4f} ms a forward over its "
-              f"{agg['sites']} sites, unfused chain {agg['chain_ms']:.4f}, "
+              f"{agg['sites']} sites (kernel {agg['kernel_ms']:.4f}){chain}, "
               f"bound {agg['bound_ms']:.4f}")
+    plif_ragged_cases(gen)
     phase_other_sites(others, gen)
     return per_kernel
+
+
+def plif_ragged_cases(gen) -> None:
+    """The PLIF kernel off the flagship's layouts, bit-equal to its plain
+    version: a ragged H*W (7x9: the scalar tail) in bf16 and f32, planes
+    of three 16-byte vectors (4x6 bf16), an x off 16-byte alignment (the
+    scalar tail again), and T = 9 (the looped steps)."""
+    worst = 0
+    cases = (((3, 4, 16, 7, 9), torch.bfloat16, False),
+             ((3, 4, 16, 7, 9), torch.float32, False),
+             ((3, 4, 16, 4, 6), torch.bfloat16, False),
+             ((3, 4, 16, 8, 8), torch.bfloat16, True),
+             ((9, 2, 16, 8, 8), torch.bfloat16, False))
+    for (T, B, C, H, W), dt, shifted in cases:
+        n = T * B * C * H * W
+        buf = (torch.randn(n + 1, device=DEV, generator=gen) + 0.6).to(dt)
+        x = (buf[1:] if shifted else buf[:n]).view(T * B, C, H, W)
+        bn = (0.2 * torch.randn(C, device=DEV, generator=gen),
+              0.5 + torch.rand(C, device=DEV, generator=gen),
+              0.1 * torch.randn(C, device=DEV, generator=gen))
+        w = torch.tensor(-0.3, device=DEV)
+        got = plif_forward(x, T, w, bn=bn)
+        want = plif_forward_plain(x, T, w, bn=bn)
+        torch.cuda.synchronize()
+        worst = max(worst, int((got != want).sum()))
+        rate = float(want.float().mean())
+        if not 0.05 <= rate <= 0.95:
+            fail(f"plif_fwd ragged case {(T, B, C, H, W)}: firing rate "
+                 f"{rate:.4f} outside 5-95%")
+    print(f"  plif_fwd off the flagship layouts (7x9 bf16 and f32, 4x6 bf16, "
+          f"unaligned x, T=9): worst {worst} spikes differ")
+    if worst:
+        fail("plif_fwd off the flagship layouts: spikes differ (bit-equal "
+             "expected)")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -579,8 +709,47 @@ def phase_main_path(exp, model, batches):
     # micro-step
     check_counts("main path", counts, len(batches), exp.Tm)
     layer_times(model, batches[0])
-    profile_call(lambda: model(batches[0]), "one forward")
+    ms, n = profiled_total(profile_call(lambda: model(batches[0]),
+                                        "one forward"), "plif_fwd_kernel")
+    print(f"  plif_fwd_kernel in the profiled forward: {ms:.4f} ms over {n} "
+          "launches (phase 2's kernel ms: the sites' kernels timed apart)")
+    constant_ops(model, batches[0])
     return counts
+
+
+CONSTANT_OPS = ("aten::rsqrt", "aten::sigmoid", "aten::rsub")
+
+
+def constant_ops(model, events) -> None:
+    """Calls of the ops that make a spiking site's eval constants (the BN's
+    rsqrt, the decay's sigmoid and 1 - s) in one backbone forward, from
+    torch.profiler's operator rows. The unfused sites keep theirs
+    (models/blocks.py: BatchNorm.eval_terms, PLIF.decay), so only the
+    fused sites' own weight folding may call them: at most once each a
+    fused site."""
+    from torch.profiler import ProfilerActivity, profile
+    seen = {}
+    bb = model.backbone.backbone
+    h = bb.register_forward_pre_hook(lambda m, i: seen.update(x=i[0]))
+    model(events)
+    h.remove()
+    bb(seen["x"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        bb(seen["x"])
+        torch.cuda.synchronize()
+    calls = {k: 0 for k in CONSTANT_OPS}
+    for e in prof.key_averages():
+        if e.key in calls:
+            calls[e.key] += e.count
+    fused = sum(v for k, v in PER_FORWARD.items() if k != "plif_fwd")
+    print(f"  eval constants in one backbone forward: " + ", ".join(
+        f"{k} {v}" for k, v in calls.items()) + f" (at most {fused}: the "
+        f"fused sites fold theirs a call; the {PER_FORWARD['plif_fwd']} "
+        "unfused sites keep theirs)")
+    if any(v > fused for v in calls.values()):
+        fail(f"backbone forward: constant ops {calls}, at most {fused} each "
+             "expected")
 
 
 def layer_times(model, events) -> None:
@@ -611,9 +780,10 @@ def layer_times(model, events) -> None:
                                            "head")))
 
 
-def profile_call(fn, what: str, top: int = 14) -> None:
+def profile_call(fn, what: str, top: int = 14) -> list:
     """One call of fn() under torch.profiler: device time by kernel, and
-    the device's busy share of the call's host-clock window."""
+    the device's busy share of the call's host-clock window. Returns the
+    rows (ms, launches, kernel name), longest first."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -626,21 +796,27 @@ def profile_call(fn, what: str, top: int = 14) -> None:
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue  # operator rows would count their kernels again
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
+        us = _device_us(e)
         if us > 0:
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
         print(f"  profile of {what}: no device time recorded (not measured)")
-        return
+        return rows
     print(f"  profile of {what}: device busy {busy:.3f} ms of "
           f"{wall_ms:.3f} ms host-clock window (idle share "
           f"{1 - busy / wall_ms:.3f}, profiler on); top kernels:")
     for ms, n, key in rows[:top]:
         print(f"    {ms:9.3f} ms {n:5d}x  {key[:90]}")
+    return rows
+
+
+def profiled_total(rows, symbol: str):
+    """(ms, launches) of the kernels in ``profile_call``'s rows whose name
+    holds ``symbol``."""
+    hits = [(ms, n) for ms, n, key in rows if symbol in key]
+    return sum(ms for ms, _ in hits), sum(n for _, n in hits)
 
 
 # ------------------------------------------------------ sampler kernels
@@ -701,6 +877,9 @@ def check_v2(what, ev, iw, gw, kw, timed=False):
     if timed:
         del got, want
         res["ms"] = cuda_ms(lambda: af.arsnn_fused_v2(ev, iw, gw, **kw), 5)
+        res["kernel_ms"], _, _ = kernel_ms(
+            lambda: af.arsnn_fused_v2(ev, iw, gw, **kw), "arsnn_v2_kernel", 3,
+            launches=ev.shape[0])
         res["plain_ms"] = cuda_ms(
             lambda: af.arsnn_fused_v2_plain(ev, iw, gw, **kw), 1, warmup=1)
         nw = sum(w.numel() + b.numel() for w, b in iw + gw)
@@ -781,6 +960,9 @@ def step_case(shape, dtype, gen, Ts=3, t=2, readout="sum", vreset=None,
 
         res["ms"] = cuda_ms_each(
             restore, lambda: af.fused_step(t, *planes, *state, **kw))
+        res["kernel_ms"], _, _ = kernel_ms(
+            lambda: (restore(), af.fused_step(t, *planes, *state, **kw)),
+            "arsnn_step_kernel")
         res["plain_ms"] = cuda_ms(lambda: af.fused_step_plain(
             t, *planes, *state0, **kw), 3, warmup=1)
         M, es = N * C * H * W, inp.element_size()
@@ -806,8 +988,9 @@ def phase_sampler_kernels(model, events, seed):
     r["default_ms"] = default_route_ms(model, events)
     print(f"  arsnn_v2 flagship events {tuple(ev.shape)} {str(ev.dtype)[6:]}, "
           f"depth {len(iw)} k {iw[0][0].shape[-1]}: {r['mismatch']} of "
-          f"{r['n']} slots differ, {r['written']:.3f} non-zero; kernel "
-          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
+          f"{r['n']} slots differ, {r['written']:.3f} non-zero; call "
+          f"{r['ms']:.4f} ms (kernel {r['kernel_ms']:.4f}), plain "
+          f"{r['plain_ms']:.4f}, bound "
           f"{r['bound_ms']:.4f} ({r['bound_by']}: the multiply-adds as "
           f"FMAs; unfused floor {r['unfused_ms']:.4f}); default route "
           f"(plain embedding: cuDNN convs + eager chain) "
@@ -849,8 +1032,9 @@ def phase_sampler_kernels(model, events, seed):
         rs = step_case(shape, dt, gen, timed=True)
         rs["default_ms"] = r["default_ms"] / ev.shape[0]
         print(f"  arsnn_step flagship step {shape} {str(dt)[6:]}: rate "
-              f"{rs['rate']:.3f}, {rs['mismatch']} outputs differ; kernel "
-              f"{rs['ms']:.4f} ms, plain {rs['plain_ms']:.4f}, bound "
+              f"{rs['rate']:.3f}, {rs['mismatch']} outputs differ; call "
+              f"{rs['ms']:.4f} ms (kernel {rs['kernel_ms']:.4f}), plain "
+              f"{rs['plain_ms']:.4f}, bound "
               f"{rs['bound_ms']:.4f} ({rs['bound_by']}); default route "
               f"{rs['default_ms']:.4f} ms a micro-step (the plain "
               "embedding's forward / Tm)", flush=True)
@@ -947,8 +1131,8 @@ def phase_sampler_routes(exp, model, batches, seed):
     r4["default_ms"] = default_route_ms(m4, b4[0])
     print(f"  Gen4 ({g4.exp_name}, {H}x{W}) arsnn_v2 at {tuple(ev4.shape)}: "
           f"{r4['mismatch']} of {r4['n']} slots differ, {r4['written']:.4f} "
-          f"non-zero; kernel "
-          f"{r4['ms']:.4f} ms, plain {r4['plain_ms']:.4f}, bound "
+          f"non-zero; call {r4['ms']:.4f} ms (kernel "
+          f"{r4['kernel_ms']:.4f}), plain {r4['plain_ms']:.4f}, bound "
           f"{r4['bound_ms']:.4f} ({r4['bound_by']}); default route "
           f"{r4['default_ms']:.4f} ms")
     f, counts, peak, dets, dt = run_detect(g4, m4, b4)
@@ -1147,10 +1331,12 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
-def check_train_site(shape, dtype, T, th, kind, gen, identity=False):
+def check_train_site(shape, dtype, T, th, kind, gen, identity=False,
+                     timed=True):
     """Both train kernels against their plain versions on random bf16
     preactivations and cotangents; BN terms that put the normalized
-    preactivation near N(0.6, 1) (the identity terms for ``identity``)."""
+    preactivation near N(0.6, 1) (the identity terms for ``identity``).
+    The backward runs twice: its sums must be bitwise identical."""
     C = shape[1]
     dev = dict(device=DEV)
     z = torch.randn(shape, generator=gen, **dev)
@@ -1172,11 +1358,14 @@ def check_train_site(shape, dtype, T, th, kind, gen, identity=False):
     got = plif_train_forward(*fwd_args)
     want = plif_train_forward_plain(*fwd_args)
     kb = plif_train_backward(*bwd_args)
+    kb2 = plif_train_backward(*bwd_args)
     pb = plif_train_backward_plain(*bwd_args)
     torch.cuda.synchronize()
     res = dict(rate=float(want.float().mean()),
                fwd_mism=int((_bits(got) != _bits(want)).sum()),
-               dx_mism=int((_bits(kb[0]) != _bits(pb[0])).sum()))
+               dx_mism=int((_bits(kb[0]) != _bits(pb[0])).sum()),
+               rerun_mism=sum(int((_bits(u) != _bits(v)).sum())
+                              for u, v in zip(kb, kb2)))
     res["fwd_err"] = float((got.float() - want.float()).abs().max())
     res["bwd_err"] = float((kb[0].float() - pb[0].float()).abs().max())
     res["sum_rel"] = {}
@@ -1190,16 +1379,33 @@ def check_train_site(shape, dtype, T, th, kind, gen, identity=False):
     if res["dx_mism"]:
         fail(f"{what}: {res['dx_mism']} dx values differ (bit-equal "
              "expected)")
+    if res["rerun_mism"]:
+        fail(f"{what}: a second backward on the same inputs differs in "
+             f"{res['rerun_mism']} values (deterministic sums expected)")
     bad = {k: v for k, v in res["sum_rel"].items() if not v <= SUM_TOL}
     if bad:
         fail(f"{what}: sums beyond {SUM_TOL:.0e} relative: {bad}")
     if not 0.05 <= res["rate"] <= 0.95:
         fail(f"{what}: firing rate {res['rate']:.4f} outside 5-95%")
-    del got, want, kb, pb
+    del got, want, kb, kb2, pb
+    if not timed:
+        return res
     res["fwd_ms"] = cuda_ms(lambda: plif_train_forward(*fwd_args), 20)
+    res["fwd_kernel_ms"], _, _ = kernel_ms(
+        lambda: plif_train_forward(*fwd_args), "plif_fwd_kernel")
     res["fwd_plain_ms"] = cuda_ms(lambda: plif_train_forward_plain(
         *fwd_args), 3, warmup=1)
     res["bwd_ms"] = cuda_ms(lambda: plif_train_backward(*bwd_args), 20)
+    res["bwd_kernel_ms"], res["bwd_recorded"], res["bwd_side"] = kernel_ms(
+        lambda: plif_train_backward(*bwd_args), "plif_bwd")
+    res["bwd_host_ms"] = host_ms(lambda: plif_train_backward(*bwd_args))
+    # yardstick: a PyTorch pass that moves the backward's bytes (two
+    # reads, one write in x's dtype)
+    buf = torch.empty_like(x)
+    res["add_ms"] = cuda_ms(lambda: torch.add(x, g, out=buf), 20)
+    if res["bwd_side"]:
+        fail(f"{what}: the backward launches {res['bwd_side']} other "
+             "kernels a call (none expected)")
     res["bwd_plain_ms"] = cuda_ms(lambda: plif_train_backward_plain(
         *bwd_args), 3, warmup=1)
     n, es = x.numel(), x.element_size()
@@ -1213,32 +1419,52 @@ def check_train_site(shape, dtype, T, th, kind, gen, identity=False):
 def phase_train_kernels(model, events, labels, seed):
     sites = train_site_geometries(model, events, labels)
     gen = torch.Generator(device=DEV).manual_seed(seed + 3)
-    agg = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
-                   ops_ms=0.0, max_abs_err=0.0) for n in PER_STEP}
+    agg = {n: dict(ms=0.0, kernel_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                   bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0)
+           for n in PER_STEP}
+    add_ms = 0.0
     print("phase 5: train kernels vs plain at every train-step site geometry "
-          "(ms per call)")
+          "(ms per call: the wrapper's call by CUDA events, k = the "
+          "kernel's own device time by torch.profiler; host = the host's "
+          "enqueue time a backward call; the backward's plan: items a "
+          "thread, blocks, waves; rec: launches the profiler recorded a "
+          "call)")
     print(f"  {'x':>3s} {'preactivation':22s} {'rate':>6s} {'fwd':>8s} "
-          f"{'plain':>8s} {'bound':>8s} {'bwd':>8s} {'plain':>8s} "
-          f"{'bound':>8s}  sums |kernel - plain| / max|plain|")
+          f"{'fwd k':>8s} {'plain':>8s} {'bound':>8s} {'bwd':>8s} "
+          f"{'bwd k':>8s} {'host':>8s} {'plain':>8s} {'bound':>8s}  plan  "
+          "rec  sums |kernel - plain| / max|plain|")
     n_sites = 0
     for (shape, dtype, T, th, kind), count in sites.items():
         r = check_train_site(shape, dtype, T, th, kind, gen)
         n_sites += count
+        plan = plif_bwd_plan(shape[0] // T, shape[1], shape[2] * shape[3],
+                             dtype, T, sms=_build.sm_count(torch.device(DEV)))
         print(f"  {count:3d} {'x'.join(map(str, shape)):22s} "
-              f"{r['rate']:6.3f} {r['fwd_ms']:8.4f} {r['fwd_plain_ms']:8.4f} "
+              f"{r['rate']:6.3f} {r['fwd_ms']:8.4f} {r['fwd_kernel_ms']:8.4f} "
+              f"{r['fwd_plain_ms']:8.4f} "
               f"{r['fwd_bound'][0]:8.4f} {r['bwd_ms']:8.4f} "
-              f"{r['bwd_plain_ms']:8.4f} {r['bwd_bound'][0]:8.4f}  " +
+              f"{r['bwd_kernel_ms']:8.4f} {r['bwd_host_ms']:8.4f} "
+              f"{r['bwd_plain_ms']:8.4f} {r['bwd_bound'][0]:8.4f}  "
+              f"{plan.ipt}/{plan.grid}/{plan.waves:.1f}  "
+              f"{r['bwd_recorded']:.1f}  " +
               " ".join(f"{k} {v:.1e}" for k, v in r["sum_rel"].items()),
               flush=True)
+        add_ms += count * r["add_ms"]
         for name, pre in (("plif_train_fwd", "fwd"), ("plif_train_bwd",
                                                        "bwd")):
             a = agg[name]
             a["ms"] += count * r[f"{pre}_ms"]
+            a["kernel_ms"] += count * r[f"{pre}_kernel_ms"]
             a["plain_ms"] += count * r[f"{pre}_plain_ms"]
             bms, by = r[f"{pre}_bound"]
             a["bound_ms"] += count * bms
             a["bytes_ms" if by == "bytes" else "ops_ms"] += count * bms
             a["max_abs_err"] = max(a["max_abs_err"], r[f"{pre}_err"])
+    print("  a step: " + ", ".join(
+        f"{name} call {a['ms']:.4f} ms, kernel {a['kernel_ms']:.4f}, bound "
+        f"{a['bound_ms']:.4f}" for name, a in agg.items()) +
+        f"; torch.add of x and g into a third tensor (the backward's bytes) "
+        f"{add_ms:.4f}")
     if n_sites != PER_STEP["plif_train_fwd"] or str(dtype) != "torch.bfloat16":
         fail(f"train step: {n_sites} spiking sites in {dtype}, expected "
              f"{PER_STEP['plif_train_fwd']} in bf16")
@@ -1249,16 +1475,22 @@ def phase_train_kernels(model, events, labels, seed):
           f"{r['rate']:.3f}, spikes differ {r['fwd_mism']}, dx differ "
           f"{r['dx_mism']}, sums " + " ".join(
               f"{k} {v:.1e}" for k, v in r["sum_rel"].items()) +
-          f"; bwd {r['bwd_ms']:.4f} ms, plain {r['bwd_plain_ms']:.4f}")
+          f"; bwd {r['bwd_ms']:.4f} ms (kernel {r['bwd_kernel_ms']:.4f}, "
+          f"host {r['bwd_host_ms']:.4f}), plain {r['bwd_plain_ms']:.4f}, "
+          f"bound {r['bwd_bound'][0]:.4f}")
     # the kernels' other branches, which the flagship does not take: the
-    # other surrogates, and f32 storage
+    # other surrogates, f32 storage and a ragged H*W (7x9: the scalar
+    # tail) in both dtypes
     for kind, dt, shp in (("rect", dtype, (3 * 4, 16, 8, 8)),
                           ("sigmoid", dtype, (3 * 4, 16, 8, 8)),
                           ("tanh", dtype, (3 * 4, 16, 8, 8)),
-                          ("atan", torch.float32, (3 * 4, 8, 4, 4))):
-        r = check_train_site(shp, dt, T, th, kind, gen)
+                          ("atan", torch.float32, (3 * 4, 8, 4, 4)),
+                          ("atan", dtype, (3 * 4, 16, 7, 9)),
+                          ("atan", torch.float32, (3 * 4, 16, 7, 9))):
+        r = check_train_site(shp, dt, T, th, kind, gen, timed=False)
         print(f"  {kind} {str(dt)[6:]} at {'x'.join(map(str, shp))}: spikes "
-              f"differ {r['fwd_mism']}, dx differ {r['dx_mism']}, sums " +
+              f"differ {r['fwd_mism']}, dx differ {r['dx_mism']}, rerun "
+              f"differs {r['rerun_mism']}, sums " +
               " ".join(f"{k} {v:.1e}" for k, v in r["sum_rel"].items()))
     return agg
 
@@ -1333,8 +1565,17 @@ def phase_train_step(exp, model, events, labels, steps: int):
     fwd, bwd, upd = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
     print(f"  one step by CUDA events: forward {fwd:.3f} ms, backward "
           f"{bwd:.3f} ms, optimizer + EMA {upd:.3f} ms")
-    profile_call(lambda: train_step(model, opt, ema, events, labels),
-                 "one train step", top=16)
+    rows = profile_call(lambda: train_step(model, opt, ema, events, labels),
+                        "one train step", top=16)
+    totals = {k: profiled_total(rows, k)
+              for k in ("plif_fwd_kernel", "plif_bwd")}
+    plif = {k: n for k, (_, n) in totals.items()}
+    print(f"  PLIF kernels in the profiled step: {plif} (one of each a "
+          "spiking site; the backward has no second pass); device ms "
+          + ", ".join(f"{k} {ms:.4f}" for k, (ms, _) in totals.items()))
+    if plif != {"plif_fwd_kernel": PER_STEP["plif_train_fwd"],
+                "plif_bwd": PER_STEP["plif_train_bwd"]}:
+        fail(f"train step profile: PLIF kernel launches {plif}")
     return counts
 
 
@@ -1383,7 +1624,8 @@ def main() -> int:
         sk = phase_sampler_kernels(model, batches[0], SEED)
         for kname in ("arsnn_v2", "arsnn_step"):
             per_kernel[kname] = {k: sk[kname][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")}
         counts.update(phase_sampler_routes(exp, model, batches, SEED))
         del batches, model
         torch.cuda.empty_cache()
@@ -1413,13 +1655,16 @@ def main() -> int:
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=counts[kname], max_abs_err=agg["max_abs_err"],
-            ms=agg["ms"], plain_ms=agg["plain_ms"], bound_ms=agg["bound_ms"],
+            ms=agg["ms"], kernel_ms=agg["kernel_ms"],
+            plain_ms=agg["plain_ms"], bound_ms=agg["bound_ms"],
             bound_by=agg.get("bound_by") or (
                 "bytes" if agg["bytes_ms"] >= agg["ops_ms"] else "operations"),
             library_ms=None))
     print("kernel times: eval kernels per forward, train kernels per train "
           "step, each the sum over the kernel's sites of the per-call times "
-          "above; arsnn_v2 per forward at the flagship (one call, Tm "
+          "above (ms: the wrapper's call, CUDA events; kernel_ms: the "
+          "kernel's own device time, torch.profiler); arsnn_v2 per forward "
+          "at the flagship (one call, Tm "
           "launches), arsnn_step per call at the flagship step geometry in "
           "f32; launches from phase 3 (eval, arsnn_v2 included: deploy()'s "
           "own route), phase 3c (arsnn_step: the v1 scan) and phase 6 "

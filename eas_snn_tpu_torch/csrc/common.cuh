@@ -57,3 +57,32 @@ template <int BYTES> struct Raw;
 template <> struct Raw<16> { using type = uint4; };
 template <> struct Raw<8> { using type = uint2; };
 template <> struct Raw<4> { using type = uint32_t; };
+template <> struct Raw<2> { using type = uint16_t; };
+template <> struct Raw<1> { using type = uint8_t; };
+
+// N adjacent elements of V held in registers as raw chunks of up to 16
+// bytes, so that they move with one load or store a chunk (the address
+// must be aligned to the chunk); get / set unpack and pack them.
+template <typename V, int N>
+struct Vals {
+  static constexpr int kBytes = (int)sizeof(V) * N;
+  static constexpr int kChunk = kBytes < 16 ? kBytes : 16;
+  static constexpr int kCount = kBytes / kChunk;
+  using R = typename Raw<kChunk>::type;
+  R raw[kCount];
+
+  __device__ __forceinline__ void load(const V* p) {
+#pragma unroll
+    for (int i = 0; i < kCount; ++i) raw[i] = reinterpret_cast<const R*>(p)[i];
+  }
+  __device__ __forceinline__ void store(V* p) const {
+#pragma unroll
+    for (int i = 0; i < kCount; ++i) reinterpret_cast<R*>(p)[i] = raw[i];
+  }
+  __device__ __forceinline__ void get(V (&v)[N]) const {
+    memcpy(v, raw, sizeof(raw));
+  }
+  __device__ __forceinline__ void set(const V (&v)[N]) {
+    memcpy(raw, v, sizeof(raw));
+  }
+};

@@ -22,27 +22,48 @@
 // and the atan term divides exactly (__fdiv_rn), so dx equals the plain
 // PyTorch backward bit for bit on the same card.
 //
-// Layout and grid: x, g and dx are (T*B, C, H, W), t-major. Pass 1 gives
-// each channel NB blocks; a block walks a fixed range of that channel's
-// B*H*W/VEC vectors (a vector is VEC adjacent elements of one (b, c)
-// plane, one 16-byte load) and one thread keeps a vector's membranes for
-// all T steps in registers. The sums are taken in a fixed order: each
-// thread over its vectors, then warp shuffles and the block's warps in a
-// fixed tree, into partials[c][block] (no float atomics). Pass 2 (one block
-// a channel) sums a channel's partials in a fixed tree into ds, db, dm and
-// the channel's share of da; pass 3 (one block) sums those shares into da.
-// The run-to-run result is therefore identical.
+// One launch a call. Layout and grid (ops/plif.py:plif_bwd_plan): x, g
+// and dx are (T*B, C, H, W), t-major. An item is E adjacent elements of
+// one (b, c) plane: one 16-byte vector, or one element where H*W does not
+// split into vectors (the scalar tail). Each channel's B*H*W/E items are
+// cut into nb equal ranges, one a block (blockIdx = c * nb + j), which its
+// threads walk in steps of the block size; all index arithmetic within a
+// step is 32-bit. A thread loads the T raw vectors of x and of g (2 * T *
+// 16 bytes) at once, then takes the E elements one at a time: the
+// element's forward keeps only v_pre - th and v_after_{t-1} for its T
+// steps (2T floats; xm is recomputed from the raw x), and its backward
+// writes dx into T raw vectors stored at the end. So registers hold raw
+// data, not 3 * T * E floats, and __launch_bounds__ asks for 3 blocks an
+// SM at T <= 4.
+//
+// The sums are taken in a fixed order: each thread over its items, then
+// warp shuffles and the block's warps in a fixed tree, into the block's
+// partials (no float atomics). The block then bumps a ticket (an integer
+// atomic, after a __threadfence); the last block to arrive sums every
+// channel's nb partials in block order (one thread a channel, so that all
+// channels' loads go out together; a warp a channel would walk 96
+// channels in turn at 768), writes ds, db, dm, takes da as the block
+// sum of the threads' shares, and resets the ticket. The order depends on
+// the plan only, never on which block arrived last, so the result is
+// identical from run to run. Ticket and partials live in a scratch buffer
+// the wrapper keeps per device and stream.
 //
 // Bound on the H100: bytes. Per element it reads x and g and writes dx:
-// 6 bytes in bf16 (12 in f32) for ~25 flops, ~4 flop/byte, below the ~20
-// where f32 CUDA-core arithmetic would bind. Each byte moves once, the
-// recomputed forward never leaves registers, and the partials are a few
-// KB.
+// 6 bytes in bf16 (12 in f32) for ~30 flops, ~5 flop/byte, below the ~20
+// where f32 CUDA-core arithmetic would bind. Each byte moves once and the
+// partials are a few KB.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+
+// Blocks an SM that __launch_bounds__ asks for (ops/plif.py mirrors it
+// as _BWD_BLOCKS_PER_SM to plan the grid): 2 * T raw vectors and T dx
+// vectors a thread.
+constexpr int bwd_min_blocks(int steps) {
+  return steps <= 4 ? 3 : steps <= 6 ? 2 : 1;
+}
 
 // f'(x) of the surrogate `kind` (0 atan, 1 rect, 2 sigmoid, 3 tanh) with
 // its host-computed constants p0, p1 (see plif_train_bwd).
@@ -72,161 +93,175 @@ __device__ __forceinline__ __nv_bfloat16 from_f32(float v, __nv_bfloat16) {
   return __float2bfloat16_rn(v);
 }
 
-// Sum of `v` over the block's threads in a fixed order; the result is
-// valid in thread 0. `red` holds one float per warp.
-__device__ __forceinline__ float block_sum(float v, float* red) {
+// Sum of `v` over a warp in a fixed tree; the result is valid in lane 0.
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Sum of `v` over the block's threads in a fixed order; the result is
+// valid in thread 0. `red` holds one float per warp.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) red[warp] = v;
   __syncthreads();
   v = 0.f;
   if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    v = lane < nw ? red[lane] : 0.f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, o));
+    v = lane < kThreads / 32 ? red[lane] : 0.f;
+    v = warp_sum(v);
   }
   __syncthreads();
   return v;
 }
 
-template <typename T, int VEC, int STEPS>
-__global__ void __launch_bounds__(kThreads) plif_bwd_kernel(
+struct Surrogate {
+  float th, p0, p1;
+  int ge, kind;
+};
+
+// One item: E elements at `off` of every step; dx stored, the item's
+// terms added to ds, db, da.
+template <typename T, int E, int STEPS>
+__device__ __forceinline__ void bwd_item(
     const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx,
-    const float* __restrict__ a_ptr, const float* __restrict__ mean,
-    const float* __restrict__ mul, const float* __restrict__ bias,
-    float* __restrict__ partials, int B, int C, int HW, int nb, float th,
-    int ge, int kind, float p0, float p1) {
-  using Raw16 = typename Raw<sizeof(T) * VEC>::type;
-  __shared__ float red[3][kThreads / 32];
-  const int c = blockIdx.x / nb, j = blockIdx.x % nb;
-  const float a = *a_ptr, mn = mean[c], ml = mul[c], bs = bias[c];
-  const int hv = HW / VEC;  // vectors in a (b, c) plane
-  const long long per_c = (long long)B * hv;
-  const long long chunk = (per_c + nb - 1) / nb;
-  const long long lo = j * chunk;
-  const long long hi = lo + chunk < per_c ? lo + chunk : per_c;
-  const long long n = (long long)B * C * HW;  // elements per time step
-  float ds = 0.f, db = 0.f, da = 0.f;
-  for (long long q = lo + threadIdx.x; q < hi; q += kThreads) {
-    const long long b = q / hv;
-    const long long off = (b * C + c) * HW + (q % hv) * VEC;
-    float xm[STEPS][VEC], d[STEPS][VEC], vprev[STEPS][VEC];
-    float v[VEC];
+    long long n, unsigned off, float a, float mn, float ml, float bs,
+    const Surrogate& sg, float& ds, float& db, float& da) {
+  Vals<T, E> xr[STEPS], gr[STEPS], dr[STEPS] = {};
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) v[i] = 0.f;
+  for (int t = 0; t < STEPS; ++t) xr[t].load(x + t * n + off);
+#pragma unroll
+  for (int t = 0; t < STEPS; ++t) gr[t].load(g + t * n + off);
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    float d[STEPS], vprev[STEPS];
+    float v = 0.f;
 #pragma unroll
     for (int t = 0; t < STEPS; ++t) {
-      Raw16 raw = *reinterpret_cast<const Raw16*>(x + t * n + off);
-      T buf[VEC];
-      memcpy(buf, &raw, sizeof(raw));
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        vprev[t][i] = v[i];
-        xm[t][i] = __fsub_rn(to_f32(buf[i]), mn);
-        const float xa = bn_apply(to_f32(buf[i]), mn, ml, bs, T());
-        v[i] = __fadd_rn(__fmul_rn(v[i], a), xa);
-        d[t][i] = __fsub_rn(v[i], th);
-        const bool s = ge ? (d[t][i] >= 0.f) : (d[t][i] > 0.f);
-        v[i] = __fsub_rn(v[i], __fmul_rn(th, s ? 1.f : 0.f));
-      }
+      T xv[E];
+      xr[t].get(xv);
+      vprev[t] = v;
+      const float xa = bn_apply(to_f32(xv[i]), mn, ml, bs, T());
+      v = __fadd_rn(__fmul_rn(v, a), xa);
+      d[t] = __fsub_rn(v, sg.th);
+      const bool s = sg.ge ? (d[t] >= 0.f) : (d[t] > 0.f);
+      v = __fsub_rn(v, __fmul_rn(sg.th, s ? 1.f : 0.f));
     }
-    float gaf[VEC];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) gaf[i] = 0.f;
+    float gaf = 0.f;
 #pragma unroll
     for (int t = STEPS - 1; t >= 0; --t) {
-      Raw16 raw = *reinterpret_cast<const Raw16*>(g + t * n + off);
-      T buf[VEC], out[VEC];
-      memcpy(buf, &raw, sizeof(raw));
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float fp = surrogate_deriv(kind, p0, p1, d[t][i]);
-        const float gpre = __fadd_rn(
-            gaf[i],
-            __fmul_rn(__fsub_rn(to_f32(buf[i]), __fmul_rn(th, gaf[i])), fp));
-        out[i] = from_f32(__fmul_rn(gpre, ml), T());
-        ds = __fadd_rn(ds, __fmul_rn(gpre, xm[t][i]));
-        db = __fadd_rn(db, gpre);
-        da = __fadd_rn(da, __fmul_rn(gpre, vprev[t][i]));
-        gaf[i] = __fmul_rn(gpre, a);
-      }
-      memcpy(&raw, out, sizeof(raw));
-      *reinterpret_cast<Raw16*>(dx + t * n + off) = raw;
+      T xv[E], gv[E], dv[E];
+      xr[t].get(xv);
+      gr[t].get(gv);
+      dr[t].get(dv);
+      const float fp = surrogate_deriv(sg.kind, sg.p0, sg.p1, d[t]);
+      const float gpre = __fadd_rn(
+          gaf, __fmul_rn(__fsub_rn(to_f32(gv[i]), __fmul_rn(sg.th, gaf)), fp));
+      dv[i] = from_f32(__fmul_rn(gpre, ml), T());
+      dr[t].set(dv);
+      ds = __fadd_rn(ds, __fmul_rn(gpre, __fsub_rn(to_f32(xv[i]), mn)));
+      db = __fadd_rn(db, gpre);
+      da = __fadd_rn(da, __fmul_rn(gpre, vprev[t]));
+      gaf = __fmul_rn(gpre, a);
     }
+  }
+#pragma unroll
+  for (int t = 0; t < STEPS; ++t) dr[t].store(dx + t * n + off);
+}
+
+// partials: 3 * gridDim.x floats (ds, db, da of each block); ticket: a
+// zeroed counter, zero again on return; sums: da (1), dm, ds, db (C
+// each).
+template <typename T, int E, int STEPS>
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks(STEPS))
+    plif_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                    T* __restrict__ dx, const float* __restrict__ a_ptr,
+                    const float* __restrict__ mean,
+                    const float* __restrict__ mul,
+                    const float* __restrict__ bias, float* partials,
+                    unsigned* ticket, float* __restrict__ sums, long long n,
+                    unsigned C, unsigned HW, unsigned ipp, unsigned per_c,
+                    unsigned nb, unsigned chunk, Surrogate sg) {
+  __shared__ float red[3][kThreads / 32];
+  __shared__ bool last;
+  const unsigned c = blockIdx.x / nb, j = blockIdx.x - c * nb;
+  const unsigned lo = j * chunk;
+  const unsigned hi = lo + chunk < per_c ? lo + chunk : per_c;
+  const float a = *a_ptr, mn = mean[c], ml = mul[c], bs = bias[c];
+  float ds = 0.f, db = 0.f, da = 0.f;
+  for (unsigned q = lo + threadIdx.x; q < hi; q += kThreads) {
+    const unsigned b = q / ipp;
+    const unsigned off = (b * C + c) * HW + (q - b * ipp) * E;
+    bwd_item<T, E, STEPS>(x, g, dx, n, off, a, mn, ml, bs, sg, ds, db, da);
   }
   ds = block_sum(ds, red[0]);
   db = block_sum(db, red[1]);
   da = block_sum(da, red[2]);
+  // partials of block (c, j) at j * C + c: the last block reads a
+  // channel's in order, neighbouring channels in neighbouring threads
+  const unsigned nblocks = gridDim.x, slot = j * C + c;
   if (threadIdx.x == 0) {
-    float* p = partials + 3 * (long long)blockIdx.x;
-    p[0] = ds;
-    p[1] = db;
-    p[2] = da;
+    partials[slot] = ds;
+    partials[nblocks + slot] = db;
+    partials[2 * nblocks + slot] = da;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == nblocks - 1;
   }
-}
-
-// One block a channel: ds, db, dm and the channel's share of da.
-__global__ void __launch_bounds__(kThreads) plif_bwd_channel_sums(
-    const float* __restrict__ partials, const float* __restrict__ mul,
-    int nb, float* __restrict__ ds, float* __restrict__ db,
-    float* __restrict__ dm, float* __restrict__ da_c) {
-  __shared__ float red[3][kThreads / 32];
-  const int c = blockIdx.x;
-  const float* p = partials + 3 * (long long)c * nb;
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  for (int j = threadIdx.x; j < nb; j += kThreads) {
-    s0 = __fadd_rn(s0, p[3 * j]);
-    s1 = __fadd_rn(s1, p[3 * j + 1]);
-    s2 = __fadd_rn(s2, p[3 * j + 2]);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last block: one thread a channel sums its nb partials in block
+  // order; da is the block sum of the threads' channel shares
+  float da_t = 0.f;
+  for (unsigned cc = threadIdx.x; cc < C; cc += kThreads) {
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+#pragma unroll 4
+    for (unsigned k = 0; k < nb; ++k) {
+      const unsigned i = k * C + cc;
+      s0 = __fadd_rn(s0, __ldcg(partials + i));
+      s1 = __fadd_rn(s1, __ldcg(partials + nblocks + i));
+      s2 = __fadd_rn(s2, __ldcg(partials + 2 * nblocks + i));
+    }
+    sums[1 + cc] = -__fmul_rn(mul[cc], s1);
+    sums[1 + C + cc] = s0;
+    sums[1 + 2 * C + cc] = s1;
+    da_t = __fadd_rn(da_t, s2);
   }
-  s0 = block_sum(s0, red[0]);
-  s1 = block_sum(s1, red[1]);
-  s2 = block_sum(s2, red[2]);
+  da_t = block_sum(da_t, red[0]);
   if (threadIdx.x == 0) {
-    ds[c] = s0;
-    db[c] = s1;
-    dm[c] = -__fmul_rn(mul[c], s1);
-    da_c[c] = s2;
+    sums[0] = da_t;
+    *ticket = 0u;
   }
 }
 
-// One block: da = sum over channels of their shares.
-__global__ void __launch_bounds__(kThreads) plif_bwd_total(
-    const float* __restrict__ da_c, int C, float* __restrict__ da) {
-  __shared__ float red[kThreads / 32];
-  float s = 0.f;
-  for (int c = threadIdx.x; c < C; c += kThreads) s = __fadd_rn(s, da_c[c]);
-  s = block_sum(s, red);
-  if (threadIdx.x == 0) da[0] = s;
-}
+struct Args {
+  const void *x, *g;
+  void* dx;
+  const float *a, *mean, *mul, *bias;
+  float* partials;
+  unsigned* ticket;
+  float* sums;
+  long long n;
+  unsigned C, HW, ipp, per_c, nb, chunk, grid;
+  Surrogate sg;
+};
 
-template <typename T, int STEPS>
-cudaError_t launch(const void* x, const void* g, void* dx, const float* a,
-                   const float* mean, const float* mul, const float* bias,
-                   float* partials, int B, int C, int HW, int nb, float th,
-                   int ge, int kind, float p0, float p1, cudaStream_t s) {
-  constexpr int VEC = 16 / sizeof(T);
-  plif_bwd_kernel<T, VEC, STEPS><<<(unsigned)((long long)C * nb), kThreads,
-                                   0, s>>>(
-      (const T*)x, (const T*)g, (T*)dx, a, mean, mul, bias, partials, B, C,
-      HW, nb, th, ge, kind, p0, p1);
+template <typename T, int E, int STEPS>
+cudaError_t launch(const Args& r, cudaStream_t s) {
+  plif_bwd_kernel<T, E, STEPS><<<r.grid, kThreads, 0, s>>>(
+      (const T*)r.x, (const T*)r.g, (T*)r.dx, r.a, r.mean, r.mul, r.bias,
+      r.partials, r.ticket, r.sums, r.n, r.C, r.HW, r.ipp, r.per_c, r.nb,
+      r.chunk, r.sg);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_steps(int steps, const void* x, const void* g, void* dx,
-                         const float* a, const float* mean, const float* mul,
-                         const float* bias, float* partials, int B, int C,
-                         int HW, int nb, float th, int ge, int kind, float p0,
-                         float p1, cudaStream_t s) {
-#define PLIF_BWD_STEPS(N)                                                   \
-  case N:                                                                   \
-    return launch<T, N>(x, g, dx, a, mean, mul, bias, partials, B, C, HW,   \
-                        nb, th, ge, kind, p0, p1, s);
+template <typename T, int E>
+cudaError_t launch_steps(int steps, const Args& r, cudaStream_t s) {
+#define PLIF_BWD_STEPS(N) \
+  case N:                 \
+    return launch<T, E, N>(r, s);
   switch (steps) {
     PLIF_BWD_STEPS(1)
     PLIF_BWD_STEPS(2)
@@ -242,47 +277,65 @@ cudaError_t launch_steps(int steps, const void* x, const void* g, void* dx,
 #undef PLIF_BWD_STEPS
 }
 
+template <typename T>
+cudaError_t launch_items(int steps, int E, const Args& r, cudaStream_t s) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (E == VEC) return launch_steps<T, VEC>(steps, r, s);
+  return launch_steps<T, 1>(steps, r, s);
+}
+
 }  // namespace
 
 // x, g, dx: (steps * B * C * HW) elements, t-major NCHW, dtype 0 = f32,
-// 1 = bf16, each 16-byte aligned with HW a multiple of 16 / element size;
-// a: device pointer to the f32 decay multiplier; mean, mul, bias: f32 (C,);
-// partials: f32 scratch of 3 * C * nb; da_c: f32 scratch of C; outputs
-// da (1,), ds, db, dm (C,) f32. steps 1..8; kind 0 atan, 1 rect,
-// 2 sigmoid, 3 tanh with constants p0, p1 (atan: (pi/2)*alpha, alpha/2;
-// rect: 0.5/alpha, alpha; sigmoid: alpha, alpha; tanh: alpha, 0.5*alpha).
+// 1 = bf16; a: device pointer to the f32 decay multiplier; mean, mul,
+// bias: f32 (C,); steps 1..8; the plan (ops/plif.py:plif_bwd_plan): item
+// width E (16 / element size, needing 16-byte aligned x, g, dx and HW a
+// multiple of E; or 1), nb blocks a channel of `chunk` items each;
+// scratch: 4 + 3 * C * nb f32, the first word a zeroed ticket (zero again
+// after the kernel); sums: f32 da (1), dm, ds, db (C each). kind 0 atan,
+// 1 rect, 2 sigmoid, 3 tanh with constants p0, p1 (atan: (pi/2)*alpha,
+// alpha/2; rect: 0.5/alpha, alpha; sigmoid: alpha, alpha; tanh: alpha,
+// 0.5*alpha). B * C * HW < 2^31.
 extern "C" int plif_train_bwd(const void* x, const void* g, void* dx,
                               const void* a, const void* mean,
                               const void* mul, const void* bias,
-                              void* partials, void* da_c, void* da, void* ds,
-                              void* db, void* dm, int steps, int B, int C,
-                              int HW, int nb, float th, int ge, int kind,
-                              float p0, float p1, int dtype, void* stream) {
-  if (B < 1 || C < 1 || HW < 1 || nb < 1 || kind < 0 || kind > 3)
-    return (int)cudaErrorInvalidValue;
+                              void* scratch, void* sums, int steps, int B,
+                              int C, int HW, int E, int nb, int chunk,
+                              float th, int ge, int kind, float p0, float p1,
+                              int dtype, void* stream) {
   const int vec = dtype == 0 ? 4 : 8;
-  if (HW % vec || ((uintptr_t)x | (uintptr_t)g | (uintptr_t)dx) % 16)
+  const long long n = (long long)B * C * HW;
+  if (B < 1 || C < 1 || HW < 1 || nb < 1 || chunk < 1 || kind < 0 ||
+      kind > 3 || (dtype != 0 && dtype != 1) || n > 0x7fffffffLL ||
+      (E != 1 && E != vec) || HW % E ||
+      (E > 1 && ((uintptr_t)x | (uintptr_t)g | (uintptr_t)dx) % 16))
     return (int)cudaErrorInvalidValue;
+  const long long per_c = (long long)B * (HW / E);
+  if ((long long)nb * chunk < per_c || (long long)C * nb > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  Args r;
+  r.x = x;
+  r.g = g;
+  r.dx = dx;
+  r.a = (const float*)a;
+  r.mean = (const float*)mean;
+  r.mul = (const float*)mul;
+  r.bias = (const float*)bias;
+  r.ticket = (unsigned*)scratch;
+  r.partials = (float*)scratch + 4;
+  r.sums = (float*)sums;
+  r.n = n;
+  r.C = C;
+  r.HW = HW;
+  r.ipp = HW / E;
+  r.per_c = (unsigned)per_c;
+  r.nb = nb;
+  r.chunk = chunk;
+  r.grid = (unsigned)(C * nb);
+  r.sg = Surrogate{th, p0, p1, ge, kind};
   cudaStream_t s = (cudaStream_t)stream;
-  const float* af = (const float*)a;
-  const float* m = (const float*)mean;
-  const float* k = (const float*)mul;
-  const float* b = (const float*)bias;
-  float* part = (float*)partials;
-  cudaError_t err;
-  if (dtype == 0)
-    err = launch_steps<float>(steps, x, g, dx, af, m, k, b, part, B, C, HW,
-                              nb, th, ge, kind, p0, p1, s);
-  else if (dtype == 1)
-    err = launch_steps<__nv_bfloat16>(steps, x, g, dx, af, m, k, b, part, B,
-                                      C, HW, nb, th, ge, kind, p0, p1, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  if (err != cudaSuccess) return (int)err;
-  plif_bwd_channel_sums<<<C, kThreads, 0, s>>>(part, k, nb, (float*)ds,
-                                               (float*)db, (float*)dm,
-                                               (float*)da_c);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  plif_bwd_total<<<1, kThreads, 0, s>>>((const float*)da_c, C, (float*)da);
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      dtype == 0 ? launch_items<float>(steps, E, r, s)
+                 : launch_items<__nv_bfloat16>(steps, E, r, s);
+  return (int)err;
 }

@@ -25,7 +25,7 @@ from ..ops.conv_plif import (
 )
 from ..ops.conv_plif_policy import should_fuse
 from ..ops.lif import PLIF_W_INIT
-from ..ops.plif import bn_eval, plif_forward, plif_train
+from ..ops.plif import bn_eval, decay_multiplier, plif_forward, plif_train
 
 __all__ = [
     "Neuron", "BatchNorm", "PLIF", "BaseConv", "Bottleneck", "SPPBottleneck",
@@ -48,6 +48,32 @@ class Neuron(NamedTuple):
 
 # flax's momentum: running <- 0.97 * running + 0.03 * batch statistic
 _FLAX_MOMENTUM = 0.97
+
+
+class _KeptConstant:
+    """Mixin for a module that keeps one value derived from its tensors
+    between eval calls (:meth:`_kept`). The value is keyed on each
+    source's storage address and version counter: every in-place write
+    bumps the counter (optimizer steps, an EMA's ``copy_``,
+    ``load_state_dict``). ``train()`` and a module's move (``_apply``: a
+    moved tensor may land on storage the move freed) drop it."""
+
+    _kept_value = None  # (key, value)
+
+    def _kept(self, srcs: Tuple[torch.Tensor, ...], make):
+        key = tuple((t.data_ptr(), t._version) for t in srcs)
+        if self._kept_value is None or self._kept_value[0] != key:
+            with torch.no_grad():
+                self._kept_value = (key, make())
+        return self._kept_value[1]
+
+    def train(self, mode: bool = True):
+        self._kept_value = None
+        return super().train(mode)
+
+    def _apply(self, *args, **kwargs):
+        self._kept_value = None
+        return super()._apply(*args, **kwargs)
 
 
 class _BatchStats(torch.autograd.Function):
@@ -76,7 +102,7 @@ class _BatchStats(torch.autograd.Function):
         return dx.to(x.dtype)
 
 
-class BatchNorm(nn.BatchNorm2d):
+class BatchNorm(_KeptConstant, nn.BatchNorm2d):
     """BatchNorm with the JAX package's arithmetic (``BatchNormFusable``):
     mul = rsqrt(var + eps) * scale, y = (x - mean) * mul + bias in f32,
     cast to the compute dtype. At eval mean and var are the running
@@ -90,9 +116,21 @@ class BatchNorm(nn.BatchNorm2d):
         super().__init__(num_features, eps=1e-3, momentum=0.03)
 
     def eval_terms(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(mean, mul, bias) of y = (x - mean) * mul + bias."""
+        """(mean, mul, bias) of y = (x - mean) * mul + bias, f32 and
+        contiguous. Kept between calls, and computed again when the running
+        statistics, the weight or the bias change, or on ``train()``;
+        computed afresh (differentiable) where autograd wants the
+        gradient of the weight or bias."""
+        if torch.is_grad_enabled() and (self.weight.requires_grad
+                                        or self.bias.requires_grad):
+            return self._eval_terms()
+        return self._kept((self.running_mean, self.running_var, self.weight,
+                           self.bias), self._eval_terms)
+
+    def _eval_terms(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return self.running_mean, mul, self.bias
+        return tuple(p.to(torch.float32).contiguous()
+                     for p in (self.running_mean, mul, self.bias))
 
     def terms(self, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -118,7 +156,7 @@ class BatchNorm(nn.BatchNorm2d):
                        self.running_var, self.eps)
 
 
-class PLIF(nn.Module):
+class PLIF(_KeptConstant, nn.Module):
     """Parametric LIF over T steps folded in the batch axis; one learnable
     scalar decay logit ``w`` (spikingjelly ParametricLIFNode). At eval the
     spikes are int8 (patan runs atan's hard forward); in training they are
@@ -132,12 +170,18 @@ class PLIF(nn.Module):
         self.kind = "atan" if spike_fn == "patan" else spike_fn
         self.w = nn.Parameter(torch.tensor(PLIF_W_INIT))
 
+    def decay(self) -> torch.Tensor:
+        """The eval decay multiplier ``decay_multiplier(w)``, (1,) f32:
+        kept between calls, and computed again when w changes or on
+        ``train()``."""
+        return self._kept((self.w,), lambda: decay_multiplier(self.w))
+
     def forward(self, x: torch.Tensor, bn=None) -> torch.Tensor:
         """Spikes of x, or of ``bn_eval(x, *bn, x.dtype)`` with ``bn``
         (mean, mul, bias)."""
         if not self.training:
             return plif_forward(x, self.T, self.w, self.thresh, self.kind,
-                                bn=bn)
+                                bn=bn, a=self.decay())
         if bn is None:
             C = x.shape[1]
             bn = tuple(torch.full((C,), v, device=x.device)

@@ -44,13 +44,15 @@ _F = ctypes.c_float
 # C signatures of the entry points (csrc/*.cu); every pointer and the
 # stream are c_void_p so ctypes never truncates them to 32 bits.
 _SIGNATURES = {
-    # x, out, a, n, steps, th, ge, dtype, mean, mul, bias, C, HW, stream
-    "plif": {name: (_P, _P, _P, _L, _I, _F, _I, _I, _P, _P, _P, _I, _I, _P)
+    # x, out, a, n, steps, th, ge, dtype, mean, mul, bias, C, HW, E, grid,
+    # stream
+    "plif": {name: (_P, _P, _P, _L, _I, _F, _I, _I, _P, _P, _P, _I, _I, _I,
+                    _I, _P)
              for name in ("plif_fwd", "plif_train_fwd")},
-    # x, g, dx, a, mean, mul, bias, partials, da_c, da, ds, db, dm, steps,
-    # B, C, HW, nb, th, ge, kind, p0, p1, dtype, stream
-    "plif_bwd": {"plif_train_bwd": (_P,) * 13 + (_I,) * 5 + (_F, _I, _I, _F,
-                                                             _F, _I, _P)},
+    # x, g, dx, a, mean, mul, bias, scratch, sums, steps, B, C, HW, E, nb,
+    # chunk, th, ge, kind, p0, p1, dtype, stream
+    "plif_bwd": {"plif_train_bwd": (_P,) * 9 + (_I,) * 7 + (_F, _I, _I, _F,
+                                                            _F, _I, _P)},
     "conv_wgmma": {
         # ptrs, cins, n_pieces, w, bias, a, out, B, steps, Cout, H, W, nw,
         # chunk, n_chunks, grid_x, th, ge, dtype, stream

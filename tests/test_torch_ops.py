@@ -24,7 +24,9 @@ from eas_snn_tpu.ops.lif import plif_scan as j_plif_scan
 from eas_snn_tpu.ops.plif_pallas import plif_fused as j_plif_fused
 from eas_snn_tpu.ops.surrogate import get_spike_fn as j_spike_fn
 
+from eas_snn_tpu_torch.models import blocks as pblocks
 from eas_snn_tpu_torch.ops import conv_plif as pcp
+from eas_snn_tpu_torch.ops import plif as pplif
 from eas_snn_tpu_torch.ops.conv_plif_policy import should_fuse
 from eas_snn_tpu_torch.ops.lif import plif_scan
 from eas_snn_tpu_torch.ops.plif import (plif_forward, plif_forward_plain,
@@ -182,9 +184,10 @@ def test_wrappers_refuse_layouts_the_kernels_cannot_copy(monkeypatch, case):
         return torch.zeros(shape, device="meta")
 
     calls = {
-        # bf16 H*W must be a multiple of 8 (one 16-byte load)
-        "plif_hw": lambda: plif_forward(meta(6, 8, 3, 2, dtype=torch.bfloat16),
-                                        T, w),
+        # any H*W, but a step's offsets are 32-bit: 2^31 elements are too
+        # many (a ragged H*W takes the scalar tail: see the plan tests)
+        "plif_hw": lambda: plif_forward(
+            meta(T, 1, 2**16, 2**15, dtype=torch.bfloat16), T, w),
         "plif_3d": lambda: plif_forward(meta(6, 8, 16, dtype=torch.float32),
                                         T, w),
         "c1_channels": lambda: pcp.conv1x1_plif(
@@ -212,14 +215,14 @@ def test_wrappers_refuse_layouts_the_kernels_cannot_copy(monkeypatch, case):
             meta(6, 8, 8, 7, dtype=torch.bfloat16), z(3, 8, 24), z(8), T, w),
         "c3s2_weights": lambda: pcp.conv3x3s2_plif(
             meta(6, 384, 16, 20), z(3, 768, 1152), z(768), T, w),
-        # the train kernels: H*W in 16-byte vectors, T at most 8
+        # the train kernels: a step's offsets in 32 bits, T at most 8
         "train_fwd_hw": lambda: plif_train_forward(
-            meta(6, 8, 3, 2, dtype=torch.bfloat16), z(1), z(8), z(8), z(8),
-            T),
+            meta(T, 1, 2**16, 2**15, dtype=torch.bfloat16), z(1), z(1), z(1),
+            z(1), T),
         "train_bwd_hw": lambda: plif_train_backward(
-            meta(6, 8, 3, 2, dtype=torch.float32),
-            meta(6, 8, 3, 2, dtype=torch.float32), z(1), z(8), z(8), z(8),
-            T),
+            meta(T, 1, 2**16, 2**15, dtype=torch.float32),
+            meta(T, 1, 2**16, 2**15, dtype=torch.float32), z(1), z(1), z(1),
+            z(1), T),
         "train_bwd_steps": lambda: plif_train_backward(
             meta(9, 8, 4, 2, dtype=torch.bfloat16),
             meta(9, 8, 4, 2, dtype=torch.bfloat16), z(1), z(8), z(8), z(8),
@@ -227,6 +230,195 @@ def test_wrappers_refuse_layouts_the_kernels_cannot_copy(monkeypatch, case):
     }
     with pytest.raises(ValueError, match="kernel"):
         calls[case]()
+
+
+# ------------------------------------------- PLIF forward plan and cache
+
+# the flagship's unfused eval sites (gen1_syolox_m, B=128, T=3): (C, H, W)
+EVAL_SITES = [(48, 64, 80), (192, 32, 40), (96, 32, 40), (384, 16, 20),
+              (192, 16, 20), (768, 8, 10), (384, 8, 10)]
+
+
+def _fwd_items(plan, B, C, HW):
+    """Each item's first element within a step and its channel, by the
+    index arithmetic of csrc/plif.cu:plif_fwd_kernel over the whole grid."""
+    q = np.arange(plan.grid * pplif.THREADS, dtype=np.int64)
+    q = q[q < plan.items]
+    p = q // plan.ipp
+    k = q - p * plan.ipp
+    assert (k * plan.E + plan.E <= HW).all()  # an item lies in one plane
+    return p * HW + k * plan.E, p % C
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("site", EVAL_SITES + [
+    "ragged_7x9", "one_vector_4x6", "unaligned_8x8", "tiny_1x1"])
+def test_plif_fwd_plan_covers_every_element_once(site, dtype):
+    """The forward kernel's items cover each element of a step exactly once
+    and stay in bounds (and so in every step: a step adds n to both), at
+    every flagship eval geometry, and off it: a ragged H*W and an x off
+    16-byte alignment take one-element items (the scalar tail), any other
+    H*W one 16-byte vector a thread."""
+    dt = getattr(torch, dtype)
+    B, aligned = 128, True
+    if isinstance(site, str):
+        B, aligned = 3, site != "unaligned_8x8"
+        H, W = {"ragged_7x9": (7, 9), "one_vector_4x6": (4, 6),
+                "unaligned_8x8": (8, 8), "tiny_1x1": (1, 1)}[site]
+        C = 16
+    else:
+        C, H, W = site
+    HW = H * W
+    plan = pplif.plif_fwd_plan(B, C, HW, dt, aligned)
+    vec = 16 // torch.empty((), dtype=dt).element_size()
+    want_E = {"ragged_7x9": 1, "unaligned_8x8": 1, "tiny_1x1": 1,
+              "one_vector_4x6": vec}
+    assert plan.E == (want_E[site] if isinstance(site, str) else vec)
+    n = B * C * HW
+    off, ch = _fwd_items(plan, B, C, HW)
+    assert off.min() >= 0 and off.max() + plan.E <= n
+    np.testing.assert_array_equal(np.sort(off), np.arange(0, n, plan.E))
+    np.testing.assert_array_equal(ch, (off // HW) % C)
+    assert plan.grid == -(-plan.items // pplif.THREADS)
+    if not isinstance(site, str):
+        # every flagship site fills the H100: at least the 4 blocks an SM
+        # that csrc/plif.cu's launch bounds ask, on each of its 132 SMs
+        assert plan.grid >= 132 * 4
+
+
+def _site(T_=T, cin=8, cout=16, seed=0):
+    """An unfused spiking 1x1 site at eval with random BN statistics."""
+    g = torch.Generator().manual_seed(seed)
+    site = pblocks.BaseConv(cin, cout, 1, 1, neuron=pblocks.Neuron(
+        spiking=True, T=T_, fuse="never"))
+    with torch.no_grad():
+        site.weight.copy_(torch.randn(site.weight.shape, generator=g) * 0.5)
+        bn = site.bn
+        bn.running_mean.copy_(torch.randn(cout, generator=g) * 0.2)
+        bn.running_var.copy_(torch.rand(cout, generator=g) + 0.5)
+        bn.weight.copy_(torch.rand(cout, generator=g) + 0.5)
+        bn.bias.copy_(torch.randn(cout, generator=g) * 0.2 + 0.5)
+    x = (torch.rand((T_ * 2, cin, 5, 6), generator=g) < 0.5).float()
+    return site.eval(), x
+
+
+def _uncached(site, x):
+    """The site's spikes with its eval constants computed afresh, as the
+    site computed them on every call before they were kept."""
+    bn = site.bn
+    y = torch.nn.functional.conv2d(x, site.weight)
+    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+    return plif_forward_plain(y, T, site.act.w, site.neuron.thresh,
+                              site.act.kind,
+                              bn=(bn.running_mean, mul, bn.bias))
+
+
+def _change(case, site, x):
+    with torch.no_grad():
+        if case == "running_var":
+            site.bn.running_var.mul_(9.0)
+        elif case == "bn_weight":
+            site.bn.weight.mul_(3.0)
+        elif case == "w":
+            site.act.w.add_(2.0)
+        elif case == "load_state_dict":
+            other, _ = _site(seed=1)
+            site.load_state_dict(other.state_dict())
+        else:
+            site.train()
+            site(x)  # a train forward moves the running statistics
+            site.eval()
+
+
+@pytest.mark.parametrize("case", ["running_var", "bn_weight", "w",
+                                  "load_state_dict", "train_eval"])
+def test_eval_constants_are_kept_and_refreshed(case):
+    """An unfused spiking site keeps its BN's (mean, mul, bias) and its
+    neuron's decay between eval calls: the kept values give the spikes of
+    the uncached path bit for bit, a second call reuses them, and an
+    in-place change of a source (running_var, the BN weight, w),
+    load_state_dict or a train() / eval() round computes them again."""
+    site, x = _site()
+    with torch.no_grad():
+        y0 = site(x)
+        np.testing.assert_array_equal(y0.numpy(), _uncached(site, x).numpy())
+        terms, a = site.bn.eval_terms(), site.act.decay()
+        site(x)
+        assert site.bn.eval_terms() is terms and site.act.decay() is a
+        _change(case, site, x)
+        if case == "train_eval":
+            assert site.bn._kept_value is None
+            assert site.act._kept_value is None
+        y1 = site(x)
+        kept = (site.bn.eval_terms(), site.act.decay())
+    np.testing.assert_array_equal(y1.numpy(), _uncached(site, x).numpy())
+    assert (y1 != y0).any()
+    assert 0.05 < float(y1.float().mean()) < 0.95
+    if case == "w":
+        assert kept[0] is terms and kept[1] is not a
+    else:
+        assert kept[0] is not terms
+
+
+def test_eval_terms_stay_differentiable_where_a_gradient_is_wanted():
+    """With autograd on and a BN weight that wants its gradient, the eval
+    terms are computed afresh (kept ones carry no graph)."""
+    bn = pblocks.BatchNorm(4).eval()
+    x = torch.randn(2, 4, 3, 3)
+    bn(x, torch.float32).sum().backward()
+    assert bn.weight.grad is not None and bn._kept_value is None
+    with torch.no_grad():
+        terms = bn.eval_terms()
+    assert bn._kept_value[1] is terms
+
+
+@pytest.mark.parametrize("case", ["fwd", "fwd_ragged", "train_fwd",
+                                  "bwd", "bwd_ragged"])
+def test_plif_wrappers_launch_with_their_plans(monkeypatch, case):
+    """On a non-CPU tensor (meta tensors stand in for CUDA ones) the PLIF
+    wrappers hand the kernels their plans' item width and grid, any H*W
+    included, and the backward its plan, the kept scratch buffer and one
+    f32 buffer whose views are da, dm, ds and db."""
+    from eas_snn_tpu_torch.ops import _build
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
+    monkeypatch.setattr(_build, "get_lib", lambda name: Lib())
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 7)
+    B, C = 4, 16
+    H, W = (7, 9) if case.endswith("ragged") else (8, 10)
+    x = torch.empty((T * B, C, H, W), dtype=torch.bfloat16, device="meta")
+    z = torch.zeros(C, device="meta")
+    a = torch.zeros(1, device="meta")
+    if case.startswith("fwd"):
+        out = plif_forward(x, T, torch.tensor(0.0, device="meta"))
+    elif case == "train_fwd":
+        out = plif_train_forward(x, a, z, z, z, T)
+    else:
+        out = plif_train_backward(x, x, a, z, z, z, T)
+    (name, args), = calls
+    if not case.startswith("bwd"):
+        plan = pplif.plif_fwd_plan(B, C, H * W, x.dtype)
+        assert name == ("plif_fwd" if case.startswith("fwd")
+                        else "plif_train_fwd")
+        assert args[3] == B * C * H * W and args[-3:] == (plan.E, plan.grid,
+                                                          7)
+        assert out.shape == x.shape
+        return
+    plan = pplif.plif_bwd_plan(B, C, H * W, x.dtype, T)
+    assert plan.E == (1 if case == "bwd_ragged" else 8)
+    assert name == "plif_train_bwd"
+    assert args[9:16] == (T, B, C, H * W, plan.E, plan.nb, plan.chunk)
+    scratch = pplif._BWD_SCRATCH[("meta", 7)]
+    assert scratch.numel() >= plan.scratch
+    dx, da, dm, ds, db = out
+    assert dx.shape == x.shape and da.shape == (1,)
+    assert all(v.shape == (C,) for v in (dm, ds, db))
+    assert da._base is dm._base is ds._base is db._base is not None
 
 
 # ------------------------------------------------------ conv + BN + PLIF

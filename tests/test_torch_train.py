@@ -32,6 +32,7 @@ from eas_snn_tpu_torch.core.train_state import (ema_update, init_ema,
 from eas_snn_tpu_torch.models import simota as psimota
 from eas_snn_tpu_torch.models.blocks import PLIF, BatchNorm
 from eas_snn_tpu_torch.ops import boxes as pboxes
+from eas_snn_tpu_torch.ops import plif as pplif
 from eas_snn_tpu_torch.ops.plif import plif_train
 from eas_snn_tpu_torch.ops.surrogate import get_spike_fn
 
@@ -216,6 +217,60 @@ def test_plif_module_trains_through_the_op():
     (y * nchw(g)).sum().backward()
     _, pg = _port_grads(x, w, bn, g, torch.float32)
     assert torch.equal(xt.grad, pg[0]) and torch.equal(m.w.grad, pg[1])
+
+
+# the flagship train step's spiking sites (gen1_syolox_m, B=64, T=3,
+# bf16): (C, H, W)
+TRAIN_SITES = [(96, 64, 80), (48, 64, 80), (192, 32, 40), (96, 32, 40),
+               (384, 16, 20), (192, 16, 20), (768, 8, 10), (384, 8, 10)]
+
+
+def _bwd_items(plan, B, C, HW):
+    """Each item's first element within a step, and the channel of the
+    block that owns it, by the index arithmetic of
+    csrc/plif_bwd.cu:plif_bwd_kernel over the whole grid: block c * nb + j
+    walks items j * chunk ... of channel c in steps of THREADS."""
+    blk = np.arange(plan.grid, dtype=np.int64)
+    c, j = blk // plan.nb, blk % plan.nb
+    lo = j * plan.chunk
+    hi = np.minimum(lo + plan.chunk, plan.per_c)
+    cnt = np.maximum(hi - lo, 0)
+    assert (cnt <= plan.ipt * pplif.THREADS).all()  # ipt items a thread
+    first = np.repeat(np.cumsum(cnt) - cnt, cnt)
+    q = np.repeat(lo, cnt) + np.arange(cnt.sum()) - first
+    ch = np.repeat(c, cnt)
+    b = q // plan.ipp
+    return (b * C + ch) * HW + (q - b * plan.ipp) * plan.E, ch
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("site", TRAIN_SITES + ["ragged_7x9",
+                                                "unaligned_8x8"])
+def test_plif_bwd_plan_covers_every_element_once(site, dtype):
+    """The backward kernel's blocks cover each element of a step exactly
+    once, in bounds, each inside its own channel (whose sums are the
+    block's), at every flagship train geometry, where the grid also fills
+    at least two waves of resident blocks; a ragged H*W or an x off
+    16-byte alignment takes one-element items (the scalar tail)."""
+    dt = getattr(torch, dtype)
+    B, aligned = 64, True
+    if isinstance(site, str):
+        B, aligned = 3, site != "unaligned_8x8"
+        C, (H, W) = 16, {"ragged_7x9": (7, 9), "unaligned_8x8": (8, 8)}[site]
+    else:
+        C, H, W = site
+    HW = H * W
+    plan = pplif.plif_bwd_plan(B, C, HW, dt, T, aligned)
+    vec = 16 // torch.empty((), dtype=dt).element_size()
+    assert plan.E == (1 if isinstance(site, str) else vec)
+    n = B * C * HW
+    off, ch = _bwd_items(plan, B, C, HW)
+    assert off.min() >= 0 and off.max() + plan.E <= n
+    np.testing.assert_array_equal(np.sort(off), np.arange(0, n, plan.E))
+    np.testing.assert_array_equal(ch, (off // HW) % C)
+    assert plan.grid == C * plan.nb and plan.scratch == 4 + 3 * plan.grid
+    if not isinstance(site, str) and dtype == "bfloat16":
+        assert plan.waves >= 2.0 and plan.ipt in (1, 2, 4, 8)
 
 
 # --------------------------------------------------------------- train BN
