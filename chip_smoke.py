@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``eas_snn_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--batch 128] [--forwards 5] [--train-batch 64]
-                          [--train-steps 8]
+                          [--train-steps 8] [--workers 7]
 
 Phases, each of which fails the run (exit code 1, no result line):
 
@@ -102,7 +102,34 @@ Phases, each of which fails the run (exit code 1, no result line):
    step to the last, and the train PLIF kernels launch exactly 50 + 50
    times a step (counted by the wrappers, and in the profiled step by
    kernel name);
-7. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+6b. the step captured as CUDA graphs (``core/train_state.py:
+   CapturedStep``: 3 eager warm-up steps a geometry, then one graph a
+   geometry, all in one memory pool) against the eager step, at B=64 and
+   B=8, in turns (eager, captured, captured, eager): ms/step and images/s
+   over ``--train-steps`` steps, peak memory, the idle share of 3 profiled
+   steps, and 50 + 50 train PLIF launches a step in those 3 steps, by
+   kernel name (the profiler records the kernels of a replayed graph; the
+   wrappers' counters do not see a replay). Then from one snapshot of the
+   train state a captured step against an eager step, at 256x320 and at
+   256x320 and 288x352 in turns through the shared pool (the PLIF
+   backward's scratch buffer grows between them). Tolerance: the eager
+   step's own difference from the same snapshot (0 on the H100: the
+   captured step gives the eager step's bits);
+7. the entry point: a synthetic Gen1 tree (4 streams, 128 label groups,
+   500k events/s at 240x304) written with the port's writers;
+   ``gen1_syolox_m`` at B=64 through the port's CLI parser
+   (``tools/train_event.py:build``), ``exp.get_data_loader`` (``--workers``
+   forked workers) and ``Trainer``: images/s with the loader in the loop
+   over the last ``--train-steps`` captured steps (after the batches the
+   workers had ready), the data-time share, a checkpoint, a second
+   trainer with ``--resume`` that starts at the saved step and epoch and
+   whose first 4 losses (3 eager, then its first replay) equal the first
+   trainer's next 4 (replays; bit-equal, as 6b),
+   a profiled window of 3 trainer steps (idle share), the loader alone
+   (samples/s), the host ms a sample (``dataset.profile``); then 2 steps
+   with device binning and ``--profile 1``, and that loader's samples/s
+   and host ms a raw sample;
+8. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM, 989 TFLOP/s
@@ -117,6 +144,7 @@ import contextlib
 import copy
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -136,6 +164,7 @@ from eas_snn_tpu_torch.models.embedding import fold_time
 from eas_snn_tpu_torch.ops import KERNEL_WRAPPERS, launch_counts, reset_launches
 from eas_snn_tpu_torch.ops import _build
 from eas_snn_tpu_torch.ops import arsnn_fused as af
+from eas_snn_tpu_torch.ops import plif as plif_mod
 from eas_snn_tpu_torch.ops import conv_plif as cp
 from eas_snn_tpu_torch.ops.plif import (
     decay_multiplier, plif_bwd_plan, plif_forward, plif_forward_plain,
@@ -165,6 +194,7 @@ PER_FORWARD = {"plif_fwd": 35, "conv1x1_plif": 8, "conv3x3_plif": 6,
 GEN4_PER_FORWARD = {"plif_fwd": 50}
 GEN4_BATCH = 16
 PER_STEP = {"plif_train_fwd": 50, "plif_train_bwd": 50}
+
 KERNEL_INFO = {
     "plif_fwd": ("eas_snn_tpu_torch/csrc/plif.cu",
                  "eas_snn_tpu/ops/plif_pallas.py:302"),
@@ -1579,12 +1609,423 @@ def phase_train_step(exp, model, events, labels, steps: int):
     return counts
 
 
+# ---------------------------------------------------------------- phase 6b
+
+def _state_tensors(model, opt, ema):
+    """Every tensor a step carries to the next, in a fixed order: the
+    model's parameters and buffers, Adam's state, the EMA."""
+    out = list(model.state_dict().values())
+    for g in opt.param_groups:
+        for p in g["params"]:
+            out += [v for v in opt.state[p].values()
+                    if isinstance(v, torch.Tensor)]
+    return out + (list(ema.values()) if ema is not None else [])
+
+
+def snapshot(model, opt, ema):
+    """A copy of the train state; ``restore`` writes it back in place, so
+    that the captured graphs keep their addresses."""
+    return ([t.detach().clone() for t in _state_tensors(model, opt, ema)],
+            [g["updates"] for g in opt.param_groups])
+
+
+@torch.no_grad()
+def restore(snap, model, opt, ema) -> None:
+    tensors, counts = snap
+    for t, s in zip(_state_tensors(model, opt, ema), tensors):
+        t.copy_(s)
+    for g, n in zip(opt.param_groups, counts):
+        g["updates"] = n
+
+
+def state_diff(a, b):
+    """(largest |a - b| over the state tensors, elements that differ)."""
+    worst, n = 0.0, 0
+    for x, y in zip(a, b):
+        if x.is_floating_point():
+            d = (x.float() - y.float()).abs()
+            worst = max(worst, float(d.max()))
+            n += int((d > 0).sum())
+        else:
+            n += int((x != y).sum())
+    return worst, n
+
+
+def step_pair(step, model, opt, ema, snap, events, labels):
+    """From ``snap``: one captured step, then one eager step, then two
+    eager steps; returns the losses and end states of the captured and the
+    first eager step and the eager pair's state difference (the noise of
+    the eager step against itself)."""
+    runs = []
+    for fn in (step, lambda e, t: train_step(model, opt, ema, e, t),
+               lambda e, t: train_step(model, opt, ema, e, t)):
+        restore(snap, model, opt, ema)
+        losses = {k: float(v) for k, v in fn(events, labels).items()}
+        torch.cuda.synchronize()
+        runs.append((losses, [t.detach().clone() for t in
+                              _state_tensors(model, opt, ema)]))
+    return runs
+
+
+def check_step_pair(what, runs, lr: float):
+    """Tolerance: the eager step's own difference from the same snapshot
+    (the second eager step against the first), in the losses and in every
+    state element; measured 0 on the H100 (bit-equal), so the captured
+    step must give the eager step's bits."""
+    (lc, sc), (le, se), (le2, se2) = runs
+    dl = max(abs(lc[k] - le[k]) for k in le)
+    dl_noise = max(abs(le2[k] - le[k]) for k in le)
+    ds, ns = state_diff(sc, se)
+    dn, nn_ = state_diff(se2, se)
+    print(f"  {what}: captured vs eager from one snapshot: total loss "
+          f"{lc['total_loss']:.6f} / {le['total_loss']:.6f}, largest loss "
+          f"difference {dl:.3e}; state largest |diff| {ds:.3e} "
+          f"({ds / lr:.3f} lr), {ns} elements differ; eager vs eager: "
+          f"losses {dl_noise:.3e}, state {dn:.3e}, {nn_} elements")
+    if not (dl <= dl_noise and ds <= dn):
+        fail(f"{what}: the captured step differs from the eager one "
+             f"(losses {dl:.3e}, state {ds:.3e}) by more than the eager "
+             f"step from itself (losses {dl_noise:.3e}, state {dn:.3e})")
+
+
+def timed_steps(fn, events, labels, steps: int):
+    """(ms a step, images/s, peak GiB, losses) of ``steps`` calls on one
+    batch, host clock around work that ends in a synchronize."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = [fn(events, labels) for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return (dt / steps * 1e3, events.shape[0] * steps / dt,
+            torch.cuda.max_memory_allocated() / 2**30,
+            [float(x["total_loss"]) for x in out])
+
+
+def phase_captured_step(exp, events, labels, steps: int):
+    """Phase 6b: the step as CUDA graphs (``CapturedStep``) against the
+    eager step, at B=64 and B=8, in turns."""
+    from eas_snn_tpu_torch.core.train_state import CapturedStep
+    t_phase = time.perf_counter()
+    model = exp.get_model(device=DEV, seed=SEED + 1, train=True)
+    opt = exp.get_optimizer(model, events.shape[0], iters_per_epoch=1000)
+    ema = init_ema(model) if exp.ema else None
+    step = CapturedStep(model, opt, ema)
+    lr = opt.lr_schedule(0)
+    eager = lambda e, t: train_step(model, opt, ema, e, t)
+    print(f"phase 6b: the step captured as CUDA graphs (CapturedStep: "
+          f"{step.WARMUP} eager warm-up steps a geometry, then capture and "
+          f"replay) against the eager step; Adam capturable, lr {lr:g}")
+    for B in (events.shape[0], 8):
+        ev, lab = events[:B].contiguous(), labels[:B].contiguous()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_reserved() / 2**30
+        t0 = time.perf_counter()
+        for _ in range(step.WARMUP + 1):
+            step(ev, lab)
+        torch.cuda.synchronize()
+        print(f"  B={B}: {step.WARMUP} warm-up steps, capture and first "
+              f"replay in {time.perf_counter() - t0:.2f} s; peak allocated "
+              f"over them {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+              f"GiB (the capture's own peak included); reserved "
+              f"{before:.3f} -> {torch.cuda.memory_reserved() / 2**30:.3f} "
+              "GiB (the graphs' pool is reserved, not allocated, between "
+              "replays)")
+        eager(ev, lab)
+        for name in ("eager", "captured", "captured", "eager"):
+            fn = step if name == "captured" else eager
+            ms, ips, peak, losses = timed_steps(fn, ev, lab, steps)
+            print(f"  B={B} {name:8s}: {ms:.3f} ms/step, {ips:.2f} images/s "
+                  f"({steps} steps, host clock), peak allocated {peak:.3f} "
+                  f"GiB; total loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+            if not all(np.isfinite(losses)):
+                fail(f"B={B} {name}: a loss is not finite")
+        for name, fn in (("eager", eager), ("captured", step)):
+            prof = profile_call(lambda: [fn(ev, lab) for _ in range(3)],
+                                f"3 {name} steps at B={B}", top=6)
+            plif = {k: profiled_total(prof, k)[1]
+                    for k in ("plif_fwd_kernel", "plif_bwd")}
+            print(f"  B={B} {name}: PLIF kernel launches in the 3 profiled "
+                  f"steps, by kernel name: {plif}")
+            want = {"plif_fwd_kernel": 3 * PER_STEP["plif_train_fwd"],
+                    "plif_bwd": 3 * PER_STEP["plif_train_bwd"]}
+            if plif != want:
+                fail(f"B={B} {name}: PLIF launches {plif} in 3 steps, "
+                     f"expected {want}")
+
+    # one snapshot: a captured step against an eager step, then two
+    # sizes in turns through the shared pool
+    H, W = events.shape[3:5]
+    big = F.interpolate(events.flatten(0, 2).permute(0, 3, 1, 2),
+                        size=(H + 32, W + 32), mode="nearest-exact")
+    big = big.permute(0, 2, 3, 1).reshape(events.shape[:3] + (H + 32, W + 32,
+                                                              events.shape[5]))
+    big_lab = labels.clone()
+    big_lab[..., 1::2] *= (W + 32) / W
+    big_lab[..., 2::2] *= (H + 32) / H
+    for _ in range(step.WARMUP):
+        step(big, big_lab)
+    snap = snapshot(model, opt, ema)
+    check_step_pair(f"{H}x{W} B={events.shape[0]}",
+                    step_pair(step, model, opt, ema, snap, events, labels),
+                    lr)
+    for size, ev, lab in (((H + 32, W + 32), big, big_lab),
+                          ((H, W), events, labels),
+                          ((H + 32, W + 32), big, big_lab)):
+        check_step_pair(f"alternating, {size[0]}x{size[1]}",
+                        step_pair(step, model, opt, ema, snap, ev, lab), lr)
+    print(f"  graphs held: {len(step.keys)} (one pool); PLIF backward "
+          f"scratch buffers kept for graphs: "
+          f"{len(plif_mod._BWD_RETIRED)} retired, "
+          f"{len(plif_mod._BWD_SCRATCH)} live")
+    print(f"  phase 6b took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------- phase 7
+
+GEN1_HW = (240, 304)        # the Gen1 sensor
+EVENTS_PER_S = 500_000      # ~100k events in a 200 ms window
+LABEL_DT_US = 50_000        # a label group every 50 ms
+
+
+def write_gen1_tree(root: str, streams: int, groups: int, seed: int) -> dict:
+    """A synthetic Gen1 directory written with the port's writers: each
+    stream a ``<seq>_td.dat`` of uniform events at EVENTS_PER_S over the
+    sensor and a ``<seq>_bbox.npy`` of ``groups`` label groups, one every
+    LABEL_DT_US from 250 ms on, 1-4 boxes of 20-120 x 20-90 px each."""
+    from eas_snn_tpu_torch.data.psee_io import (write_bboxes_npy,
+                                                write_dat_events)
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    H, W = GEN1_HW
+    n_events = 0
+    for s in range(streams):
+        dur = 250_000 + groups * LABEL_DT_US
+        n = EVENTS_PER_S * dur // 1_000_000
+        t = np.sort(rng.integers(0, dur, n))
+        write_dat_events(os.path.join(root, f"seq{s}_td.dat"), t,
+                         rng.integers(0, W, n), rng.integers(0, H, n),
+                         rng.integers(0, 2, n), height=H, width=W)
+        rows = []
+        for k in range(groups):
+            for j in range(int(rng.integers(1, 5))):
+                w, h = rng.uniform(20, 120), rng.uniform(20, 90)
+                rows.append((250_000 + k * LABEL_DT_US,
+                             rng.uniform(0, W - w), rng.uniform(0, H - h),
+                             w, h, int(rng.integers(0, 2)), j, 1.0))
+        write_bboxes_npy(os.path.join(root, f"seq{s}_bbox.npy"), rows)
+        n_events += n
+    return dict(streams=streams, groups=streams * groups, events=n_events)
+
+
+class TimedBatches:
+    """Wraps the trainer's batch iterator: host seconds a ``next``."""
+
+    def __init__(self, it):
+        self.it, self.seconds = it, []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        try:
+            return next(self.it)
+        finally:
+            self.seconds.append(time.perf_counter() - t0)
+
+
+def loader_alone(tr, B: int, what: str) -> None:
+    """Samples/s of the trainer's batches (workers, pinned memory, the
+    prefetcher's copy to the card) with no step between them, after the
+    batches the workers had ready (two a worker) are drained."""
+    for _ in range(2 * tr.train_loader.num_workers + 2):
+        next(tr._batches)
+    k = 8
+    t0 = time.perf_counter()
+    for _ in range(k):
+        next(tr._batches)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"  the loader alone ({what}): {B * k / dt:.2f} samples/s ({k} "
+          f"batches of {B} with their copy to the card, "
+          f"{tr.train_loader.num_workers} worker processes, "
+          f"os.cpu_count() {os.cpu_count()})")
+
+
+def host_cost(exp, what: str, n: int = 16) -> None:
+    """Host ms a train sample, in this process on one thread as in a
+    loader worker; the dataset's profile splits the frame path."""
+    ds = exp.get_dataset(training=True)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    for i in range(n):
+        ds[i]
+    wall = (time.perf_counter() - t0) / n * 1e3
+    torch.set_num_threads(threads)
+    prof = ds.profile
+    split = (f", of which slicing + micro_sum "
+             f"{prof['slicing_s'] / prof['count'] * 1e3:.3f} and "
+             f"augmentation {prof['augment_s'] / prof['count'] * 1e3:.3f} "
+             "(dataset.profile)" if prof["count"] else "")
+    print(f"  host cost a train sample ({what}, one thread): {wall:.3f} "
+          f"ms{split}")
+
+
+def phase_entry_point(B: int, steps: int, workers: int) -> None:
+    """Phase 7: ``gen1_syolox_m`` trained through the port's CLI parser,
+    ``exp.get_data_loader`` and ``Trainer`` from a synthetic Gen1 tree:
+    captured steps with the loader in the loop, the loader alone, the
+    host cost a sample, a profiled window; then save, resume and device
+    binning."""
+    import shutil
+
+    from eas_snn_tpu_torch.core.optim import updates
+    from eas_snn_tpu_torch.core.train_state import CapturedStep
+    from eas_snn_tpu_torch.tools.train_event import build
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "outputs", "chip_smoke_phase7")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "gen1")
+    t0 = time.perf_counter()
+    tree = write_gen1_tree(data, streams=4, groups=32, seed=SEED)
+    print(f"phase 7: the train entry point; synthetic Gen1 tree "
+          f"({tree['streams']} streams, {tree['groups']} label groups, "
+          f"{tree['events']} events at {EVENTS_PER_S} events/s, "
+          f"{GEN1_HW[0]}x{GEN1_HW[1]}) written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # the timed steps follow the warm-up, the capture and as many steps as
+    # the workers had batches ready (two a worker), so that they see the
+    # loader's steady rate
+    drain = 2 * workers + 2
+    n_iters = CapturedStep.WARMUP + 1 + drain + steps
+    argv = ["-n", "gen1_syolox_m", "-b", str(B), "-l", "jsonl",
+            "data_dir", data, "output_dir", os.path.join(root, "out"),
+            "data_num_workers", str(workers), "max_epoch", "1",
+            "print_interval", str(n_iters), "seed", str(SEED)]
+    exp, args = build(argv)
+    exp.iters_per_epoch = n_iters
+    tr = exp.get_trainer(args, device=DEV)
+    t0 = time.perf_counter()
+    tr.before_train()
+    nw = tr.train_loader.num_workers
+    print(f"  Trainer.before_train (model, optimizer, {nw} forked loader "
+          f"workers, first batch) in "
+          f"{time.perf_counter() - t0:.1f} s; dataset "
+          f"{len(tr.train_loader.dataset)} samples; os.cpu_count() "
+          f"{os.cpu_count()}")
+    stamps = []
+    step = tr.step_fn
+
+    def timed_step(*a, **k):
+        out = step(*a, **k)
+        stamps.append(time.perf_counter())
+        return out
+
+    tr.step_fn = timed_step
+    tr._batches = TimedBatches(tr._batches)
+    tr.before_epoch()
+    tr.train_in_iter()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    tr.step_fn = step
+    w = CapturedStep.WARMUP
+    wall = t_end - stamps[-steps - 1]
+    data_s = sum(tr._batches.seconds[-steps:])
+    head = stamps[-steps - 1] - stamps[w]
+    print(f"  {len(stamps)} steps at B={B} ({w} eager warm-up, then "
+          f"captured; {step.replays} replays): {B * steps / wall:.2f} "
+          f"images/s with the loader in the loop over the last {steps} "
+          f"({wall / steps * 1e3:.3f} ms a step, host clock to a "
+          f"synchronize; the {drain} replays before them, on the batches "
+          f"the workers had ready: {B * drain / head:.2f} images/s); "
+          f"data_time {data_s / wall:.3f} of iter_time; losses "
+          f"{tr.last_losses}")
+    losses = {k: float(v) for k, v in tr.last_losses.items()}
+    if not all(np.isfinite(v) for v in losses.values()):
+        fail(f"phase 7: a loss is not finite: {losses}")
+    if step.replays != n_iters - w:
+        fail(f"phase 7: {step.replays} replays, expected {n_iters - w}")
+    tr.after_epoch()
+    saved = updates(tr.optimizer)
+
+    # resume: the next steps of the first trainer (replays) against the
+    # first steps of a second one restored from its checkpoint (its
+    # eager warm-up, then its capture and first replay), on one batch
+    ev, lab = next(tr._batches)
+    n = CapturedStep.WARMUP + 1
+    after = [{k: float(v) for k, v in step(ev, lab).items()}
+             for _ in range(n)]
+    args.resume = True
+    tr2 = exp.get_trainer(args, device=DEV)
+    tr2.before_train([(ev.cpu(), lab.cpu())])
+    start = updates(tr2.optimizer)
+    first = [{k: float(v) for k, v in tr2.step_fn(ev, lab).items()}
+             for _ in range(n)]
+    print(f"  resume: checkpoint at step {saved}; the second trainer "
+          f"starts at step {start}, epoch {tr2.start_epoch} (iters/epoch "
+          f"{tr2.iters_per_epoch}); total loss of the next {n} steps, the "
+          f"first trainer (replays) / the resumed one ({n - 1} eager, then "
+          f"its first replay): " + ", ".join(
+              f"{a['total_loss']:.6f} / {b['total_loss']:.6f}"
+              for a, b in zip(after, first)))
+    if tr2.start_epoch != saved // tr2.iters_per_epoch:
+        fail(f"resume: start epoch {tr2.start_epoch}, expected "
+             f"{saved // tr2.iters_per_epoch}")
+    if start != saved:
+        fail(f"resume: the second trainer starts at step {start}, the "
+             f"checkpoint is at {saved}")
+    if after != first:
+        fail(f"resume: losses {first} differ from the first trainer's "
+             f"{after} (phase 6b's tolerance: bit-equal)")
+    if tr2.step_fn.replays != 1:
+        fail(f"resume: the second trainer replayed {tr2.step_fn.replays} "
+             "times, expected 1")
+    tr2.after_train()
+    del tr2
+
+    # a profiled window of 3 steps with the loader in the loop
+    tr.iters_per_epoch = 3
+    profile_call(tr.train_in_iter, f"3 trainer steps at B={B} (loader in "
+                 "the loop)", top=6)
+    tr.after_train()
+
+    loader_alone(tr, B, "frames")
+    del tr
+    host_cost(exp, "frames")
+
+    # device binning: raw indexed events from the loader, binned on card
+    exp, args = build(["-expn", "binning", "--profile", "1"] + argv
+                      + ["device_binning", "True"])
+    exp.iters_per_epoch = 2
+    tr = exp.get_trainer(args, device=DEV)
+    tr.train()
+    losses = {k: float(v) for k, v in tr.last_losses.items()}
+    traces = os.listdir(os.path.join(tr.file_name, "profile"))
+    print(f"  device binning: 2 steps at B={B}, losses {losses}; --profile "
+          f"1 wrote {traces}")
+    if not all(np.isfinite(v) for v in losses.values()):
+        fail(f"device binning: a loss is not finite: {losses}")
+    if len(traces) != 1:
+        fail(f"--profile 1 wrote {traces}")
+    loader_alone(tr, B, "raw events")
+    del tr
+    host_cost(exp, "raw events")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--forwards", type=int, default=5)
     ap.add_argument("--train-batch", type=int, default=64)
     ap.add_argument("--train-steps", type=int, default=8)
+    ap.add_argument("--workers", type=int, default=7,
+                    help="phase 7's loader worker processes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1648,6 +2089,12 @@ def main() -> int:
     counts.update({k: v for k, v in phase_train_step(
         texp, tmodel, events, labels, args.train_steps).items()
         if k in PER_STEP})
+    del tmodel
+    torch.cuda.empty_cache()
+    phase_captured_step(texp, events, labels, args.train_steps)
+    del events, labels
+    torch.cuda.empty_cache()
+    phase_entry_point(B, args.train_steps, args.workers)
 
     kernels = []
     for kname, agg in per_kernel.items():

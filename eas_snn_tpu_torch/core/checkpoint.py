@@ -18,6 +18,8 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from .optim import load_optimizer_state
+
 __all__ = ["CheckpointManager", "load_partial_params"]
 
 _NAME = re.compile(r"ckpt_(\d+)\.pth$")
@@ -62,7 +64,9 @@ class CheckpointManager:
                 step: Optional[int] = None) -> Tuple[int, float]:
         """Load the checkpoint of ``step`` (the latest by default) into the
         model, optimizer and EMA in place. Returns (step, best_ap), or
-        (0, 0.0) when there is none."""
+        (0, 0.0) when there is none. The optimizer's state tensors are
+        replaced (``optim.load_optimizer_state``): restore before any CUDA
+        graph of the step is captured."""
         step = self.latest_step() if step is None else step
         if step is None:
             return 0, 0.0
@@ -70,7 +74,7 @@ class CheckpointManager:
         payload = torch.load(self.path(step), map_location=dev,
                              weights_only=True)
         model.load_state_dict(payload["model"], strict=True)
-        optimizer.load_state_dict(payload["optimizer"])
+        load_optimizer_state(optimizer, payload["optimizer"])
         if ema is not None and payload["ema"] is not None:
             with torch.no_grad():
                 for name, value in payload["ema"].items():

@@ -10,8 +10,17 @@ every other parameter outside the embedding; and the embedding, whose
 learning rate is scaled by ``emb_lr / base_lr`` for good (the JAX
 package's reading of ``emb_lr``, which the reference's trainer overwrites
 after its first step). Update t (counted from 0) uses schedule(t); the
-count is each group's ``"updates"`` entry, so it travels with
-``state_dict()``.
+count is each group's ``"updates"`` entry, a host integer, so it travels
+with ``state_dict()``.
+
+On a CUDA device Adam is built capturable (foreach, its step counts and
+bias corrections on the device) and each group's ``lr`` is a 0-d f32
+tensor on the device that ``set_learning_rate`` fills in place before the
+step: the step can then be captured in a CUDA graph
+(``train_state.CapturedStep``), the counterpart of the JAX package
+evaluating its schedule inside the jitted update. On the CPU, and for SGD
+(torch's SGD reads a tensor lr on the host, which a graph cannot
+capture), lr stays a Python float.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ import torch
 import torch.nn as nn
 
 __all__ = ["build_lr_schedule", "build_optimizer", "set_learning_rate",
-           "updates"]
+           "updates", "learning_rate", "load_optimizer_state"]
 
 
 def build_lr_schedule(
@@ -121,7 +130,8 @@ def build_optimizer(model: nn.Module, lr_schedule: Callable[[int], float],
                     base_lr: float = 1e-3) -> torch.optim.Optimizer:
     """Adam (default) or SGD(nesterov) with the reference's groups. The
     schedule rides on the optimizer as ``lr_schedule``; each group's
-    ``lr_scale`` multiplies it."""
+    ``lr_scale`` multiplies it. Adam on a CUDA device is capturable, with
+    a 0-d device tensor lr a group."""
     emb_scale = emb_lr / base_lr if emb_lr > 0 else 1.0
     decay, no_decay, emb = _groups(model)
     groups = [
@@ -131,7 +141,15 @@ def build_optimizer(model: nn.Module, lr_schedule: Callable[[int], float],
     ]
     groups = [dict(g, updates=0) for g in groups if g["params"]]
     lr0 = lr_schedule(0)
-    if optimizer.upper() == "ADAM":
+    dev = next(model.parameters()).device
+    if optimizer.upper() == "ADAM" and dev.type == "cuda":
+        # one tensor a group: a shared default would tie their lrs
+        for g in groups:
+            g["lr"] = torch.full((), lr0 * g["lr_scale"],
+                                 dtype=torch.float32, device=dev)
+        opt = torch.optim.Adam(groups, lr=lr0, betas=(0.9, 0.999), eps=1e-8,
+                               foreach=True, capturable=True)
+    elif optimizer.upper() == "ADAM":
         opt = torch.optim.Adam(groups, lr=lr0, betas=(0.9, 0.999), eps=1e-8)
     else:
         opt = torch.optim.SGD(groups, lr=lr0, momentum=momentum,
@@ -146,7 +164,49 @@ def updates(optimizer: torch.optim.Optimizer) -> int:
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, step: int) -> None:
-    """Every group's lr for update ``step``: schedule(step) * lr_scale."""
+    """Every group's lr for update ``step``: schedule(step) * lr_scale,
+    filled in place where the lr is a device tensor."""
     lr = optimizer.lr_schedule(step)
     for g in optimizer.param_groups:
-        g["lr"] = lr * g["lr_scale"]
+        if isinstance(g["lr"], torch.Tensor):
+            g["lr"].fill_(lr * g["lr_scale"])
+        else:
+            g["lr"] = lr * g["lr_scale"]
+
+
+def learning_rate(optimizer: torch.optim.Optimizer) -> float:
+    """The first group's lr of the last update, from the schedule on the
+    host (reading a device lr would wait for the card)."""
+    g = optimizer.param_groups[0]
+    return optimizer.lr_schedule(max(updates(optimizer) - 1, 0)) \
+        * g["lr_scale"]
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer,
+                         state_dict: dict) -> None:
+    """``optimizer.load_state_dict`` that keeps what this optimizer was
+    built with: each group's ``capturable`` and ``foreach`` flags and the
+    kind of its lr (its own device tensor, filled with the saved value, or
+    a float), and Adam's step counts where capturable wants them (on the
+    parameter's device) or not (on the CPU). So a checkpoint written on
+    the card restores on the CPU and the other way round. It replaces the
+    optimizer's state tensors: a CUDA graph captured before it would update
+    the old ones."""
+    kept = [(g.get("capturable"), g.get("foreach"), g["lr"])
+            for g in optimizer.param_groups]
+    optimizer.load_state_dict(state_dict)
+    for g, (capturable, foreach, lr) in zip(optimizer.param_groups, kept):
+        value = float(g["lr"])
+        if capturable is not None:
+            g["capturable"] = capturable
+        g["foreach"] = foreach
+        if isinstance(lr, torch.Tensor):
+            lr.fill_(value)
+            g["lr"] = lr
+        else:
+            g["lr"] = value
+        for p in g["params"]:
+            st = optimizer.state.get(p, {})
+            if isinstance(st.get("step"), torch.Tensor):
+                dev = p.device if capturable else torch.device("cpu")
+                st["step"] = st["step"].to(device=dev, dtype=torch.float32)

@@ -6,11 +6,17 @@ A step is: zero the gradients, the loss forward, backward, the optimizer
 update at the schedule's lr for the update count before it, then the EMA
 of the parameters (not the BN buffers, which stay the model's). No neuron
 state survives a step, so nothing is reset between steps.
+
+``train_step`` runs the step eagerly, op by op from Python: the CPU path
+and the path every parity test uses. ``CapturedStep`` runs the same step
+as one CUDA graph a batch geometry, the counterpart of the JAX package's
+jitted, donated ``train_step``: the host only fills the lr and EMA decay
+scalars, copies the batch in and replays.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,8 +25,8 @@ from torch.func import functional_call
 
 from .optim import set_learning_rate, updates
 
-__all__ = ["init_ema", "ema_update", "optimizer_update", "train_step",
-           "eval_step"]
+__all__ = ["init_ema", "ema_terms", "ema_apply", "ema_update",
+           "optimizer_update", "train_step", "eval_step", "CapturedStep"]
 
 EMA_DECAY = 0.9998
 
@@ -30,19 +36,35 @@ def init_ema(model: nn.Module) -> Dict[str, torch.Tensor]:
     return {n: p.detach().clone() for n, p in model.named_parameters()}
 
 
-@torch.no_grad()
-def ema_update(ema: Dict[str, torch.Tensor], model: nn.Module,
-               step: int) -> None:
-    """ema <- ema * d + param * (1 - d) in place, with the warm-up ramp
-    d = 0.9998 * (1 - exp(-step / 2000)) computed in f32 as the JAX package
-    does (reference utils/ema.py:38-60)."""
+def ema_terms(step: int) -> Tuple[np.float32, np.float32]:
+    """(d, 1 - d) of the warm-up ramp d = 0.9998 * (1 - exp(-step / 2000)),
+    computed in f32 as the JAX package does (reference utils/ema.py:38-60)."""
     f32 = np.float32
     d = f32(EMA_DECAY) * (f32(1.0) - np.exp(-f32(step) / f32(2000.0)))
+    return d, f32(1.0) - d
+
+
+@torch.no_grad()
+def ema_apply(ema: Dict[str, torch.Tensor], model: nn.Module,
+              d: torch.Tensor, one_minus_d: torch.Tensor) -> None:
+    """ema <- ema * d + param * (1 - d) in place, in the JAX package's
+    order (a product each, then the sum: a lerp rounds differently), with
+    d and 1 - d 0-d tensors on the parameters' device, so that a captured
+    step reads them at replay."""
     names = [n for n, _ in model.named_parameters()]
     e = [ema[n] for n in names]
     p = [q.detach() for _, q in model.named_parameters()]
-    torch._foreach_mul_(e, float(d))
-    torch._foreach_add_(e, p, alpha=float(f32(1.0) - d))
+    torch._foreach_mul_(e, d)
+    torch._foreach_add_(e, torch._foreach_mul(p, one_minus_d))
+
+
+def ema_update(ema: Dict[str, torch.Tensor], model: nn.Module,
+               step: int) -> None:
+    """The EMA after update ``step`` (counted from 1)."""
+    dev = next(iter(ema.values())).device
+    d, omd = (torch.full((), float(v), dtype=torch.float32, device=dev)
+              for v in ema_terms(step))
+    ema_apply(ema, model, d, omd)
 
 
 def optimizer_update(model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -72,6 +94,142 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     optimizer_update(model, optimizer, ema)
     losses = {k: v.detach() for k, v in losses.items()}
     return {k: float(v) for k, v in losses.items()} if to_host else losses
+
+
+class _Graph:
+    """One captured step: its static inputs, its loss output (one f32
+    vector, allocated outside the graphs' pool) and the graph."""
+
+    def __init__(self, events: torch.Tensor, targets: torch.Tensor,
+                 names: List[str]):
+        self.events = torch.empty_like(events)
+        self.targets = torch.empty_like(targets)
+        self.names = names
+        self.out = torch.empty(len(names), dtype=torch.float32,
+                               device=events.device)
+        self.graph = torch.cuda.CUDAGraph()
+
+
+class CapturedStep:
+    """The train step as CUDA graphs, one a key (events shape, labels
+    shape, dtypes, ``use_l1``), as the JAX package compiles once a static
+    shape and ``use_l1`` value.
+
+    The first ``WARMUP`` steps of a key run ``train_step`` eagerly on a
+    side stream: real steps on real batches, which count toward training
+    (as the JAX package's first, compiling step does) and which set up,
+    on the stream the capture uses, what the step keeps between calls
+    (Adam's state, the cuBLAS workspace, the PLIF backward's scratch).
+    The next step of the key captures zero_grad, the loss forward,
+    backward, the optimizer step and the EMA, then replays; every later
+    step copies the batch into the static inputs, fills the lr and decay
+    scalars on the host and replays. A capture that fails raises: nothing
+    runs the eager step in its place.
+
+    All graphs of one ``CapturedStep`` share one memory pool, so that
+    multiscale sizes do not each hold a step's activations. That is safe
+    only because no graph reads a tensor that another graph wrote inside
+    the pool: what a step carries to the next (parameters, optimizer
+    state, BN buffers, EMA, the lr and decay scalars, the static inputs and
+    loss outputs) lives outside it, and each graph's gradients are written
+    and read within its own replay. After a replay ``p.grad`` is the last
+    captured graph's buffer, not necessarily the replayed one's: read
+    gradients after an eager step.
+
+    Restore checkpoints (``load_optimizer_state`` replaces Adam's state
+    tensors) before the first capture; after a reload, build a new
+    ``CapturedStep``.
+    """
+
+    WARMUP = 3
+
+    def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
+                 ema: Optional[Dict[str, torch.Tensor]]):
+        dev = next(model.parameters()).device
+        if dev.type != "cuda":
+            raise ValueError("CapturedStep: the model is on "
+                             f"{dev}; CUDA graphs need a CUDA device "
+                             "(train_step runs the step on the CPU)")
+        if not all(g.get("capturable") and isinstance(g["lr"], torch.Tensor)
+                   for g in optimizer.param_groups):
+            raise NotImplementedError(
+                "CapturedStep: the optimizer must be torch's capturable Adam "
+                "with a device-tensor lr a group (build_optimizer's ADAM on "
+                "a CUDA device); torch's SGD reads its lr on the host, "
+                "which a CUDA graph cannot capture (ROADMAP.md §1 item 7)")
+        self.model, self.optimizer, self.ema = model, optimizer, ema
+        self.device = dev
+        self.stream = torch.cuda.Stream(dev)
+        self.pool = torch.cuda.graph_pool_handle()
+        self._d = torch.zeros((), dtype=torch.float32, device=dev)
+        self._one_minus_d = torch.zeros_like(self._d)
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._warm: Dict[tuple, int] = {}
+        self._names: Dict[tuple, List[str]] = {}
+        self.replays = 0
+
+    @property
+    def keys(self) -> List[tuple]:
+        """The keys with a captured graph."""
+        return list(self._graphs)
+
+    def __call__(self, events: torch.Tensor, targets: torch.Tensor,
+                 use_l1: bool = False) -> Dict[str, torch.Tensor]:
+        """One step; the loss dict as device tensors of this step."""
+        key = (tuple(events.shape), tuple(targets.shape), events.dtype,
+               targets.dtype, bool(use_l1))
+        g = self._graphs.get(key)
+        if g is None:
+            if self._warm.get(key, 0) < self.WARMUP:
+                self._warm[key] = self._warm.get(key, 0) + 1
+                return self._warm_up(key, events, targets, use_l1)
+            g = self._capture(key, events, targets, use_l1)
+        return self._replay(g, events, targets)
+
+    def _warm_up(self, key, events, targets, use_l1):
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            losses = train_step(self.model, self.optimizer, self.ema,
+                                events, targets, use_l1=use_l1)
+        cur.wait_stream(self.stream)
+        for v in losses.values():
+            v.record_stream(cur)
+        self._names[key] = list(losses)
+        return losses
+
+    def _capture(self, key, events, targets, use_l1) -> _Graph:
+        g = _Graph(events, targets, self._names[key])
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.graph(g.graph, pool=self.pool, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            self.optimizer.zero_grad(set_to_none=True)
+            losses = self.model(g.events, g.targets, use_l1=use_l1)
+            losses["total_loss"].backward()
+            self.optimizer.step()
+            if self.ema is not None:
+                ema_apply(self.ema, self.model, self._d, self._one_minus_d)
+            g.out.copy_(torch.stack([losses[k].detach().float()
+                                     for k in g.names]))
+        cur.wait_stream(self.stream)
+        self._graphs[key] = g
+        return g
+
+    def _replay(self, g: _Graph, events, targets) -> Dict[str, torch.Tensor]:
+        t = updates(self.optimizer)
+        set_learning_rate(self.optimizer, t)
+        if self.ema is not None:
+            d, omd = ema_terms(t + 1)
+            self._d.fill_(float(d))
+            self._one_minus_d.fill_(float(omd))
+        g.events.copy_(events)
+        g.targets.copy_(targets)
+        g.graph.replay()
+        for grp in self.optimizer.param_groups:
+            grp["updates"] = t + 1
+        self.replays += 1
+        return dict(zip(g.names, g.out.clone().unbind()))
 
 
 @torch.no_grad()

@@ -1,90 +1,219 @@
-"""The training loop (counterpart of ``eas_snn_tpu/core/trainer.py``;
+"""The training loop (counterpart of ``eas_snn_tpu/core/trainer.py:57-469``;
 reference yolox/core/trainer.py:36-419).
 
-``Trainer(exp, device="cuda").train(batches)`` builds the seeded model in
-train mode, the optimizer and schedule from the batch size of the first
-batch, and the EMA, then runs ``exp.max_epoch`` epochs of
-``iters_per_epoch`` steps over ``batches``, an iterable of (events,
-labels): events (B, Tl, Tm, H, W, 2), labels (B, M, 5) [cls, cx, cy, w,
-h] padded with zero rows. A re-iterable (a list) is walked again when it
-runs out; a one-shot iterable ends the training. The no-aug tail of the
-schedule turns the L1 loss on. Every ``exp.print_interval`` steps the
-losses come to the host into a meter and the log; after every epoch a
-checkpoint is written under ``<exp.output_dir>/<exp.exp_name>/ckpt``.
+``Trainer(exp, args, device="cuda").train()`` trains on ``exp``'s data
+loader: ``before_train`` builds the seeded model in train mode, the
+optimizer and schedule for ``args.batch_size``, the EMA and the checkpoint
+manager, then resumes (``args.resume``: the latest checkpoint, from the
+epoch its step falls in) or loads fine-tune weights (``args.ckpt``: a
+shape-checked partial load), before any step is captured. Each epoch runs
+``iters_per_epoch`` steps: the next batch (copied to the card on a side
+stream while the step before runs), device binning where the loader ships
+raw events, the seeded multiscale resize, then the step: one CUDA graph a
+batch geometry on the card (``CapturedStep``), ``train_step`` on the CPU.
+The no-aug tail turns the L1 loss on. Every ``exp.print_interval`` steps
+the losses come to the host into the meters, the log and
+``metrics.jsonl``; ``args.profile`` N traces N steps of the first epoch
+with torch.profiler into ``<run dir>/profile``; every epoch ends with a
+checkpoint in ``<run dir>/ckpt``.
 
-Not here yet: the data loader (ROADMAP item 8), multiscale resizing, the
-evaluator and best-AP tracking (AP stays 0.0), metrics trackers and
-profiling.
+``train(batches)`` trains on an in-memory iterable of (events, labels)
+instead: a re-iterable (a list) is walked again when it runs out, a
+one-shot iterable ends the training.
+
+Not here yet: the evaluator and best-AP tracking (ROADMAP.md §1 item 9; at
+``eval_interval`` the log says so and AP stays 0.0), the MFU figure (its
+conv-FLOP count comes with the evaluators' energy module), multi-process
+training (item 10).
 """
 
 from __future__ import annotations
 
+import argparse
+import csv
 import datetime
-import logging
+import functools
+import itertools
 import os
+import sys
 import time
-from typing import Iterable, Iterator, Optional, Tuple
+from typing import Iterable, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..data.loader import DevicePrefetcher
+from ..data.reps import bin_event_batch
+from ..utils.logger import setup_logger
 from ..utils.metric import MeterBuffer
-from .checkpoint import CheckpointManager
-from .optim import updates
-from .train_state import init_ema, train_step
+from ..utils.tracking import MetricsTracker
+from ..utils.weights import load_reference_state_dict
+from .checkpoint import CheckpointManager, load_partial_params
+from .optim import learning_rate, updates
+from .train_state import CapturedStep, init_ema, train_step
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "multiscale_resize"]
 
 Batch = Tuple[torch.Tensor, torch.Tensor]
 
 
+def multiscale_resize(events: torch.Tensor, targets: torch.Tensor,
+                      size: Tuple[int, int]):
+    """A (B, Tl, Tm, H, W, C) batch resized to ``size`` = (H', W') by
+    nearest neighbour with half-pixel centres (``'nearest-exact'``, the
+    rule of the JAX package's ``jax.image.resize(..., "nearest")``), and
+    the cxcywh labels rescaled to match in f32 (JAX
+    ``core/trainer.py:32-53``; reference exp/event_yolox_base.py:
+    337-351)."""
+    b, tl, tm, h, w, c = events.shape
+    h2, w2 = size
+    if (h, w) == (h2, w2):
+        return events, targets
+    x = events.reshape(b * tl * tm, h, w, c).permute(0, 3, 1, 2)
+    x = F.interpolate(x, size=(h2, w2), mode="nearest-exact")
+    events = x.permute(0, 2, 3, 1).reshape(b, tl, tm, h2, w2, c)
+    targets = targets.clone()
+    targets[..., 1::2] *= w2 / w
+    targets[..., 2::2] *= h2 / h
+    return events, targets
+
+
+def _cycle(batches: Iterable):
+    """``batches`` again and again while it is a re-iterable that yields."""
+    while True:
+        n = 0
+        for b in batches:
+            n += 1
+            yield b
+        if n == 0 or iter(batches) is batches:
+            return
+
+
 class Trainer:
-    def __init__(self, exp, device="cuda",
-                 iters_per_epoch: Optional[int] = None):
+    def __init__(self, exp, args: Optional[argparse.Namespace] = None,
+                 device="cuda", iters_per_epoch: Optional[int] = None):
         from ..exp.event_exp import resolve_device
 
         self.exp = exp
+        self.args = args if args is not None else argparse.Namespace()
         self.device = resolve_device(device)
         self.iters_per_epoch = iters_per_epoch
         self.max_epoch = exp.max_epoch
         self.meter = MeterBuffer(window_size=exp.print_interval)
-        self.file_name = os.path.join(exp.output_dir, exp.exp_name)
-        self.logger = logging.getLogger("eas_snn_tpu_torch.trainer")
+        self.file_name = os.path.join(
+            exp.output_dir,
+            getattr(self.args, "experiment_name", None) or exp.exp_name)
+        os.makedirs(self.file_name, exist_ok=True)
+        self.logger = setup_logger(self.file_name)
+        # without command-line args only the JSONL file: 'auto' would
+        # start every importable backend, wandb included
+        self.tracker = MetricsTracker(
+            self.file_name,
+            backend=getattr(self.args, "logger", None) or "jsonl",
+            run_config={k: v for k, v in vars(exp).items()
+                        if isinstance(v, (int, float, str, bool,
+                                          type(None)))})
         self.use_l1 = False
         self.best_ap = 0.0
-        self.epoch = 0
+        self.epoch = self.start_epoch = 0
         self.model = self.optimizer = self.ema = self.ckpt = None
+        self.train_loader = None
+        self.step_fn = None
+        self.finetune_report: Optional[dict] = None
         self.last_losses: dict = {}
 
-    def train(self, batches: Iterable[Batch]) -> None:
-        self._batches = batches
-        self._it: Iterator[Batch] = iter(batches)
-        first = next(self._it)
-        self.before_train(first)
-        self._pending: Optional[Batch] = first
-        for self.epoch in range(self.max_epoch):
-            self.before_epoch()
-            if not self.train_in_iter():
-                break
-            self.after_epoch()
-        self.logger.info("training done at step %d", updates(self.optimizer))
+    # ------------------------------------------------------------------
+    def train(self, batches: Optional[Iterable[Batch]] = None) -> None:
+        self.before_train(batches)
+        try:
+            for self.epoch in range(self.start_epoch, self.max_epoch):
+                self.before_epoch()
+                if not self.train_in_iter():
+                    break
+                self.after_epoch()
+        finally:
+            self.after_train()
 
-    def before_train(self, first: Batch) -> None:
-        exp = self.exp
-        batch_size = int(first[0].shape[0])
-        if self.iters_per_epoch is None:
-            if not hasattr(self._batches, "__len__"):
-                raise ValueError("iters_per_epoch is needed for batches "
-                                 "without a length")
-            self.iters_per_epoch = len(self._batches)
+    def before_train(self, batches: Optional[Iterable[Batch]] = None) -> None:
+        exp, args = self.exp, self.args
+        self.logger.info("args: %s", vars(args))
+        self.logger.info("exp value:\n%s", {
+            k: v for k, v in vars(exp).items() if not k.startswith("_")})
+        if batches is None:
+            batch_size = getattr(args, "batch_size", None)
+            if not batch_size:
+                raise ValueError("Trainer.train() reads the exp's data "
+                                 "loader: args.batch_size is needed")
+            self.train_loader = exp.get_data_loader(
+                batch_size=batch_size, training=True,
+                pin_memory=self.device.type == "cuda")
+            n_batches = max(len(self.train_loader.dataset) // batch_size, 1)
+            source = ((b[0], b[1]) for b in self.train_loader)
+        else:
+            it = iter(_cycle(batches))
+            first = next(it)
+            batch_size = int(first[0].shape[0])
+            n_batches = len(batches) if hasattr(batches, "__len__") else None
+            source = itertools.chain([first], it)
+        # JAX trainer.py:116-118: the exp's count, else a pass over the data
+        self.iters_per_epoch = (self.iters_per_epoch
+                                or getattr(exp, "iters_per_epoch", None)
+                                or n_batches)
+        if not self.iters_per_epoch:
+            raise ValueError("iters_per_epoch is needed for batches without "
+                             "a length")
+        self.batch_size = batch_size
+        self._batches = DevicePrefetcher(source, self.device)
+
         self.model = exp.get_model(device=self.device, seed=exp.seed or 0,
                                    train=True)
         self.optimizer = exp.get_optimizer(self.model, batch_size,
                                            self.iters_per_epoch)
         self.ema = init_ema(self.model) if exp.ema else None
         self.ckpt = CheckpointManager(os.path.join(self.file_name, "ckpt"))
-        self.logger.info("training %s on %s: batch %d, %d iters/epoch, %d "
-                         "epochs", exp.exp_name, self.device, batch_size,
-                         self.iters_per_epoch, self.max_epoch)
+        # restore and fine-tune loads before any capture: a graph keeps
+        # the optimizer state tensors it captured
+        if getattr(args, "resume", False):
+            step, self.best_ap = self.ckpt.restore(self.model,
+                                                   self.optimizer, self.ema)
+            self.start_epoch = step // self.iters_per_epoch
+            self.logger.info("resumed at step %d (epoch %d), best_ap %.4f",
+                             step, self.start_epoch, self.best_ap)
+        elif getattr(args, "ckpt", None):
+            report = load_partial_params(
+                self.model, load_reference_state_dict(args.ckpt))
+            if self.ema is not None:
+                with torch.no_grad():
+                    for n, p in self.model.named_parameters():
+                        self.ema[n].copy_(p)
+            self.logger.info("fine-tune init from %s: %s", args.ckpt, report)
+            self.finetune_report = report
+        if self.device.type == "cuda":
+            self.step_fn = CapturedStep(self.model, self.optimizer, self.ema)
+        else:
+            self.step_fn = functools.partial(train_step, self.model,
+                                             self.optimizer, self.ema)
+
+        h, w = exp.input_size
+        self._bin = (functools.partial(bin_event_batch, n_bins=exp.Tm,
+                                       height=h, width=w)
+                     if exp.device_binning else None)
+        # multiscale: a bounded size set and one seeded choice every
+        # multiscale_interval steps (JAX trainer.py:198-207)
+        self._ms_interval = exp.multiscale_interval
+        if self._ms_interval:
+            r = exp.multiscale_range
+            self._ms_sizes = [(h + 32 * k, w + 32 * k) for k in range(-r, r + 1)
+                              if h + 32 * k > 0 and w + 32 * k > 0]
+            self._ms_rng = np.random.default_rng(exp.seed or 0)
+            self._ms_size = (h, w)
+        self.logger.info(
+            "training %s on %s: batch %d, %d iters/epoch, epochs %d-%d, "
+            "step %s", exp.exp_name, self.device, batch_size,
+            self.iters_per_epoch, self.start_epoch + 1, self.max_epoch,
+            "captured as CUDA graphs" if isinstance(
+                self.step_fn, CapturedStep) else "eager")
 
     def before_epoch(self) -> None:
         exp = self.exp
@@ -94,43 +223,81 @@ class Trainer:
             self.logger.info("--->no-aug phase: adding L1")
             self.use_l1 = True
 
-    def _next(self) -> Optional[Batch]:
-        if self._pending is not None:
-            batch, self._pending = self._pending, None
-            return batch
-        try:
-            return next(self._it)
-        except StopIteration:
-            self._it = iter(self._batches)
-            return next(self._it, None)
+    def _prepare(self, batch) -> Batch:
+        """Device binning and the multiscale resize of a batch on the
+        device."""
+        frames, labels = batch
+        if isinstance(frames, (tuple, list)):
+            if self._bin is None:
+                raise ValueError("the loader ships raw events but "
+                                 "device_binning is off")
+            frames = self._bin(*frames)
+        if self._ms_interval:
+            frames, labels = multiscale_resize(frames, labels, self._ms_size)
+        return frames, labels
 
     def train_in_iter(self) -> bool:
         """One epoch; False when the batches ran out."""
+        from torch.profiler import ProfilerActivity, profile
+
+        profile_n = int(getattr(self.args, "profile", 0) or 0)
+        # skip the steps that warm up (JAX: the compiling first step; here
+        # the eager warm-up and the capture) where the epoch has more
+        first = (CapturedStep.WARMUP + 1 if isinstance(
+            self.step_fn, CapturedStep) else 1)
+        profile_start = min(first, self.iters_per_epoch - 1)
+        prof = None
         for it in range(self.iters_per_epoch):
+            if profile_n and self.epoch == self.start_epoch:
+                if it == profile_start and prof is None:
+                    acts = [ProfilerActivity.CPU] + (
+                        [ProfilerActivity.CUDA]
+                        if self.device.type == "cuda" else [])
+                    prof = profile(activities=acts)
+                    prof.start()
+                elif prof is not None and it == profile_start + profile_n:
+                    self._stop_profile(prof, profile_n)
+                    prof = None
+            if self._ms_interval and it % self._ms_interval == 0:
+                self._ms_size = self._ms_sizes[
+                    int(self._ms_rng.integers(len(self._ms_sizes)))]
             t0 = time.perf_counter()
-            batch = self._next()
+            batch = next(self._batches, None)
+            t_data = time.perf_counter()
             if batch is None:
                 self.logger.info("batches exhausted at epoch %d, iter %d",
                                  self.epoch + 1, it + 1)
+                if prof is not None:
+                    self._stop_profile(prof, profile_n)
                 return False
-            events, labels = (t.to(self.device, non_blocking=True)
-                              for t in batch)
-            t_data = time.perf_counter()
-            losses = train_step(self.model, self.optimizer, self.ema, events,
-                                labels, use_l1=self.use_l1)
+            events, targets = self._prepare(batch)
+            losses = self.step_fn(events, targets, use_l1=self.use_l1)
+            self.progress_in_iter = self.epoch * self.iters_per_epoch + it
             if (it + 1) % self.exp.print_interval == 0:
                 losses = {k: float(v) for k, v in losses.items()}
                 self.meter.update(iter_time=time.perf_counter() - t0,
                                   data_time=t_data - t0,
-                                  lr=self.optimizer.param_groups[0]["lr"],
-                                  **losses)
+                                  lr=learning_rate(self.optimizer), **losses)
                 self._log_iter(it)
+                self.tracker.log(updates(self.optimizer), losses)
             self.last_losses = losses
+        if prof is not None:
+            self._stop_profile(prof, profile_n)
         return True
 
+    def _stop_profile(self, prof, n: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        path = os.path.join(self.file_name, "profile")
+        os.makedirs(path, exist_ok=True)
+        trace = os.path.join(path, f"trace_step{updates(self.optimizer)}.json")
+        prof.export_chrome_trace(trace)
+        self.logger.info("profiler trace (%d iters) -> %s", n, trace)
+
     def _log_iter(self, it: int) -> None:
-        done = self.epoch * self.iters_per_epoch + it + 1
-        left = self.iters_per_epoch * self.max_epoch - done
+        left = self.iters_per_epoch * self.max_epoch \
+            - (self.progress_in_iter + 1)
         eta = datetime.timedelta(
             seconds=int(left * self.meter["iter_time"].avg))
         loss_str = ", ".join(f"{k}: {v.latest:.3f}"
@@ -149,3 +316,20 @@ class Trainer:
         path = self.ckpt.save(updates(self.optimizer), self.model,
                               self.optimizer, self.ema, self.best_ap)
         self.logger.info("epoch %d done: checkpoint %s", self.epoch + 1, path)
+        if (self.epoch + 1) % self.exp.eval_interval == 0:
+            self.logger.info(
+                "epoch %d: evaluation waits for the evaluators (ROADMAP.md "
+                "§1 item 9); best AP stays %.4f", self.epoch + 1,
+                self.best_ap)
+
+    def after_train(self) -> None:
+        if self.optimizer is not None:
+            self.logger.info("training done at step %d, best AP: %.4f",
+                             updates(self.optimizer), self.best_ap)
+        self.tracker.close()
+        if getattr(self.args, "grid_search", False):
+            # grid-search CSV row (reference trainer.py:205-226)
+            path = os.path.join(self.exp.output_dir, "grid_search.csv")
+            with open(path, "a", newline="") as f:
+                csv.writer(f).writerow(
+                    [self.best_ap, self.file_name, " ".join(sys.argv)])

@@ -1,0 +1,164 @@
+"""Event -> tensor representations of the Gen1 presets (the port's copy of
+``eas_snn_tpu/data/reps.py:41-145, 254-350``).
+
+Host (numpy) side, run by the dataset in loader workers: ``sum`` and
+``micro_sum`` polarity histograms (reference yolox/data/datasets/gen1.py:
+313-373), the time-window slicing they share, and ``pad_events``. The
+histograms go through the native core (``fastbin``) where the event
+fields fit its u16/u16/u8 layout; the numpy versions are its plain
+versions (``native=False``) and its test oracle.
+
+Device side: ``bin_event_batch`` scatter-adds host-indexed events into
+(B, Tl, Tm, H, W, 2) micro-frames on the card, the training path's device
+binning. JAX computes it as one XLA scatter outside any Pallas kernel; here
+it is one ``index_add_`` onto a flat buffer with a dead slot for padded
+and out-of-window events. Counts stay below 2^24, so the atomic f32 adds
+are exact whatever their order.
+
+Channel-last everywhere: a micro-frame stack is (Tm, H, W, 2).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["polarity_histogram", "slice_time_windows", "micro_sum",
+           "pad_events", "bin_event_batch"]
+
+
+def _native_xyp(events: np.ndarray):
+    """x/y/p arrays in the native core's u16/u16/u8 layout, or None where
+    a wider field holds a value that would wrap (then numpy runs, which
+    raises IndexError on coordinates outside the frame)."""
+    xs, ys, ps = events["x"], events["y"], events["p"]
+    for arr, want in ((xs, np.uint16), (ys, np.uint16), (ps, np.uint8)):
+        if arr.dtype != want and len(arr) and (
+            arr.min() < 0 or arr.max() > np.iinfo(want).max
+        ):
+            return None
+    return (np.ascontiguousarray(xs, np.uint16),
+            np.ascontiguousarray(ys, np.uint16),
+            np.ascontiguousarray(ps, np.uint8))
+
+
+def _native(events: np.ndarray, native: bool):
+    """(core, x, y, p) when the native core takes these events."""
+    if not native or not len(events):
+        return None
+    xyp = _native_xyp(events)
+    if xyp is None:
+        return None
+    from .fastbin import load_native
+
+    return (load_native(),) + xyp
+
+
+def polarity_histogram(events: np.ndarray, height: int, width: int,
+                       native: bool = True) -> np.ndarray:
+    """(H, W, 2) float32 count image by polarity (the reference's 'sum'
+    aggregation, gen1.py:333-349)."""
+    core = _native(events, native)
+    if core is not None:
+        lib, xs, ys, ps = core
+        out = np.zeros((2, height * width), np.float32)
+        lib.polarity_histogram(len(events), xs, ys, ps, height, width, out)
+        return np.moveaxis(out.reshape(2, height, width), 0, -1).copy()
+    out = np.zeros((height * width, 2), np.float32)
+    if len(events):
+        idx = events["y"].astype(np.int64) * width \
+            + events["x"].astype(np.int64)
+        p = events["p"].astype(np.int64) & 1
+        np.add.at(out, (idx, p), 1.0)
+    return out.reshape(height, width, 2)
+
+
+def slice_time_windows(
+    events: np.ndarray, n: int, overlap: float = 0.0
+) -> Tuple[Sequence[Optional[np.ndarray]], float]:
+    """n equal windows over [t_first, t_last) (reference gen1.py:313-328):
+    length ``(t_last - t_first) // (n(1 - overlap) + overlap)``, the i-th
+    starting at ``t_first + i(1 - overlap)tw``; with overlap 0 the
+    remainder ``(t_last - t_first) mod n`` is dropped. Returns (slices,
+    stride)."""
+    times = events["t"]
+    if len(times) == 0:
+        return [None] * n, 0
+    tw = (int(times[-1]) - int(times[0])) // (n * (1 - overlap) + overlap)
+    stride = (1 - overlap) * tw
+    starts = np.arange(n) * stride + times[0]
+    ends = starts + tw
+    i0 = np.searchsorted(times, starts)
+    i1 = np.searchsorted(times, ends)
+    return [events[a:b] for a, b in zip(i0, i1)], stride
+
+
+def micro_sum(events: np.ndarray, n_micro: int, height: int, width: int,
+              native: bool = True) -> np.ndarray:
+    """(Tm, H, W, 2) stack of polarity histograms of the Tm windows of
+    ``slice_time_windows`` (the reference's 'micro_sum', gen1.py:356-360);
+    the native core bins in one pass with the same window edges."""
+    core = _native(events, native)
+    if core is not None:
+        lib, xs, ys, ps = core
+        t0 = int(events["t"][0])
+        tw = (int(events["t"][-1]) - t0) // n_micro
+        out = np.zeros((n_micro, 2, height * width), np.float32)
+        if tw > 0:
+            lib.micro_sum(len(events),
+                          np.ascontiguousarray(events["t"], np.int64),
+                          xs, ys, ps, t0, tw, n_micro, height, width, out)
+        return np.moveaxis(out.reshape(n_micro, 2, height, width), 1,
+                           -1).copy()
+    out = np.zeros((n_micro, height, width, 2), np.float32)
+    if len(events):
+        slices, _ = slice_time_windows(events, n_micro)
+        for i, ev in enumerate(slices):
+            if ev is not None and len(ev):
+                out[i] = polarity_histogram(ev, height, width, native=False)
+    return out
+
+
+def pad_events(events: np.ndarray, max_events: int):
+    """int32 (t, x, y, p) and bool valid arrays of length ``max_events``;
+    a longer stream keeps its most recent events (the windows end at the
+    label time, gen1.py:115-137)."""
+    n = len(events)
+    if n > max_events:
+        events = events[n - max_events:]
+        n = max_events
+    t = np.zeros(max_events, np.int32)
+    x = np.zeros(max_events, np.int32)
+    y = np.zeros(max_events, np.int32)
+    p = np.zeros(max_events, np.int32)
+    v = np.zeros(max_events, bool)
+    t[:n] = events["t"].astype(np.int64) & 0x7FFFFFFF
+    x[:n] = events["x"]
+    y[:n] = events["y"]
+    p[:n] = events["p"]
+    v[:n] = True
+    return t, x, y, p, v
+
+
+def bin_event_batch(b: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                    p: torch.Tensor, valid: torch.Tensor, *, n_bins: int,
+                    height: int, width: int) -> torch.Tensor:
+    """(..., N) host-indexed events (micro-bin ``b``, pixel, polarity,
+    validity) -> (..., n_bins, H, W, 2) f32 counts on the events' device:
+    (B, Tl, N) is the JAX ``bin_event_batch``, (N,) its
+    ``bin_indexed_events_device``."""
+    lead = tuple(b.shape[:-1])
+    n_slices = int(np.prod(lead, dtype=np.int64))
+    size = n_bins * height * width * 2
+    dev = b.device
+    base = torch.arange(n_slices, device=dev, dtype=torch.int64).reshape(
+        lead + (1,)) * size
+    flat = (b.long() * (height * width * 2) + y.long() * (width * 2)
+            + x.long() * 2 + (p.long() & 1))
+    flat = torch.where(valid, base + flat, n_slices * size).reshape(-1)
+    hist = torch.zeros(n_slices * size + 1, dtype=torch.float32, device=dev)
+    hist.index_add_(0, flat, torch.ones(flat.shape[0], dtype=torch.float32,
+                                        device=dev))
+    return hist[:-1].reshape(lead + (n_bins, height, width, 2))

@@ -8,13 +8,16 @@ JAX ``tpu_deploy()``, whose space-to-depth sampler packing is a TPU layout
 trick),
 ``exp.get_model()`` builds the seeded model on the card (in train mode
 with ``train=True``), ``exp.detect(model, events)`` runs the forward
-without gradients, then the confidence filter and NMS, and
-``exp.get_trainer()`` gives the trainer.
+without gradients, then the confidence filter and NMS,
+``exp.get_data_loader()`` gives the training batches of ``data_dir`` and
+``exp.get_trainer()`` the trainer; ``exp.merge(["key", "value", ...])``
+applies command-line overrides (JAX ``exp/base_exp.py:24``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import ast
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -78,6 +81,24 @@ class EventExp:
         # 'never' | 'auto' | 'always': the fused sampler kernels (the JAX
         # use_pallas; models/embedding.py)
         self.fused_sampler = "never"
+        # data (reference event_yolox_base.py:61-79); the loader's workers
+        # are processes (the JAX data_worker_mode has no counterpart)
+        self.data_name = "n-caltech"
+        self.data_dir = None
+        self.data_num_workers = 4
+        self.aggregation = "micro_sum"
+        self.measure = "count"
+        self.window = -200  # ms
+        self.input_size = (640, 640)
+        self.flip_prob = 0.5
+        self.max_labels = 50
+        # every N train steps a seeded size from input_size +- 32 * k,
+        # k <= multiscale_range (0: off)
+        self.multiscale_interval = 0
+        self.multiscale_range = 5
+        # ship raw indexed events and bin them on the card
+        self.device_binning = False
+        self.max_events_per_slice = 131072
         # training (reference event_yolox_base.py:101-133)
         self.warmup_epochs = 0
         self.max_epoch = 300
@@ -92,6 +113,8 @@ class EventExp:
         self.momentum = 0.9
         self.emb_lr = -1.0
         self.print_interval = 10
+        self.eval_interval = 10
+        self.save_history_ckpt = False
         self.seed = None
         self.output_dir = "./outputs"
         self.test_size = (640, 640)
@@ -167,11 +190,78 @@ class EventExp:
             base_lr=self.basic_lr_per_img * batch_size,
         )
 
-    def get_trainer(self, device="cuda",
+    def get_slice_args(self) -> dict:
+        """(reference get_slice_args :433-443)"""
+        return dict(aggregation=self.aggregation, overlap=0,
+                    num_slice=self.Tl, micro_slice=self.Tm,
+                    measure=self.measure, window=(self.window * 1000, 0))
+
+    def get_dataset(self, training: bool = True, map_val: bool = False):
+        """The dataset of ``data_name`` (reference :220-247, :445-482)."""
+        from ..data import build_dataset
+
+        return build_dataset(
+            self.data_name, data_dir=self.data_dir, training=training,
+            map_val=map_val,
+            input_size=self.input_size if training else self.test_size,
+            max_labels=self.max_labels,
+            flip_prob=self.flip_prob if training else 0.0,
+            raw_events=self.device_binning and training,
+            max_events_per_slice=self.max_events_per_slice,
+            **self.get_slice_args())
+
+    def get_data_loader(self, batch_size: int, training: bool = True,
+                        map_val: bool = False, seed: int = 0,
+                        pin_memory: bool = False):
+        """Training batches (infinite, shuffled) or one ordered pass. One
+        process: rank 0 of 1 until the distributed slice (ROADMAP.md §1
+        item 10)."""
+        from ..data import EventDataLoader
+
+        return EventDataLoader(
+            self.get_dataset(training=training, map_val=map_val),
+            batch_size=batch_size, shuffle=training, infinite=training,
+            num_workers=self.data_num_workers, seed=self.seed or seed,
+            rank=0, world_size=1, pin_memory=pin_memory)
+
+    def get_evaluator(self, batch_size: int, testdev: bool = False):
+        raise NotImplementedError(
+            "the evaluators are not ported yet: ROADMAP.md §1 item 9")
+
+    def merge(self, cfg_list: Sequence[str]) -> "EventExp":
+        """Command-line 'key value' overrides, each value coerced to the
+        type of the field it replaces (reference base_exp.py:67-90). A
+        field that is None (``seed``, ``data_dir``) takes the value as a
+        Python literal where it parses as one (``seed 5`` an int), else as
+        the string: the JAX package keeps the string, which its trainer
+        cannot seed from."""
+        if len(cfg_list) % 2:
+            raise ValueError("overrides must be 'key value' pairs, got "
+                             f"{list(cfg_list)}")
+        for k, v in zip(cfg_list[0::2], cfg_list[1::2]):
+            k = k[2:] if k.startswith("--") else k
+            if not hasattr(self, k):
+                raise KeyError(f"unknown config key '{k}'")
+            if not isinstance(getattr(self, k), str):
+                try:
+                    v = ast.literal_eval(v)
+                except (ValueError, SyntaxError):
+                    pass
+            setattr(self, k, v)
+        return self
+
+    def check_exp_value(self) -> None:
+        h, w = self.input_size
+        if h % 32 or w % 32:
+            raise ValueError(f"input size {self.input_size} must be "
+                             "multiples of 32")
+
+    def get_trainer(self, args=None, device="cuda",
                     iters_per_epoch: Optional[int] = None):
         from ..core.trainer import Trainer
 
-        return Trainer(self, device=device, iters_per_epoch=iters_per_epoch)
+        return Trainer(self, args, device=device,
+                       iters_per_epoch=iters_per_epoch)
 
 
 def detect(model: EASYOLOX, events: torch.Tensor, conf_thre: float = 0.01,
@@ -191,7 +281,9 @@ def _gen1_syolox(exp: EventExp, depth: float, width: float) -> EventExp:
     Tl=1 Tm=4 Ts=T=3, write_zero, atan, soft reset."""
     exp.depth, exp.width = depth, width
     exp.num_classes = 2
-    exp.test_size = (256, 320)
+    exp.data_name = "gen1"
+    exp.input_size = exp.test_size = (256, 320)
+    exp.window = -200
     exp.use_spike = "True"
     exp.embedding = "arsnn"
     exp.embedding_depth = 2
@@ -206,6 +298,7 @@ def _gen1_syolox(exp: EventExp, depth: float, width: float) -> EventExp:
     exp.max_epoch = 30
     exp.scheduler = "fixed"
     exp.basic_lr_per_img = 1.5625e-5
+    exp.eval_interval = 5
     return exp
 
 
@@ -214,7 +307,8 @@ def _gen4_rvt_syolox_m(exp: EventExp) -> EventExp:
     1Mpx (RVT-preprocessed) histories, 384x640, 3 classes, Tl=Tm=Ts=T=3."""
     _gen1_syolox(exp, 0.67, 0.75)
     exp.num_classes = 3
-    exp.test_size = (384, 640)
+    exp.data_name = "rvt-gen4"
+    exp.input_size = exp.test_size = (384, 640)
     exp.Tl, exp.Tm = 3, 3
     return exp
 

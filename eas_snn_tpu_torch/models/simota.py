@@ -30,7 +30,7 @@ _INF = 1e9  # invalid-gt penalty (replaces the dynamic gt count)
 def _topk_sum(x: torch.Tensor, k: int) -> torch.Tensor:
     """Sum of the k largest values along the last axis, duplicates counted
     once per copy (``jax.lax.top_k(x, k)[0].sum(-1)``)."""
-    neg = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
+    neg = torch.full((), float("-inf"), dtype=x.dtype, device=x.device)
     acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
     rem = torch.full(x.shape[:-1], k, dtype=torch.int32, device=x.device)
     cur = x
@@ -47,7 +47,7 @@ def _topk_sum(x: torch.Tensor, k: int) -> torch.Tensor:
 def _kth_smallest(x: torch.Tensor, ks: torch.Tensor, k: int) -> torch.Tensor:
     """The ks-th smallest value along the last axis (1 <= ks <= k), a
     duplicated value taking one rank per copy."""
-    pos = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    pos = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
     kth = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
     cum = torch.zeros(x.shape[:-1], dtype=torch.int32, device=x.device)
     cur = x

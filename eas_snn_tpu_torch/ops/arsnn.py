@@ -109,8 +109,8 @@ def arsnn_scan(
         write = torch.where(valid, v, torch.zeros((), dtype=dt, device=dev))
         agg = agg + _onehot(seg, Ts).to(dt) * write[None]
         seg = seg + valid.to(torch.int8)
-        t_last = torch.where(valid, torch.tensor(t, dtype=torch.int8,
-                                                 device=dev), t_last)
+        t_last = torch.where(valid, torch.full((), t, dtype=torch.int8,
+                                               device=dev), t_last)
         vavg = torch.where(spiked, torch.zeros((), dtype=dt, device=dev), vavg)
 
     # residual write for elements that never closed their last slot

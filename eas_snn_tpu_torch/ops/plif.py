@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -362,14 +362,30 @@ def _surrogate_constants(kind: str, alpha: float) -> Tuple[float, float]:
 # (device, stream) -> f32 scratch of the backward kernel: its ticket
 # (zero between launches: the kernel's last block resets it) and the
 # blocks' partials. Grown, never shrunk; launches on one stream are
-# ordered, so one buffer serves them all.
+# ordered, so one buffer serves them all. A CUDA graph keeps the address
+# it captured, so a buffer that growth replaces stays alive in
+# _BWD_RETIRED (a graph of a smaller geometry still writes it at replay),
+# and no buffer is made or grown during a capture: a step warms up on the
+# capturing stream first (core/train_state.py:CapturedStep).
 _BWD_SCRATCH: Dict[Tuple[str, int], torch.Tensor] = {}
+_BWD_RETIRED: List[torch.Tensor] = []
+
+
+def _capturing(dev: torch.device) -> bool:
+    return dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 def _bwd_scratch(dev: torch.device, stream: int, words: int) -> torch.Tensor:
     key = (str(dev), stream)
     buf = _BWD_SCRATCH.get(key)
     if buf is None or buf.numel() < words:
+        if _capturing(dev):
+            raise RuntimeError(
+                "plif_train_backward: its scratch buffer would be made or "
+                f"grown to {words} words during a CUDA graph capture; run "
+                "the step eagerly on the capturing stream first")
+        if buf is not None:
+            _BWD_RETIRED.append(buf)
         buf = torch.zeros(1 << max(12, (words - 1).bit_length()),
                           dtype=torch.float32, device=dev)
         _BWD_SCRATCH[key] = buf

@@ -418,11 +418,17 @@ def test_entry_points_default_to_the_card():
 
 _NO_JAX_RUN = """
 import sys
-for name in ("jax", "flax", "optax", "orbax", "eas_snn_tpu"):
+for name in ("jax", "flax", "optax", "orbax", "eas_snn_tpu", "cv2"):
     sys.modules[name] = None
+import numpy as np
 import torch
 import eas_snn_tpu_torch.core
+import eas_snn_tpu_torch.data
+import eas_snn_tpu_torch.tools.train_event
+import eas_snn_tpu_torch.utils.logger
+import eas_snn_tpu_torch.utils.tracking
 from eas_snn_tpu_torch.core import init_ema, train_step
+from eas_snn_tpu_torch.data import micro_sum, resize_frames
 from eas_snn_tpu_torch.exp import get_exp
 exp = get_exp("gen1_syolox_s")
 exp.width, exp.depth = 0.125, 0.33
@@ -436,8 +442,13 @@ lab = torch.zeros(1, 50, 5)
 lab[0, 0] = torch.tensor([1.0, 16.0, 16.0, 12.0, 10.0])
 out = train_step(m, opt, init_ema(m), ev, lab, to_host=True)
 assert all(v == v for v in out.values()) and out["total_loss"] > 0
+ev = np.zeros(100, [("t", "<u4"), ("x", "<u2"), ("y", "<u2"), ("p", "u1")])
+ev["t"] = np.arange(100)
+assert micro_sum(ev, 4, 8, 8).sum() == 96  # t 96-99 past 4 windows of 24
+assert resize_frames(np.ones((4, 8, 8, 2), np.float32), (16, 16)).shape \
+    == (4, 16, 16, 2)
 assert not any(k.split(".")[0] in ("jax", "flax", "optax", "orbax",
-                                   "eas_snn_tpu")
+                                   "eas_snn_tpu", "cv2")
                for k in sys.modules if sys.modules[k] is not None)
 print("ok")
 """
@@ -453,15 +464,19 @@ def test_port_runs_with_jax_blocked():
 
 def test_no_jax_import_in_port_sources():
     pat = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|optax|orbax|eas_snn_tpu)(\.|\s|$)",
-        re.M)
+        r"^\s*(import|from)\s+(jax|flax|optax|orbax|eas_snn_tpu|cv2)"
+        r"(\.|\s|$)", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, dirs, names in os.walk(os.path.join(REPO, "eas_snn_tpu_torch")):
         dirs[:] = [d for d in dirs if d != "_build"]  # kernel build output
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     assert any(f.endswith(os.path.join("core", "trainer.py")) for f in files)
+    for new in (("data", "augment.py"), ("data", "loader.py"),
+                ("tools", "train_event.py"), ("utils", "tracking.py")):
+        assert any(f.endswith(os.path.join(*new)) for f in files), new
     hits = [f for f in files if pat.search(open(f).read())]
     assert not hits, hits
     assert not pat.search("import eas_snn_tpu_torch\n"
                           "from eas_snn_tpu_torch.ops import plif\n")
+    assert pat.search("    import cv2\n")
