@@ -128,8 +128,26 @@ Phases, each of which fails the run (exit code 1, no result line):
    a profiled window of 3 trainer steps (idle share), the loader alone
    (samples/s), the host ms a sample (``dataset.profile``); then 2 steps
    with device binning and ``--profile 1``, and that loader's samples/s
-   and host ms a raw sample;
-8. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+   and host ms a raw sample. The first trainer has a val split (1 stream,
+   16 label groups) and ``eval_interval`` 1: its epoch end evaluates the
+   EMA weights in its separate eval model between replays of the captured
+   step; every parameter, buffer, Adam state and EMA tensor must keep its
+   bits, ``best.pth`` and the val row of ``metrics.jsonl`` must be
+   written, and the next replays' losses must be finite;
+8. the eval entry point: a synthetic Gen1 val tree (the ap_drift writer,
+   3 streams of 40 label groups at 240x304); the COCO and the Prophesee
+   evaluator fed the ground truth as letterboxed predictions must give AP
+   and AP50 1.0; ``gen1_syolox_m`` with calibrated random weights (saved,
+   then loaded through ``-c``) through ``tools/eval_event.py:main`` with
+   ``--fp16 -b 64`` from zeroed launch counts, which must be 35 / 8 / 6 /
+   1 + Tm of kernel 5 a batch; the evaluator's split (frames/s with the
+   loader in the loop, forward and NMS ms an image, the data-time share,
+   the gather and matching seconds) on a first pass (workers starting)
+   and a second one (warm workers, the same AP); the native matcher
+   against the numpy one on the model's rows (equal stats); one profiled
+   batch (the eval kernels by name); the ``--energy`` report (SOPs, dense
+   MACs, mJ a frame);
+9. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM, 989 TFLOP/s
@@ -216,6 +234,7 @@ KERNEL_INFO = {
                    "eas_snn_tpu/ops/arsnn_pallas.py:147"),
 }
 FAILURES = []
+PTXAS_FLAGS = ("-Xptxas=-v",)  # added to the build's flags (phase 1)
 DEV = "cuda"
 SEED = 0
 
@@ -1874,6 +1893,47 @@ def host_cost(exp, what: str, n: int = 16) -> None:
           f"ms{split}")
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return torch.equal(_bits(a.reshape(-1)), _bits(b.reshape(-1)))
+
+
+def eval_between_replays(tr) -> None:
+    """The trainer's epoch end with its evaluation (``eval_interval`` 1)
+    between replays of the captured step: every parameter, buffer, Adam
+    state and EMA tensor must keep its bits; ``best.pth`` and the val row
+    of ``metrics.jsonl`` must be written. The smoke run's weights have
+    seen a few dozen steps of noise, whose AP may be 0.0, which is no new
+    best against the trainer's initial 0.0: the best AP is set to -1 first,
+    so that this evaluation is a best whatever its AP."""
+    before = [t.detach().clone() for t in _state_tensors(
+        tr.model, tr.optimizer, tr.ema)]
+    tr.best_ap = -1.0
+    t0 = time.perf_counter()
+    tr.after_epoch()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    after = _state_tensors(tr.model, tr.optimizer, tr.ema)
+    changed = sum(not _same_bits(a, b) for a, b in zip(before, after))
+    rows = [json.loads(r) for r in open(os.path.join(tr.file_name,
+                                                     "metrics.jsonl"))]
+    val = [r for r in rows if r["split"] == "val"]
+    best = tr.ckpt.best_path
+    tm = tr.evaluator.timing
+    print(f"  evaluation between replays (epoch end, eval_interval 1) in "
+          f"{dt:.1f} s: val rows {val}; {tm['samples']} val samples, "
+          f"forward {1e3 * tm['forward_s'] / max(tm['samples'], 1):.3f} ms "
+          f"an image; {changed} of {len(before)} train-state tensors "
+          f"changed; best.pth {'written' if os.path.exists(best) else 'missing'}")
+    if changed:
+        fail(f"phase 7: the evaluation changed {changed} train-state tensors")
+    if not os.path.exists(best):
+        fail(f"phase 7: {best} not written")
+    if not val or not all(np.isfinite(r["AP50_95"]) for r in val):
+        fail(f"phase 7: metrics.jsonl holds no val AP: {val}")
+
+
 def phase_entry_point(B: int, steps: int, workers: int) -> None:
     """Phase 7: ``gen1_syolox_m`` trained through the port's CLI parser,
     ``exp.get_data_loader`` and ``Trainer`` from a synthetic Gen1 tree:
@@ -1891,12 +1951,15 @@ def phase_entry_point(B: int, steps: int, workers: int) -> None:
     shutil.rmtree(root, ignore_errors=True)
     data = os.path.join(root, "gen1")
     t0 = time.perf_counter()
-    tree = write_gen1_tree(data, streams=4, groups=32, seed=SEED)
+    tree = write_gen1_tree(os.path.join(data, "train"), streams=4, groups=32,
+                           seed=SEED)
+    val = write_gen1_tree(os.path.join(data, "val"), streams=1, groups=16,
+                          seed=SEED + 1)
     print(f"phase 7: the train entry point; synthetic Gen1 tree "
           f"({tree['streams']} streams, {tree['groups']} label groups, "
           f"{tree['events']} events at {EVENTS_PER_S} events/s, "
-          f"{GEN1_HW[0]}x{GEN1_HW[1]}) written in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{GEN1_HW[0]}x{GEN1_HW[1]}; val {val['groups']} label groups) "
+          f"written in {time.perf_counter() - t0:.1f} s")
     # the timed steps follow the warm-up, the capture and as many steps as
     # the workers had batches ready (two a worker), so that they see the
     # loader's steady rate
@@ -1905,7 +1968,8 @@ def phase_entry_point(B: int, steps: int, workers: int) -> None:
     argv = ["-n", "gen1_syolox_m", "-b", str(B), "-l", "jsonl",
             "data_dir", data, "output_dir", os.path.join(root, "out"),
             "data_num_workers", str(workers), "max_epoch", "1",
-            "print_interval", str(n_iters), "seed", str(SEED)]
+            "print_interval", str(n_iters), "seed", str(SEED),
+            "eval_interval", "1"]
     exp, args = build(argv)
     exp.iters_per_epoch = n_iters
     tr = exp.get_trainer(args, device=DEV)
@@ -1949,7 +2013,7 @@ def phase_entry_point(B: int, steps: int, workers: int) -> None:
         fail(f"phase 7: a loss is not finite: {losses}")
     if step.replays != n_iters - w:
         fail(f"phase 7: {step.replays} replays, expected {n_iters - w}")
-    tr.after_epoch()
+    eval_between_replays(tr)
     saved = updates(tr.optimizer)
 
     # resume: the next steps of the first trainer (replays) against the
@@ -1959,6 +2023,9 @@ def phase_entry_point(B: int, steps: int, workers: int) -> None:
     n = CapturedStep.WARMUP + 1
     after = [{k: float(v) for k, v in step(ev, lab).items()}
              for _ in range(n)]
+    if not all(np.isfinite(v) for a in after for v in a.values()):
+        fail(f"phase 7: a loss of the replays after the evaluation is not "
+             f"finite: {after}")
     args.resume = True
     tr2 = exp.get_trainer(args, device=DEV)
     tr2.before_train([(ev.cpu(), lab.cpu())])
@@ -1999,7 +2066,7 @@ def phase_entry_point(B: int, steps: int, workers: int) -> None:
 
     # device binning: raw indexed events from the loader, binned on card
     exp, args = build(["-expn", "binning", "--profile", "1"] + argv
-                      + ["device_binning", "True"])
+                      + ["device_binning", "True", "eval_interval", "10"])
     exp.iters_per_epoch = 2
     tr = exp.get_trainer(args, device=DEV)
     tr.train()
@@ -2018,6 +2085,297 @@ def phase_entry_point(B: int, steps: int, workers: int) -> None:
     print(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 8
+
+EVAL_GEN1 = "gen1_syolox_m"
+EVAL_BATCH = 64  # the eval CLI's -b in phase 8
+EVAL_OPTS: list = []  # extra 'key value' overrides (a CPU rehearsal's)
+
+
+def truth_forward(ds, num_classes: int, batch: int, scale: float):
+    """A forward_fn that returns each batch's ground truth as decoded,
+    letterboxed predictions (obj and class score 0.99, the other anchors
+    empty), for the map_val loader's sequential order."""
+    order = iter(range(len(ds)))
+
+    def forward(frames):
+        B = frames.shape[0]
+        sids = [next(order) for _ in range(B)]
+        boxes = [ds.raw_boxes(*ds.resolve_index(i)) for i in sids]
+        A = max(8, max(len(b) for b in boxes))
+        out = np.zeros((B, A, 5 + num_classes), np.float32)
+        out[:, :, 2:4] = 1e-3
+        out[:, :, 4] = 1e-9
+        for b, rows in enumerate(boxes):
+            for j, (x1, y1, x2, y2, cls) in enumerate(rows):
+                out[b, j, :4] = ((x1 + x2) / 2 * scale, (y1 + y2) / 2 * scale,
+                                 (x2 - x1) * scale, (y2 - y1) * scale)
+                out[b, j, 4] = 0.99
+                out[b, j, 5 + int(cls)] = 0.99
+        return out
+
+    return forward
+
+
+class _OneBatch(list):
+    """A one-batch stand-in for an evaluator's loader."""
+
+    def __init__(self, batch, dataset):
+        super().__init__([batch])
+        self.dataset = dataset
+
+
+def _timing_line(tm: dict) -> str:
+    n = tm["samples"]
+    loop = tm["data_s"] + tm["forward_s"] + tm["nms_s"] + tm["rows_s"]
+    return (f"{n / loop:.2f} frames/s with the loader in the loop ({n} "
+            f"frames in {loop:.3f} s; whole pass with the matching "
+            f"{tm['wall_s']:.3f} s); forward {1e3 * tm['forward_s'] / n:.3f} "
+            f"ms an image (to the host, f32), NMS {1e3 * tm['nms_s'] / n:.3f} "
+            f"ms an image, row assembly {1e3 * tm['rows_s'] / n:.3f}; data "
+            f"time {tm['data_s'] / loop:.3f} of the loop; gather + matching "
+            f"{tm['match_s']:.3f} s")
+
+
+def profiled_eval_batch(argv_json: str, ckpt: str, batch_path: str) -> int:
+    """Phase 8's profiled batch, run as a process of its own: the eval
+    CLI's model (``argv_json``, weights from ``ckpt``) on one saved loader
+    batch under torch.profiler. Prints the launches by the wrappers'
+    counts and by kernel name, with the names expected, as JSON on its
+    last line.
+
+    In the process that has run phases 2-7 the profiler recorded none of
+    kernel 5's launches in this window, three windows running, while its
+    wrapper, which checks every launch, counted them all; a fresh process
+    records every launch (the cause is not known)."""
+    from eas_snn_tpu_torch.core.checkpoint import load_eval_weights
+    from eas_snn_tpu_torch.tools import eval_event
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + PTXAS_FLAGS  # phase 1's builds
+    exp, _ = eval_event.build(json.loads(argv_json))
+    model = exp.get_model(device=DEV, seed=SEED)
+    load_eval_weights(model, ckpt)
+    frames = torch.load(batch_path).to(DEV)
+    want = {"plif_fwd_kernel": PER_FORWARD["plif_fwd"],
+            "conv_wgmma_kernel": sum(PER_FORWARD[k] for k in (
+                "conv1x1_plif", "conv3x3_plif", "conv3x3s2_plif")),
+            "arsnn_v2_kernel": exp.Tm}
+
+    # the profiler can miss launches of a short window (phase 5): the
+    # window opens with a short spin kernel, and a window short of a
+    # kernel is profiled again, at most three
+    def batch_in_window():
+        torch.cuda._sleep(1_000_000)
+        exp.detect(model, frames)
+
+    exp.detect(model, frames)  # warm-up
+    for attempt in range(3):
+        reset_launches()
+        rows = profile_call(batch_in_window,
+                            f"one eval batch (B={frames.shape[0]})", top=6)
+        one = launch_counts()
+        by_name = {sym: profiled_total(rows, sym)[1] for sym in want}
+        print(f"  launches in the profiled batch (window {attempt + 1}): "
+              f"wrappers {one}; by kernel name {by_name}")
+        if by_name == want:
+            break
+    print(json.dumps({"wrappers": one, "by_name": by_name, "want": want}))
+    return 0
+
+
+def phase_eval_entry_point(B: int, workers: int) -> None:
+    """Phase 8: the eval entry point (``tools/eval_event.py:main``) on the
+    card at full width: ``gen1_syolox_m`` under ``--fp16`` (``deploy()``)
+    with calibrated random weights loaded through ``-c``, over a synthetic
+    Gen1 val tree (the ap_drift writer); the evaluators' protocol checks
+    with the ground truth as predictions, the native matcher against the
+    numpy one on the model's rows, the launches of one profiled batch,
+    the evaluator's timing split and the ``--energy`` report."""
+    import shutil
+
+    from eas_snn_tpu_torch.evaluators import DetEval, EventEvaluator
+    from eas_snn_tpu_torch.tools import ap_drift, eval_event
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "outputs", "chip_smoke_phase8")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    data = ap_drift.make_data(os.path.join(root, "gen1"), n_train=0,
+                              n_val=3)
+    print(f"phase 8: the eval entry point; synthetic Gen1 val tree (the "
+          f"ap_drift writer: 3 streams of 40 label groups, "
+          f"{ap_drift.H_SENSOR}x{ap_drift.W_SENSOR}) written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    opts = ["data_dir", data, "data_num_workers", str(workers)] + EVAL_OPTS
+
+    # calibrated random weights, saved as a state dict for -c
+    exp, _ = eval_event.build(["-n", EVAL_GEN1, "--fp16"] + opts)
+    model = exp.get_model(device=DEV, seed=SEED)
+    H, W = exp.test_size
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    with torch.no_grad():
+        calibrate_spiking_bn(model, torch.poisson(torch.full(
+            (8, exp.Tl, exp.Tm, H, W, exp.in_dim), 0.2, device=DEV),
+            generator=gen))
+    ckpt = os.path.join(root, "calibrated.pth")
+    torch.save(model.state_dict(), ckpt)
+    del model
+
+    # protocol checks: the ground truth as predictions gives AP 1
+    for proph in (False, True):
+        pexp, _ = eval_event.build(["-n", EVAL_GEN1, "--fp16"] + (
+            ["--eval_proh"] if proph else []) + opts)
+        ev = pexp.get_evaluator(batch_size=B)
+        ds = ev.dataloader.dataset
+        scale = min(H / ds.img_size[0], W / ds.img_size[1])
+        t0 = time.perf_counter()
+        ap, ap50, _ = ev.evaluate(truth_forward(ds, pexp.num_classes, B,
+                                                scale))
+        what = "Prophesee" if proph else "COCO"
+        print(f"  {what} protocol, ground truth as predictions over "
+              f"{len(ds)} samples: AP {ap:.6f}, AP50 {ap50:.6f} "
+              f"({time.perf_counter() - t0:.2f} s)")
+        if ap != 1.0 or ap50 != 1.0:
+            fail(f"phase 8: {what} AP {ap} / AP50 {ap50} with the ground "
+                 "truth as predictions, expected 1.0")
+
+    # the model through the CLI, from zeroed launch counts
+    flags = ["-n", EVAL_GEN1, "--fp16", "-b", str(B), "-c", ckpt,
+             "--device", DEV]
+    argv = flags + opts
+    reset_launches()
+    t0 = time.perf_counter()
+    res = eval_event.main(argv)
+    counts = launch_counts()
+    ev, tm = res["evaluator"], res["timing"]
+    n_batches = -(-tm["samples"] // B)
+    print(f"  eval_event.main {' '.join(argv[:6])} ...: AP {res['ap']:.4f}, "
+          f"AP50 {res['ap50']:.4f} in {time.perf_counter() - t0:.1f} s "
+          f"(model, weights, {res['conv_gflops_per_frame']:.2f} conv "
+          f"GFLOPs a frame, {ev.dataloader.num_workers} loader workers "
+          f"started); launches {counts}")
+    print(f"  first pass (workers starting): {_timing_line(tm)}")
+    check_counts("phase 8 (eval entry point)", counts, n_batches, exp.Tm)
+    model = exp.get_model(device=DEV, seed=SEED)
+    from eas_snn_tpu_torch.core.checkpoint import load_eval_weights
+    load_eval_weights(model, ckpt)
+    ap2, ap50_2, text = exp.eval(model, ev)
+    print(f"  second pass (warm workers): {_timing_line(ev.timing)}; AP "
+          f"{ap2:.4f}, AP50 {ap50_2:.4f}")
+    print("  " + text.splitlines()[-1].strip())
+    if (ap2, ap50_2) != (res["ap"], res["ap50"]):
+        fail(f"phase 8: a second pass gave AP {ap2} / {ap50_2}, the first "
+             f"{res['ap']} / {res['ap50']}")
+    if not np.isfinite(ev.last_rows[0]).all():
+        fail("phase 8: non-finite detection rows")
+
+    # one batch of the loader: its copy to the card and the forward alone
+    batch = next(iter(ev.dataloader))
+    host = batch[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = host.to(DEV)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: model(frames), 3)
+    print(f"  one loader batch (B={frames.shape[0]}, "
+          f"{host.numel() * host.element_size() / 1e6:.1f} MB of f32 "
+          f"frames): its copy to the card {copy_ms:.3f} ms (pageable host "
+          f"memory), the forward alone {fwd_ms:.3f} ms (CUDA events)")
+    # the same batch profiled, with the eval kernels by name, in a process
+    # of its own (profiled_eval_batch)
+    batch_path = os.path.join(root, "batch.pt")
+    torch.save(host, batch_path)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+         "profiled_eval_batch(*sys.argv[1:]))",
+         json.dumps(["-n", EVAL_GEN1, "--fp16"] + opts), ckpt, batch_path],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    lines = r.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line)
+    try:
+        got = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        got = None
+    if r.returncode != 0 or got is None:
+        fail(f"phase 8: the profiled batch's process exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    else:
+        print(f"  (its process took {time.perf_counter() - t0:.1f} s)")
+        check_counts("phase 8 (one profiled batch)", got["wrappers"], 1,
+                     exp.Tm)
+        if got["by_name"] != got["want"]:
+            fail(f"phase 8: kernels by name {got['by_name']} in the "
+                 f"profiled batch, expected {got['want']}")
+
+    # the host NMS under load and the matchers on its rows: the head's
+    # prediction biases at 0, so that nearly every anchor passes the
+    # confidence filter (random weights at the YOLOX bias init keep no
+    # box), over the batch's first 8 images through the evaluator
+    with torch.no_grad():
+        for conv in list(model.head.obj_preds) + list(model.head.cls_preds):
+            conv.bias.zero_()
+        out = model(frames[:8]).float().cpu().numpy()
+    del model
+    one = _OneBatch([tuple(x[:8]) if i == 1 else x[:8]
+                     for i, x in enumerate(batch)], ev.dataloader.dataset)
+    for conf in (exp.test_conf, 0.001):
+        load = EventEvaluator(one, (H, W), conf, exp.nmsthre,
+                              exp.num_classes)
+        load.evaluate(lambda f: out)
+        n_in = float((out[..., 4] * out[..., 5:].max(-1) >= conf).sum(1)
+                     .mean())
+        det_rows, gt_rows = load.last_rows
+        print(f"  host NMS under load (head biases 0, 8 images of "
+              f"{out.shape[1]} anchors, conf {conf}): {n_in:.1f} boxes an "
+              f"image in, {len(det_rows) / 8:.1f} kept, "
+              f"{1e3 * load.timing['nms_s'] / 8:.3f} ms an image")
+    # the native matcher against the numpy one on those rows
+    t0 = time.perf_counter()
+    native = DetEval(exp.num_classes).evaluate(det_rows, gt_rows)
+    t1 = time.perf_counter()
+    plain = DetEval(exp.num_classes, use_native=False).evaluate(
+        det_rows, gt_rows)
+    t2 = time.perf_counter()
+    print(f"  matchers on {len(det_rows)} detection and {len(gt_rows)} "
+          f"ground-truth rows: native {t1 - t0:.3f} s, numpy {t2 - t1:.3f} "
+          f"s; AP {native.ap:.6f} / {plain.ap:.6f}")
+    if not len(det_rows) or not np.array_equal(native.stats, plain.stats):
+        fail(f"phase 8: native matcher {native.stats} != numpy "
+             f"{plain.stats} on {len(det_rows)} rows")
+
+    # the map_val loader alone at B=8 (more batches than workers): a
+    # pass that starts the workers, then a timed one
+    lexp, _ = eval_event.build(["-n", EVAL_GEN1, "--fp16"] + opts)
+    loader = lexp.get_evaluator(batch_size=8).dataloader
+    for what in ("workers starting", "warm workers"):
+        t0 = time.perf_counter()
+        n = sum(int(b[0].shape[0]) for b in loader)
+        dt = time.perf_counter() - t0
+        print(f"  the map_val loader alone at B=8, {what}: {n / dt:.2f} "
+              f"samples/s ({n} samples, {loader.num_workers} workers; at "
+              f"B={B} two batches keep two workers busy)")
+    del loader
+
+    # the energy report
+    t0 = time.perf_counter()
+    e = eval_event.main(flags + ["--energy"] + opts)["energy"]
+    print(f"  --energy ({EVAL_GEN1}, Poisson(0.2), one window): "
+          f"{e['sops']:.6g} SOPs, {e['dense_macs']:.6g} dense MACs, "
+          f"{e['snn_equivalent_macs']:.6g} MACs of the spiking sites if "
+          f"dense; {e['snn_energy_mJ']:.6g} + {e['ann_energy_mJ']:.6g} = "
+          f"{e['total_energy_mJ']:.6g} mJ a frame "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not (e["sops"] > 0 and e["total_energy_mJ"] > 0):
+        fail(f"phase 8: energy report {e}")
+    del ev, res
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
@@ -2025,7 +2383,7 @@ def main() -> int:
     ap.add_argument("--train-batch", type=int, default=64)
     ap.add_argument("--train-steps", type=int, default=8)
     ap.add_argument("--workers", type=int, default=7,
-                    help="phase 7's loader worker processes")
+                    help="phases 7 and 8's loader worker processes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2039,7 +2397,7 @@ def main() -> int:
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    _build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-Xptxas=-v",)
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + PTXAS_FLAGS
     log = io.StringIO()
     with contextlib.redirect_stderr(log):
         _build.build_all()
@@ -2095,6 +2453,7 @@ def main() -> int:
     del events, labels
     torch.cuda.empty_cache()
     phase_entry_point(B, args.train_steps, args.workers)
+    phase_eval_entry_point(EVAL_BATCH, args.workers)
 
     kernels = []
     for kname, agg in per_kernel.items():

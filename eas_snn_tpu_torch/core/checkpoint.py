@@ -6,7 +6,10 @@ A checkpoint holds {model, ema, optimizer, step, best_ap}: the model's
 state dict (parameters and BN buffers), the EMA parameters, the
 optimizer's state dict (its update count included), the step and the best
 AP so far. ``CheckpointManager`` writes ``ckpt_<step>.pth`` files and keeps
-the newest three.
+the newest three, and ``best.pth`` beside them when asked (JAX
+``core/checkpoint.py:35-56``). ``eval_state_dict`` reads the weights to
+evaluate from a checkpoint (its EMA where it has one) or from a reference
+``.pth``.
 """
 
 from __future__ import annotations
@@ -18,9 +21,11 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ..utils.weights import load_reference_state_dict
 from .optim import load_optimizer_state
 
-__all__ = ["CheckpointManager", "load_partial_params"]
+__all__ = ["CheckpointManager", "load_partial_params", "eval_state_dict",
+           "load_eval_weights"]
 
 _NAME = re.compile(r"ckpt_(\d+)\.pth$")
 
@@ -44,17 +49,24 @@ class CheckpointManager:
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step}.pth")
 
+    @property
+    def best_path(self) -> str:
+        return os.path.join(self.directory, "best.pth")
+
     def save(self, step: int, model: nn.Module,
              optimizer: torch.optim.Optimizer,
              ema: Optional[Dict[str, torch.Tensor]] = None,
-             best_ap: float = 0.0) -> str:
+             best_ap: float = 0.0, is_best: bool = False) -> str:
+        """Write ``ckpt_<step>.pth`` (and the same payload as ``best.pth``
+        with ``is_best``); returns the step's path."""
         payload = {"model": model.state_dict(),
                    "optimizer": optimizer.state_dict(),
                    "ema": ema, "step": int(step), "best_ap": float(best_ap)}
         path = self.path(step)
-        tmp = path + ".tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
+        for dst in (path, self.best_path) if is_best else (path,):
+            tmp = dst + ".tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, dst)
         for old in self.steps()[:-self.MAX_TO_KEEP]:
             os.remove(self.path(old))
         return path
@@ -101,3 +113,22 @@ def load_partial_params(model: nn.Module,
     return {"loaded": len(take), "shape_mismatch": mismatch,
             "missing": sorted(set(own) - set(state_dict)),
             "unexpected": sorted(set(state_dict) - set(own))}
+
+
+def eval_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The weights to evaluate from ``path``: a checkpoint of the port
+    (``ckpt_<step>.pth``, ``best.pth``) gives its model state with the EMA
+    parameters in place of the trained ones where it has an EMA; any other
+    ``.pth`` is read as a reference state dict
+    (``utils/weights.py:load_reference_state_dict``)."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and {"model", "ema", "step"} <= set(obj):
+        sd = dict(obj["model"])
+        sd.update(obj["ema"] or {})
+        return sd
+    return load_reference_state_dict(path)
+
+
+def load_eval_weights(model: nn.Module, path: str) -> None:
+    """``eval_state_dict(path)`` into ``model``, strictly, in place."""
+    model.load_state_dict(eval_state_dict(path), strict=True)

@@ -13,18 +13,24 @@ raw events, the seeded multiscale resize, then the step: one CUDA graph a
 batch geometry on the card (``CapturedStep``), ``train_step`` on the CPU.
 The no-aug tail turns the L1 loss on. Every ``exp.print_interval`` steps
 the losses come to the host into the meters, the log and
-``metrics.jsonl``; ``args.profile`` N traces N steps of the first epoch
-with torch.profiler into ``<run dir>/profile``; every epoch ends with a
-checkpoint in ``<run dir>/ckpt``.
+``metrics.jsonl`` (on the card with the MFU, a conv-only lower bound);
+``args.profile`` N traces N steps of the first epoch with torch.profiler
+into ``<run dir>/profile``. Every ``exp.eval_interval`` epochs the EMA
+weights (the trained ones without EMA) are evaluated in a separate
+eval-mode model, built once and refreshed from the train state at each
+evaluation, so the captured step's parameters are only read; AP and AP50
+go to the log and to ``metrics.jsonl`` under the ``val`` split, and the
+best AP so far to the checkpoints (JAX ``core/trainer.py:371-398``).
+Every epoch ends with a checkpoint in ``<run dir>/ckpt``, and a new best
+AP also writes ``best.pth``.
 
 ``train(batches)`` trains on an in-memory iterable of (events, labels)
 instead: a re-iterable (a list) is walked again when it runs out, a
 one-shot iterable ends the training.
 
-Not here yet: the evaluator and best-AP tracking (ROADMAP.md §1 item 9; at
-``eval_interval`` the log says so and AP stays 0.0), the MFU figure (its
-conv-FLOP count comes with the evaluators' energy module), multi-process
-training (item 10).
+Not here yet: the prediction images of the first eval batch (JAX
+``_log_pred_images``) and multi-process training (ROADMAP.md §1 items 7
+and 10).
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import torch.nn.functional as F
 
 from ..data.loader import DevicePrefetcher
 from ..data.reps import bin_event_batch
+from ..evaluators.energy import conv_macs_per_frame
 from ..utils.logger import setup_logger
 from ..utils.metric import MeterBuffer
 from ..utils.tracking import MetricsTracker
@@ -56,6 +63,9 @@ from .train_state import CapturedStep, init_ema, train_step
 __all__ = ["Trainer", "multiscale_resize"]
 
 Batch = Tuple[torch.Tensor, torch.Tensor]
+
+# the H100 SXM's dense bf16 tensor-core peak, the MFU's denominator
+PEAK_FLOPS = 989e12
 
 
 def multiscale_resize(events: torch.Tensor, targets: torch.Tensor,
@@ -119,6 +129,8 @@ class Trainer:
         self.epoch = self.start_epoch = 0
         self.model = self.optimizer = self.ema = self.ckpt = None
         self.train_loader = None
+        self.evaluator = self.eval_model = None
+        self._flops_per_frame: Optional[float] = None
         self.step_fn = None
         self.finetune_report: Optional[dict] = None
         self.last_losses: dict = {}
@@ -208,6 +220,11 @@ class Trainer:
                               if h + 32 * k > 0 and w + 32 * k > 0]
             self._ms_rng = np.random.default_rng(exp.seed or 0)
             self._ms_size = (h, w)
+        # conv FLOPs a frame for the MFU (JAX trainer.py:208-220)
+        self._flops_per_frame = 2.0 * conv_macs_per_frame(
+            self.model, (1, exp.Tl, exp.Tm, h, w, exp.in_dim))
+        self.logger.info("model: %.2f conv GFLOPs/frame",
+                         self._flops_per_frame / 1e9)
         self.logger.info(
             "training %s on %s: batch %d, %d iters/epoch, epochs %d-%d, "
             "step %s", exp.exp_name, self.device, batch_size,
@@ -307,20 +324,63 @@ class Trainer:
                if self.device.type == "cuda" else "")
         self.logger.info(
             "epoch: %d/%d, iter: %d/%d, %siter_time: %.3fs, data_time: "
-            "%.3fs, %s, lr: %.3e, ETA: %s", self.epoch + 1, self.max_epoch,
+            "%.3fs, %s%s, lr: %.3e, ETA: %s", self.epoch + 1, self.max_epoch,
             it + 1, self.iters_per_epoch, mem, self.meter["iter_time"].avg,
-            self.meter["data_time"].avg, loss_str,
+            self.meter["data_time"].avg, self._mfu_str(), loss_str,
             self.meter["lr"].latest, eta)
 
+    def _mfu_str(self) -> str:
+        """The MFU on the card against the H100's dense bf16 peak: a lower
+        bound, conv FLOPs only and 3x the forward for forward + backward
+        (JAX trainer.py:326-345)."""
+        it_s = self.meter["iter_time"].avg
+        if self.device.type != "cuda" or not self._flops_per_frame \
+                or it_s <= 0:
+            return ""
+        mfu = 3.0 * self._flops_per_frame * self.batch_size / it_s \
+            / PEAK_FLOPS
+        return f"mfu (conv-only lower bound): {100 * mfu:.1f}%, "
+
     def after_epoch(self) -> None:
+        is_best = ((self.epoch + 1) % self.exp.eval_interval == 0
+                   and self.evaluate_and_save_model())
         path = self.ckpt.save(updates(self.optimizer), self.model,
-                              self.optimizer, self.ema, self.best_ap)
-        self.logger.info("epoch %d done: checkpoint %s", self.epoch + 1, path)
-        if (self.epoch + 1) % self.exp.eval_interval == 0:
-            self.logger.info(
-                "epoch %d: evaluation waits for the evaluators (ROADMAP.md "
-                "§1 item 9); best AP stays %.4f", self.epoch + 1,
-                self.best_ap)
+                              self.optimizer, self.ema, self.best_ap,
+                              is_best=is_best)
+        self.logger.info("epoch %d done: checkpoint %s%s", self.epoch + 1,
+                         path, " (best)" if is_best else "")
+
+    def _refresh_eval_model(self) -> torch.nn.Module:
+        """The eval-mode model with the train state's buffers and the EMA
+        parameters (the trained ones without EMA), built on first use. The
+        train model is only read: its captured graphs replay fixed
+        addresses."""
+        if self.eval_model is None:
+            self.eval_model = self.exp.get_model(
+                device=self.device, seed=self.exp.seed or 0, train=False)
+        with torch.no_grad():
+            self.eval_model.load_state_dict(self.model.state_dict())
+            if self.ema is not None:
+                for n, p in self.eval_model.named_parameters():
+                    p.copy_(self.ema[n])
+        return self.eval_model
+
+    def evaluate_and_save_model(self) -> bool:
+        """Evaluate on the exp's map_val split; logs AP and AP50 and keeps
+        the best AP. Returns whether this AP is a new best (the caller's
+        checkpoint then also writes ``best.pth``)."""
+        if self.evaluator is None:
+            self.evaluator = self.exp.get_evaluator(
+                batch_size=self.batch_size)
+        ap, ap50, summary = self.exp.eval(self._refresh_eval_model(),
+                                          self.evaluator)
+        update_best = ap > self.best_ap
+        self.best_ap = max(self.best_ap, ap)
+        self.logger.info("epoch %d eval: AP=%.4f AP50=%.4f (best %.4f)\n%s",
+                         self.epoch + 1, ap, ap50, self.best_ap, summary)
+        self.tracker.log(updates(self.optimizer),
+                         {"AP50_95": ap, "AP50": ap50}, split="val")
+        return update_best
 
     def after_train(self) -> None:
         if self.optimizer is not None:

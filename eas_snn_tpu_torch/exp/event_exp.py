@@ -10,7 +10,9 @@ trick),
 with ``train=True``), ``exp.detect(model, events)`` runs the forward
 without gradients, then the confidence filter and NMS,
 ``exp.get_data_loader()`` gives the training batches of ``data_dir`` and
-``exp.get_trainer()`` the trainer; ``exp.merge(["key", "value", ...])``
+``exp.get_evaluator()`` the evaluator over its map_val split,
+``exp.eval(model, evaluator)`` its AP, and ``exp.get_trainer()`` the
+trainer; ``exp.merge(["key", "value", ...])``
 applies command-line overrides (JAX ``exp/base_exp.py:24``).
 """
 
@@ -120,6 +122,8 @@ class EventExp:
         self.test_size = (640, 640)
         self.test_conf = 0.01
         self.nmsthre = 0.65
+        # evaluate with the Prophesee protocol (gen* datasets)
+        self.eval_proph = False
 
     def deploy(self) -> "EventExp":
         """bf16 conv/BN compute, bf16 sampler state and the fused sampler
@@ -225,8 +229,45 @@ class EventExp:
             rank=0, world_size=1, pin_memory=pin_memory)
 
     def get_evaluator(self, batch_size: int, testdev: bool = False):
-        raise NotImplementedError(
-            "the evaluators are not ported yet: ROADMAP.md §1 item 9")
+        """The COCO-protocol evaluator over the map_val loader; the
+        Prophesee protocol when ``eval_proph`` is set on a gen* dataset
+        (JAX ``exp/event_exp.py:271-294``; reference :509-545)."""
+        from ..evaluators import EventEvaluator, PSEEEvaluator
+
+        loader = self.get_data_loader(batch_size, training=False,
+                                      map_val=True)
+        if "gen" in self.data_name and self.eval_proph:
+            return PSEEEvaluator(
+                dataloader=loader, img_size=self.test_size, confthre=0.001,
+                nmsthre=self.nmsthre, num_classes=self.num_classes,
+                camera="gen4" if "gen4" in self.data_name else "gen1",
+                # RVT frames are downsampled by 2 (the protocol's
+                # thresholds halve)
+                downsampled_by_2="rvt" in self.data_name.lower())
+        return EventEvaluator(
+            dataloader=loader, img_size=self.test_size,
+            confthre=self.test_conf, nmsthre=self.nmsthre,
+            num_classes=self.num_classes)
+
+    def eval(self, model: EASYOLOX, evaluator):
+        """``evaluator.evaluate`` over ``model`` in eval mode (its mode is
+        restored): each batch's frames go to the model's device, the
+        forward runs under ``torch.inference_mode`` and its decoded outputs
+        come back as float32 (a bf16 output is cast on the device, before
+        the copy). Returns (AP, AP50, summary)."""
+        dev = next(model.parameters()).device
+
+        def forward_fn(frames: torch.Tensor) -> np.ndarray:
+            with torch.inference_mode():
+                out = model(frames.to(dev, non_blocking=True))
+                return out.float().cpu().numpy()
+
+        was_training = model.training
+        model.eval()
+        try:
+            return evaluator.evaluate(forward_fn)
+        finally:
+            model.train(was_training)
 
     def merge(self, cfg_list: Sequence[str]) -> "EventExp":
         """Command-line 'key value' overrides, each value coerced to the

@@ -7,6 +7,8 @@ flags, so an edited source is rebuilt and an unchanged one is reused. The
 build directory (``eas_snn_tpu_torch/_build/``) is listed in ``.gitignore``.
 
 Nothing is built at import: the first kernel launch builds all libraries.
+The port's host C++ cores (``data/fastbin``, ``evaluators/cocoeval``) are
+built the same way, one ``g++`` each at first use (``host_library``).
 """
 
 from __future__ import annotations
@@ -19,12 +21,13 @@ import shutil
 import subprocess
 import sys
 import tempfile
-from typing import Dict
+import threading
+from typing import Dict, Sequence, Tuple
 
 import torch
 
-__all__ = ["SOURCES", "build_all", "get_lib", "check", "stream_ptr",
-           "sm_count", "require_cuda"]
+__all__ = ["SOURCES", "build_all", "get_lib", "host_library", "check",
+           "stream_ptr", "sm_count", "require_cuda"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -144,6 +147,48 @@ def get_lib(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _LIBS[n] = lib
     return _LIBS[name]
+
+
+# host libraries: no -march=native, as one may be loaded on another CPU
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+_HOST_LOCK = threading.Lock()
+_HOST_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def host_library(src: str, stem: str,
+                 signatures: Dict[str, Tuple[object, Sequence[object]]]
+                 ) -> ctypes.CDLL:
+    """The ctypes library of the host C++ source ``src``, with each
+    function of ``signatures`` ({name: (restype, argtypes)}) bound.
+
+    Compiled at first use by one ``g++`` into BUILD_DIR as
+    ``lib<stem>_<hash of source and flags>.so``, through a temporary name
+    and an atomic rename, so that processes building at once (forked
+    loader workers, evaluation subprocesses) never load a half-written
+    library. A failed build raises with the compiler's output."""
+    with _HOST_LOCK:
+        if src in _HOST_LIBS:
+            return _HOST_LIBS[src]
+        with open(src, "rb") as f:
+            tag = hashlib.sha1(f.read() + " ".join(HOST_FLAGS).encode()
+                               ).hexdigest()[:12]
+        path = os.path.join(BUILD_DIR, f"lib{stem}_{tag}.so")
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            r = subprocess.run(["g++", *HOST_FLAGS, src, "-o", tmp],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"g++ failed to build {src}:\n{r.stderr}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        for fn, (restype, argtypes) in signatures.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = list(argtypes)
+        _HOST_LIBS[src] = lib
+        return lib
 
 
 def check(err: int, what: str) -> None:

@@ -447,6 +447,12 @@ ev["t"] = np.arange(100)
 assert micro_sum(ev, 4, 8, 8).sum() == 96  # t 96-99 past 4 windows of 24
 assert resize_frames(np.ones((4, 8, 8, 2), np.float32), (16, 16)).shape \
     == (4, 16, 16, 2)
+import eas_snn_tpu_torch.tools.eval_event
+import eas_snn_tpu_torch.tools.ap_drift
+from eas_snn_tpu_torch.evaluators import DetEval
+gt = np.array([[0, 1, 10.0, 10.0, 40.0, 30.0], [1, 0, 5.0, 5.0, 60.0, 50.0]])
+det = np.c_[gt, [0.9, 0.8]]
+assert DetEval(2).evaluate(det, gt).ap == 1.0
 assert not any(k.split(".")[0] in ("jax", "flax", "optax", "orbax",
                                    "eas_snn_tpu", "cv2")
                for k in sys.modules if sys.modules[k] is not None)
@@ -473,7 +479,13 @@ def test_no_jax_import_in_port_sources():
     assert len(files) > 20
     assert any(f.endswith(os.path.join("core", "trainer.py")) for f in files)
     for new in (("data", "augment.py"), ("data", "loader.py"),
-                ("tools", "train_event.py"), ("utils", "tracking.py")):
+                ("tools", "train_event.py"), ("utils", "tracking.py"),
+                ("tools", "eval_event.py"), ("tools", "ap_drift.py"),
+                ("evaluators", "__init__.py"), ("evaluators", "coco_map.py"),
+                ("evaluators", "voc_eval.py"), ("evaluators", "prophesee.py"),
+                ("evaluators", "event_evaluator.py"),
+                ("evaluators", "energy.py"),
+                ("evaluators", "cocoeval", "__init__.py")):
         assert any(f.endswith(os.path.join(*new)) for f in files), new
     hits = [f for f in files if pat.search(open(f).read())]
     assert not hits, hits

@@ -322,7 +322,10 @@ def test_command_line_and_merge():
         build(["-n", "gen1_syolox_m", "input_size", "(250, 320)"])
     with pytest.raises(SystemExit, match="JAX package"):
         build(["-f", "exps/default/gen1_syolox_m.py"])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # the evaluator reads the exp's map_val split: here a directory that
+    # does not exist
+    assert exp.eval_proph is False
+    with pytest.raises(FileNotFoundError, match="/data/gen1"):
         exp.get_evaluator(8)
     fp, _ = build(["-n", "gen1_syolox_s", "--fp16", "compute_dtype",
                    "float32"])
