@@ -147,7 +147,40 @@ Phases, each of which fails the run (exit code 1, no result line):
    against the numpy one on the model's rows (equal stats); one profiled
    batch (the eval kernels by name); the ``--energy`` report (SOPs, dense
    MACs, mJ a frame);
-9. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+9. N-Caltech101 (``ncaltech_syolox_m``: 640x640, 100 classes, atan at
+   alpha 1.5): a synthetic tree written with the port's ``encode_atis``
+   and annotation writer (100 classes and ``BACKGROUND_Google``, 5
+   recordings each: 400 train and 100 val by the seeded split; 240x180,
+   three saccades of 100 ms, 100k events a recording, one box each);
+   (9a, 9b) phases 2 and 2b at the deploy forward's site geometries at
+   B=32 (no site is in the TPU's fusion table at 640x640: all 50 take the
+   PLIF kernel; the wgmma kernels are called directly at every 1x1 / 3x3
+   site, refusals listed), then kernel 5 at (Tm 4, N 32, 640x640); (9c)
+   phase 5's check at every train-step site geometry at B=32 with the
+   preset's alpha 1.5 on both sides (9a-9c run in a process of their
+   own: in the process that ran phases 2-8 the profiler recorded no
+   launch of the PLIF kernels in most of their windows); (9d) ``tools/train_event.py``'s
+   parser, loader and ``Trainer`` at B=32 (the reference's batch):
+   images/s with the loader in the loop over ``--train-steps`` captured
+   steps, the data-time share, peak and reserved memory, finite losses,
+   50 + 50 train PLIF launches a step (the wrappers' counts over the
+   warm-up and the capture, and by kernel name in 2 profiled replays);
+   (9e) the COCO evaluator fed the ground truth over 100 classes (AP and
+   AP50 1.0) and ``tools/eval_event.py --fp16 -b 32`` with calibrated
+   random weights through ``-c``: 50 launches of the PLIF kernel + 4 of
+   kernel 5 a batch, frames/s with the loader, forward and NMS ms;
+10. 1Mpx: ``gen4_rvt_syolox_m`` with ``data_name gen4 Tl 1`` (the raw
+   reader stacks Tl windows of Tm micro-frames for a label, while the
+   model takes one window: Tm 3 stays) on a raw tree (720x1280 ``.dat``
+   streams at 1M events/s, labels over all 7 classes that the reader
+   filters to 3; 2 train streams of 16 label groups, 2 val streams of 12,
+   250 ms apart); 4 captured steps at B=16 through the train CLI as 9d,
+   then the Prophesee protocol (camera gen4) with the ground truth as
+   predictions (AP 1.0) and ``tools/eval_event.py --fp16 --eval_proh -b
+   16 --save_boxes`` (50 + 3 launches a batch); the port's
+   ``tools/psee_evaluate_folders.py`` over both runs' box files must give
+   the evaluator's AP and AP50;
+11. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM, 989 TFLOP/s
@@ -207,9 +240,10 @@ SAMPLER_OPS = 20      # f32 operations per element and step of the chain
 MIN_WRITTEN = 100     # non-zero slot values a sampler comparison must see
 PER_FORWARD = {"plif_fwd": 35, "conv1x1_plif": 8, "conv3x3_plif": 6,
                "conv3x3s2_plif": 1}
-# Gen4 (384x640): no site geometry is in the TPU's fusion table (its keys
-# are Gen1's), so all 50 spiking sites take the PLIF kernel
-GEN4_PER_FORWARD = {"plif_fwd": 50}
+# 384x640 (1Mpx) and 640x640 (N-Caltech101): no site geometry is in the
+# TPU's fusion table (its keys are Gen1's), so all 50 spiking sites take
+# the PLIF kernel
+UNFUSED_PER_FORWARD = {"plif_fwd": 50}
 GEN4_BATCH = 16
 PER_STEP = {"plif_train_fwd": 50, "plif_train_bwd": 50}
 
@@ -599,34 +633,43 @@ def _print_site(name, count, shapes, dtype, r):
               "the threshold (allowed)")
 
 
-def phase_other_sites(others, gen):
+def phase_other_sites(others, gen, phase: str = "2b") -> list:
     """The wgmma kernels called directly at every other spiking 1x1 and
-    3x3 site of the flagship forward, both strides (the sites the TPU's
-    policy leaves on the unfused chain), with no change to routing: held
-    to the plain version like the fused sites, timed against the chain. A
-    site whose layout or weights the wrapper refuses is listed as refused,
-    with the reason."""
-    print("phase 2b: the wgmma kernels at the unfused 1x1 / 3x3 / 3x3 "
+    3x3 site of the forward, both strides (the sites the TPU's policy
+    leaves on the unfused chain), with no change to routing: held to the
+    plain version like the fused sites, timed against the chain. A site
+    whose layout or weights the wrapper refuses is listed as refused, with
+    the reason. Returns the refusals (kernel, count, shapes, reason)."""
+    print(f"phase {phase}: the wgmma kernels at the unfused 1x1 / 3x3 / 3x3 "
           "stride-2 sites (called directly; the forward keeps the chain "
           "there)")
+    refused = []
     for (name, *_), (count, mod, shapes, dtype, _) in others.items():
         try:
             r = check_conv_site(name, mod, shapes, dtype, gen)
         except ValueError as e:
             shp = "+".join("x".join(map(str, s)) for s in shapes)
             print(f"  {name:15s} {count:3d} {shp:34s} refused: {e}")
+            refused.append((name, count, shapes, str(e)))
             continue
         _print_site(name, count, shapes, dtype, r)
+    return refused
 
 
-def phase_kernels(model, events, seed):
+def phase_kernels(model, events, seed, expect=PER_FORWARD, phase="2",
+                  what="flagship", extras=True, sites_phase="2b"):
+    """Each eval kernel against its plain version at every site geometry
+    of ``model``'s forward on ``events``, which must send ``expect``
+    sites to each kernel; then the PLIF kernel off those layouts (with
+    ``extras``) and the wgmma kernels at the unfused sites. Returns the
+    per-kernel sums a forward and the wgmma refusals."""
     sites, others = site_geometries(model, events)
     gen = torch.Generator(device=DEV).manual_seed(seed + 1)
     per_kernel = {n: dict(ms=0.0, kernel_ms=0.0, plain_ms=0.0, bound_ms=0.0,
                           chain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
                           max_abs_err=0.0, sites=0, same_bytes_ms=0.0)
                   for n in PER_FORWARD}
-    print("phase 2: kernel vs plain at every flagship site geometry "
+    print(f"phase {phase}: kernel vs plain at every {what} site geometry "
           "(times in ms per call: ms = the wrapper's call, CUDA events "
           "back to back; kernel = the kernel's own device time, "
           "torch.profiler; side = other kernels a call)")
@@ -651,10 +694,12 @@ def phase_kernels(model, events, seed):
         agg["bytes_ms" if r["bound_by"] == "bytes" else "ops_ms"] += (
             count * r["bound_ms"])
     for name, agg in per_kernel.items():
-        if agg["sites"] != PER_FORWARD[name]:
-            fail(f"{name}: {agg['sites']} sites found in the flagship "
-                 f"forward, expected {PER_FORWARD[name]}")
+        if agg["sites"] != expect.get(name, 0):
+            fail(f"{name}: {agg['sites']} sites found in the {what} "
+                 f"forward, expected {expect.get(name, 0)}")
     for name, agg in per_kernel.items():
+        if not agg["sites"]:
+            continue
         chain = (f", unfused chain {agg['chain_ms']:.4f}"
                  if name != "plif_fwd" else
                  f", torch.ge of x into a bool tensor (the same bytes) "
@@ -662,9 +707,9 @@ def phase_kernels(model, events, seed):
         print(f"  {name}: {agg['ms']:.4f} ms a forward over its "
               f"{agg['sites']} sites (kernel {agg['kernel_ms']:.4f}){chain}, "
               f"bound {agg['bound_ms']:.4f}")
-    plif_ragged_cases(gen)
-    phase_other_sites(others, gen)
-    return per_kernel
+    if extras:
+        plif_ragged_cases(gen)
+    return per_kernel, phase_other_sites(others, gen, sites_phase)
 
 
 def plif_ragged_cases(gen) -> None:
@@ -1186,7 +1231,7 @@ def phase_sampler_routes(exp, model, batches, seed):
           f"{r4['default_ms']:.4f} ms")
     f, counts, peak, dets, dt = run_detect(g4, m4, b4)
     check_counts("Gen4 fused route", counts, len(b4), g4.Tm,
-                 GEN4_PER_FORWARD)
+                 UNFUSED_PER_FORWARD)
     print(f"  Gen4 fused route: 3 forwards at B={GEN4_BATCH} (N="
           f"{GEN4_BATCH * g4.Tl}): {f:.2f} frames/s ({len(dets)} frames in "
           f"{dt:.4f} s, host clock), peak {peak:.3f} GiB; launches {counts}")
@@ -1357,14 +1402,15 @@ BWD_OPS = 24  # f32 operations per element and step of the train backward
 
 
 def train_site_geometries(model, events, labels):
-    """{(shape, dtype, T, thresh, spike_fn): count} of the spiking
+    """{(shape, dtype, T, thresh, spike_fn, alpha): count} of the spiking
     sites' preactivations in one train forward (pre-hooks on the neurons;
     run without gradients)."""
     sites = OrderedDict()
 
     def hook(mod, args):
         x = args[0]
-        key = (tuple(x.shape), x.dtype, mod.T, mod.thresh, mod.spike_fn)
+        key = (tuple(x.shape), x.dtype, mod.T, mod.thresh, mod.spike_fn,
+               mod.alpha)
         sites[key] = sites.get(key, 0) + 1
 
     handles = [m.register_forward_pre_hook(hook) for m in model.modules()
@@ -1381,11 +1427,12 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def check_train_site(shape, dtype, T, th, kind, gen, identity=False,
-                     timed=True):
+                     timed=True, alpha=2.0):
     """Both train kernels against their plain versions on random bf16
     preactivations and cotangents; BN terms that put the normalized
-    preactivation near N(0.6, 1) (the identity terms for ``identity``).
-    The backward runs twice: its sums must be bitwise identical."""
+    preactivation near N(0.6, 1) (the identity terms for ``identity``);
+    the surrogate's constants from ``alpha`` on both sides. The backward
+    runs twice: its sums must be bitwise identical."""
     C = shape[1]
     dev = dict(device=DEV)
     z = torch.randn(shape, generator=gen, **dev)
@@ -1403,7 +1450,7 @@ def check_train_site(shape, dtype, T, th, kind, gen, identity=False,
     g = torch.randn(shape, generator=gen, **dev).to(dtype)
     fwd_args = (x, a, mean, mul, bias, T, th, kind)
     bwd_args = (x, g, a, mean, mul, bias, T, th, kind,
-                train_alpha(kind, 2.0))
+                train_alpha(kind, alpha))
     got = plif_train_forward(*fwd_args)
     want = plif_train_forward_plain(*fwd_args)
     kb = plif_train_backward(*bwd_args)
@@ -1465,14 +1512,21 @@ def check_train_site(shape, dtype, T, th, kind, gen, identity=False,
     return res
 
 
-def phase_train_kernels(model, events, labels, seed):
+def phase_train_kernels(model, events, labels, seed, phase="5",
+                        extras=True, alpha=2.0):
+    """Both train kernels against their plain versions at every spiking
+    site geometry of ``model``'s train step on ``events``, each at the
+    site's own alpha, which must be ``alpha``; then (with ``extras``) the
+    identity BN, the other surrogates, f32 storage and a ragged H*W.
+    Returns the per-kernel sums a step."""
     sites = train_site_geometries(model, events, labels)
     gen = torch.Generator(device=DEV).manual_seed(seed + 3)
     agg = {n: dict(ms=0.0, kernel_ms=0.0, plain_ms=0.0, bound_ms=0.0,
                    bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0)
            for n in PER_STEP}
     add_ms = 0.0
-    print("phase 5: train kernels vs plain at every train-step site geometry "
+    print(f"phase {phase}: train kernels vs plain at every train-step site "
+          f"geometry, alpha {alpha} "
           "(ms per call: the wrapper's call by CUDA events, k = the "
           "kernel's own device time by torch.profiler; host = the host's "
           "enqueue time a backward call; the backward's plan: items a "
@@ -1483,8 +1537,11 @@ def phase_train_kernels(model, events, labels, seed):
           f"{'bwd k':>8s} {'host':>8s} {'plain':>8s} {'bound':>8s}  plan  "
           "rec  sums |kernel - plain| / max|plain|")
     n_sites = 0
-    for (shape, dtype, T, th, kind), count in sites.items():
-        r = check_train_site(shape, dtype, T, th, kind, gen)
+    for (shape, dtype, T, th, kind, a_site), count in sites.items():
+        if a_site != alpha:
+            fail(f"train PLIF at {shape}: the site's alpha is {a_site}, the "
+                 f"preset's {alpha}")
+        r = check_train_site(shape, dtype, T, th, kind, gen, alpha=a_site)
         n_sites += count
         plan = plif_bwd_plan(shape[0] // T, shape[1], shape[2] * shape[3],
                              dtype, T, sms=_build.sm_count(torch.device(DEV)))
@@ -1517,6 +1574,8 @@ def phase_train_kernels(model, events, labels, seed):
     if n_sites != PER_STEP["plif_train_fwd"] or str(dtype) != "torch.bfloat16":
         fail(f"train step: {n_sites} spiking sites in {dtype}, expected "
              f"{PER_STEP['plif_train_fwd']} in bf16")
+    if not extras:
+        return agg
     # the backward of kernel 1 (pallas_call at plif_pallas.py:338): the
     # same kernel with the identity BN terms
     r = check_train_site(shape, dtype, T, th, kind, gen, identity=True)
@@ -2376,6 +2435,397 @@ def phase_eval_entry_point(B: int, workers: int) -> None:
     print(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------- phases 9 and 10
+
+NCALTECH = "ncaltech_syolox_m"
+NC_BATCH = 32            # the reference's N-Caltech batch (readme.md:147)
+NC_EVENTS = 100_000      # events a recording
+NC_SACCADE_US = 100_000  # three saccades a recording
+GEN4_RAW = ["data_name", "gen4", "Tl", "1"]  # the 1Mpx preset on raw data
+GEN4_SENSOR = (720, 1280)
+GEN4_EVENTS_PER_S = 1_000_000
+GEN4_LABEL_DT_US = 250_000  # beyond the protocol's +-50 ms window
+
+
+def write_ncaltech_tree(root: str, n_classes: int, per_class: int,
+                        seed: int) -> dict:
+    """N-Caltech101's layout written with the port's writers: ``n_classes``
+    class folders and ``BACKGROUND_Google`` under ``Caltech101/`` and
+    ``Caltech101_annotations/``, ``per_class`` recordings each at the
+    240x180 sensor: NC_EVENTS events over three saccades of NC_SACCADE_US
+    (each a burst around its middle), 70% of them on the object's box and
+    the rest anywhere, and one box of 40-120 x 40-100 px."""
+    from eas_snn_tpu_torch.data.ncaltech import (encode_atis,
+                                                 write_ncaltech_annotation)
+    rng = np.random.default_rng(seed)
+    H, W = 180, 240
+    names = [f"class_{c:03d}" for c in range(n_classes)]
+    for cls in names + ["BACKGROUND_Google"]:
+        ddir = os.path.join(root, "Caltech101", cls)
+        adir = os.path.join(root, "Caltech101_annotations", cls)
+        os.makedirs(ddir)
+        os.makedirs(adir)
+        for i in range(per_class):
+            x1, y1 = int(rng.integers(0, 120)), int(rng.integers(0, 80))
+            x2 = min(x1 + int(rng.integers(40, 121)), W - 1)
+            y2 = min(y1 + int(rng.integers(40, 101)), H - 1)
+            n = NC_EVENTS
+            sacc = rng.integers(0, 3, n)
+            t = np.sort(sacc * NC_SACCADE_US + np.clip(rng.normal(
+                NC_SACCADE_US / 2, NC_SACCADE_US / 5, n), 0,
+                NC_SACCADE_US - 1).astype(np.int64))
+            on = rng.random(n) < 0.7
+            x = np.where(on, rng.integers(x1, x2 + 1, n),
+                         rng.integers(0, W, n))
+            y = np.where(on, rng.integers(y1, y2 + 1, n),
+                         rng.integers(0, H, n))
+            with open(os.path.join(ddir, f"image_{i:04d}.bin"), "wb") as f:
+                f.write(encode_atis(t, x, y, rng.integers(0, 2, n)))
+            write_ncaltech_annotation(
+                os.path.join(adir, f"annotation_{i:04d}.bin"),
+                [x1, y1, x2, y2])
+    n_rec = (n_classes + 1) * per_class
+    return dict(classes=n_classes, recordings=n_rec, events=n_rec * NC_EVENTS)
+
+
+def write_gen4_tree(root: str, streams: int, groups: int, seed: int) -> dict:
+    """A raw 1Mpx directory written with the port's writers: each stream a
+    720x1280 ``<seq>_td.dat`` of uniform events at GEN4_EVENTS_PER_S and a
+    ``<seq>_bbox.npy`` of ``groups`` label groups GEN4_LABEL_DT_US apart
+    from 0.6 s on (the protocol skips the first 0.5 s), 2-4 boxes of 60-300
+    x 40-200 px each over all 7 classes, the first a pedestrian, two
+    wheeler or car (the raw reader keeps those three)."""
+    from eas_snn_tpu_torch.data.psee_io import (write_bboxes_npy,
+                                                write_dat_events)
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    H, W = GEN4_SENSOR
+    n_events = 0
+    for s in range(streams):
+        dur = 600_000 + groups * GEN4_LABEL_DT_US
+        n = GEN4_EVENTS_PER_S * dur // 1_000_000
+        write_dat_events(os.path.join(root, f"moorea_{s}_td.dat"),
+                         np.sort(rng.integers(0, dur, n)),
+                         rng.integers(0, W, n), rng.integers(0, H, n),
+                         rng.integers(0, 2, n), height=H, width=W)
+        rows = []
+        for k in range(groups):
+            for j in range(int(rng.integers(2, 5))):
+                w, h = rng.uniform(60, 300), rng.uniform(40, 200)
+                cls = int(rng.integers(0, 3 if j == 0 else 7))
+                rows.append((600_000 + k * GEN4_LABEL_DT_US,
+                             rng.uniform(0, W - w), rng.uniform(0, H - h),
+                             w, h, cls, j, 1.0))
+        write_bboxes_npy(os.path.join(root, f"moorea_{s}_bbox.npy"), rows)
+        n_events += n
+    return dict(streams=streams, groups=streams * groups, events=n_events)
+
+
+def calibrated_checkpoint(exp, path: str, seed: int) -> None:
+    """The exp's model with calibrated random weights, saved as a state
+    dict for the eval CLI's ``-c``."""
+    model = exp.get_model(device=DEV, seed=SEED)
+    H, W = exp.test_size
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    with torch.no_grad():
+        calibrate_spiking_bn(model, torch.poisson(torch.full(
+            (4, exp.Tl, exp.Tm, H, W, exp.in_dim), 0.2, device=DEV),
+            generator=gen))
+    torch.save(model.state_dict(), path)
+
+
+def train_through_cli(argv: list, B: int, steps: int, workers: int,
+                      phase: str) -> None:
+    """``argv`` through the train CLI's parser, ``exp.get_data_loader``
+    (``workers`` forked workers) and ``Trainer`` on the card: images/s
+    with the loader in the loop over the last ``steps`` captured steps
+    (after the batches the workers had ready), the data-time share, peak
+    allocated and reserved memory, finite losses, the train PLIF launches
+    of the eager warm-up and the capture (the wrappers' counts: 50 + 50 a
+    step, no eval kernel) and of 2 profiled replays (by kernel name)."""
+    from eas_snn_tpu_torch.core.train_state import CapturedStep
+    from eas_snn_tpu_torch.tools.train_event import build
+    drain = 2 * workers + 2
+    n_iters = CapturedStep.WARMUP + 1 + drain + steps
+    exp, args = build(argv + ["data_num_workers", str(workers),
+                              "max_epoch", "1", "print_interval",
+                              str(n_iters), "seed", str(SEED),
+                              "eval_interval", "10"])
+    exp.iters_per_epoch = n_iters
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = exp.get_trainer(args, device=DEV)
+    reset_launches()
+    t0 = time.perf_counter()
+    tr.before_train()
+    print(f"  Trainer.before_train ({tr.train_loader.num_workers} forked "
+          f"loader workers, first batch) in {time.perf_counter() - t0:.1f} "
+          f"s; dataset {len(tr.train_loader.dataset)} samples", flush=True)
+    stamps, step = [], tr.step_fn
+
+    def timed_step(*a, **k):
+        out = step(*a, **k)
+        stamps.append(time.perf_counter())
+        return out
+
+    tr.step_fn = timed_step
+    tr._batches = TimedBatches(tr._batches)
+    tr.before_epoch()
+    tr.train_in_iter()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    tr.step_fn = step
+    counts = launch_counts()
+    wall = t_end - stamps[-steps - 1]
+    data_s = sum(tr._batches.seconds[-steps:])
+    losses = {k: float(v) for k, v in tr.last_losses.items()}
+    print(f"  {len(stamps)} steps at B={B} ({step.WARMUP} eager warm-up, "
+          f"then captured; {step.replays} replays): {B * steps / wall:.2f} "
+          f"images/s with the loader in the loop over the last {steps} "
+          f"({wall / steps * 1e3:.3f} ms a step, host clock to a "
+          f"synchronize); data_time {data_s / wall:.3f} of iter_time; peak "
+          f"allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+          f"reserved {torch.cuda.memory_reserved() / 2**30:.3f} GiB; "
+          f"losses {losses}", flush=True)
+    if not all(np.isfinite(v) for v in losses.values()):
+        fail(f"phase {phase}: a loss is not finite: {losses}")
+    if step.replays != n_iters - step.WARMUP:
+        fail(f"phase {phase}: {step.replays} replays, expected "
+             f"{n_iters - step.WARMUP}")
+    want = {k: (step.WARMUP + 1) * PER_STEP.get(k, 0) for k in counts}
+    print(f"  launches of the warm-up and the capture (the wrappers' "
+          f"counts): {counts}")
+    if counts != want:
+        fail(f"phase {phase}: launches {counts} over the warm-up and the "
+             f"capture, expected {want}")
+    tr.iters_per_epoch = 2
+    rows = profile_call(tr.train_in_iter, f"2 trainer steps at B={B} "
+                        "(captured, the loader in the loop)", top=6)
+    plif = {k: profiled_total(rows, k)[1]
+            for k in ("plif_fwd_kernel", "plif_bwd")}
+    print(f"  PLIF launches in the 2 profiled replays, by kernel name: "
+          f"{plif}")
+    if plif != {"plif_fwd_kernel": 2 * PER_STEP["plif_train_fwd"],
+                "plif_bwd": 2 * PER_STEP["plif_train_bwd"]}:
+        fail(f"phase {phase}: PLIF launches {plif} in 2 replays, expected "
+             "50 + 50 a step")
+    tr.after_train()
+
+
+def eval_through_cli(flags: list, opts: list, B: int, phase: str) -> dict:
+    """``tools/eval_event.py:main`` from zeroed launch counts, which must
+    be 50 of the PLIF kernel + Tm of kernel 5 a batch and nothing else;
+    prints the evaluator's split."""
+    from eas_snn_tpu_torch.tools import eval_event
+    reset_launches()
+    t0 = time.perf_counter()
+    res = eval_event.main(flags + opts)
+    counts = launch_counts()
+    tm = res["evaluator"].timing
+    n_batches = -(-tm["samples"] // B)
+    print(f"  eval_event.main {' '.join(flags[:6])} ...: AP "
+          f"{res['ap']:.4f}, AP50 {res['ap50']:.4f} in "
+          f"{time.perf_counter() - t0:.1f} s "
+          f"({res['conv_gflops_per_frame']:.2f} conv GFLOPs a frame); "
+          f"launches {counts}")
+    print(f"  {_timing_line(tm)}", flush=True)
+    exp, _ = eval_event.build(flags + opts)
+    check_counts(f"phase {phase} (eval entry point)", counts, n_batches,
+                 exp.Tm, UNFUSED_PER_FORWARD)
+    if not np.isfinite(res["ap"]):
+        fail(f"phase {phase}: AP {res['ap']}")
+    return res
+
+
+def truth_ap(pexp, B: int, what: str, phase: str, box_dir=None):
+    """The exp's evaluator fed the ground truth as letterboxed predictions
+    (box files under ``box_dir``): AP and AP50 must be 1.0."""
+    ev = pexp.get_evaluator(batch_size=B)
+    if box_dir:
+        ev.box_dir = box_dir
+    ds = ev.dataloader.dataset
+    H, W = pexp.test_size
+    scale = min(H / ds.img_size[0], W / ds.img_size[1])
+    t0 = time.perf_counter()
+    ap, ap50, _ = ev.evaluate(truth_forward(ds, pexp.num_classes, B, scale))
+    print(f"  {what} protocol, ground truth as predictions over {len(ds)} "
+          f"samples, {pexp.num_classes} classes: AP {ap:.6f}, AP50 "
+          f"{ap50:.6f} ({time.perf_counter() - t0:.2f} s)", flush=True)
+    if ap != 1.0 or ap50 != 1.0:
+        fail(f"phase {phase}: {what} AP {ap} / AP50 {ap50} with the ground "
+             "truth as predictions, expected 1.0")
+    return ap, ap50
+
+
+def folders_ap(box_dir: str, want, phase: str, what: str) -> None:
+    """The port's ``psee_evaluate_folders`` over the saved box files must
+    give the evaluator's (AP, AP50)."""
+    from eas_snn_tpu_torch.tools import psee_evaluate_folders
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = psee_evaluate_folders.main(
+            ["--gt", os.path.join(box_dir, "gt"), "--dt",
+             os.path.join(box_dir, "dt"), "--camera", "gen4"])
+    print(f"  psee_evaluate_folders over the box files of {what}: AP "
+          f"{got['AP']:.6f}, AP50 {got['AP_50']:.6f} (the evaluator: "
+          f"{want[0]:.6f}, {want[1]:.6f})")
+    if (got["AP"], got["AP_50"]) != tuple(want):
+        fail(f"phase {phase}: the folder evaluation of {what} gave "
+             f"{got['AP']} / {got['AP_50']}, the evaluator {want}")
+
+
+def ncaltech_kernels() -> int:
+    """Phases 9a-9c, run as a process of its own: the eval kernels at
+    every site geometry of ``ncaltech_syolox_m``'s deploy forward at B=32
+    (phases 2 and 2b's checks), kernel 5 at its sampler geometry, and the
+    train kernels at every train-step site geometry at the preset's alpha
+    (phase 5's). Returns the exit code: 1 if a check failed.
+
+    In the process that has run phases 2-8, torch.profiler recorded no
+    launch of the PLIF kernels in most of these windows, three windows a
+    site running, as it misses kernel 5 in phase 8's batch there; a fresh
+    process records them."""
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + PTXAS_FLAGS  # phase 1's builds
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    exp = get_exp(NCALTECH).deploy()
+    model = exp.get_model(device=DEV, seed=SEED)
+    H, W = exp.test_size
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    ev = torch.poisson(torch.full((NC_BATCH, exp.Tl, exp.Tm, H, W,
+                                   exp.in_dim), 0.2, device=DEV),
+                       generator=gen)
+    with torch.no_grad():
+        calibrate_spiking_bn(model, ev[:4])
+        _, refused = phase_kernels(
+            model, ev, SEED, UNFUSED_PER_FORWARD, phase="9a",
+            what=f"{NCALTECH} deploy ({H}x{W}, B={NC_BATCH})", extras=False,
+            sites_phase="9b")
+        print(f"  wgmma refusals at {H}x{W}: {len(refused)} site geometries "
+              f"({sum(r[1] for r in refused)} sites)")
+        sev = sampler_events(model, ev)
+        r = check_v2(f"at {NCALTECH}", sev, *model.embedding.stack_weights(),
+                     model.embedding.scan_kwargs(), timed=True)
+        print(f"  arsnn_v2 at {tuple(sev.shape)} {str(sev.dtype)[6:]}: "
+              f"{r['mismatch']} of {r['n']} slots differ, {r['written']:.4f} "
+              f"non-zero; call {r['ms']:.4f} ms (kernel "
+              f"{r['kernel_ms']:.4f}), plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    del model, ev, sev
+    torch.cuda.empty_cache()
+
+    texp = get_exp(NCALTECH)
+    tmodel = texp.get_model(device=DEV, seed=SEED, train=True)
+    events = torch.poisson(torch.full((NC_BATCH, texp.Tl, texp.Tm, H, W,
+                                       texp.in_dim), 0.2, device=DEV),
+                           generator=gen)
+    labels = random_labels(NC_BATCH, H, W, np.random.default_rng(SEED + 9))
+    phase_train_kernels(tmodel, events, labels.to(DEV), SEED, phase="9c",
+                        extras=False, alpha=texp.alpha)
+    return 1 if FAILURES else 0
+
+
+def phase_ncaltech(steps: int, workers: int) -> None:
+    """Phase 9: ``ncaltech_syolox_m`` (640x640, 100 classes, alpha 1.5)."""
+    import shutil
+
+    from eas_snn_tpu_torch.tools import eval_event
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "outputs", "chip_smoke_phase9")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "ncaltech")
+    t0 = time.perf_counter()
+    tree = write_ncaltech_tree(data, n_classes=100, per_class=5, seed=SEED)
+    print(f"phase 9: N-Caltech101 ({NCALTECH}); synthetic tree "
+          f"({tree['classes']} classes and BACKGROUND_Google, "
+          f"{tree['recordings']} recordings, {tree['events']} events at "
+          f"240x180) written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # the kernel checks (9a-9c) in a process of their own
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.ncaltech_kernels())"], cwd=here,
+        capture_output=True, text=True, timeout=900)
+    print(r.stdout.rstrip())
+    print(f"  (the kernel checks' process took "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    if r.returncode != 0:
+        fail(f"phase 9a-9c: the kernel checks' process exited "
+             f"{r.returncode}: {r.stderr[-2000:]}")
+    torch.cuda.empty_cache()
+
+    print(f"phase 9d: training through the CLI at B={NC_BATCH}", flush=True)
+    train_through_cli(["-n", NCALTECH, "-b", str(NC_BATCH), "-l", "jsonl",
+                       "data_dir", data, "output_dir",
+                       os.path.join(root, "out")], NC_BATCH, steps, workers,
+                      "9d")
+    torch.cuda.empty_cache()
+
+    print("phase 9e: evaluation", flush=True)
+    opts = ["data_dir", data, "data_num_workers", str(workers)]
+    pexp, _ = eval_event.build(["-n", NCALTECH, "--fp16"] + opts)
+    truth_ap(pexp, NC_BATCH, "COCO", "9e")
+    ckpt = os.path.join(root, "calibrated.pth")
+    calibrated_checkpoint(pexp, ckpt, SEED + 9)
+    eval_through_cli(["-n", NCALTECH, "--fp16", "-b", str(NC_BATCH), "-c",
+                      ckpt, "--device", DEV], opts, NC_BATCH, "9e")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_gen4(steps: int, workers: int) -> None:
+    """Phase 10: the 1Mpx model (``gen4_rvt_syolox_m``, 384x640, 3
+    classes) on raw Gen4 streams (GEN4_RAW)."""
+    import shutil
+
+    from eas_snn_tpu_torch.tools import eval_event
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "outputs", "chip_smoke_phase10")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "gen4")
+    t0 = time.perf_counter()
+    tree = write_gen4_tree(os.path.join(data, "train"), streams=2, groups=16,
+                           seed=SEED)
+    val = write_gen4_tree(os.path.join(data, "val"), streams=2, groups=12,
+                          seed=SEED + 1)
+    print(f"phase 10: 1Mpx (gen4_rvt_syolox_m with {' '.join(GEN4_RAW)}: "
+          f"the raw reader stacks Tl windows of Tm micro-frames a label, the "
+          f"model takes one); raw tree ({tree['streams']} streams, "
+          f"{tree['groups']} label groups, {tree['events']} events at "
+          f"{GEN4_EVENTS_PER_S} events/s, {GEN4_SENSOR[0]}x{GEN4_SENSOR[1]};"
+          f" val {val['groups']} groups, {val['events']} events) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    B = GEN4_BATCH
+    train_through_cli(["-n", "gen4_rvt_syolox_m", "-b", str(B), "-l",
+                       "jsonl", "data_dir", data, "output_dir",
+                       os.path.join(root, "out")] + GEN4_RAW, B, steps,
+                      workers, "10")
+    torch.cuda.empty_cache()
+
+    opts = ["data_dir", data, "data_num_workers", str(workers)] + GEN4_RAW
+    pexp, _ = eval_event.build(["-n", "gen4_rvt_syolox_m", "--fp16",
+                                "--eval_proh"] + opts)
+    truth = os.path.join(root, "truth_boxes")
+    want = truth_ap(pexp, B, "Prophesee (camera gen4)", "10", truth)
+    folders_ap(truth, want, "10", "the ground truth as predictions")
+    ckpt = os.path.join(root, "calibrated.pth")
+    calibrated_checkpoint(pexp, ckpt, SEED + 10)
+    boxes = os.path.join(root, "boxes")
+    res = eval_through_cli(["-n", "gen4_rvt_syolox_m", "--fp16", "-b",
+                            str(B), "-c", ckpt, "--device", DEV,
+                            "--eval_proh", "--save_boxes", boxes], opts, B,
+                           "10")
+    if res["evaluator"].camera != "gen4" or res["evaluator"].downsampled_by_2:
+        fail("phase 10: the evaluator is not the gen4 camera's at full "
+             "resolution")
+    folders_ap(boxes, (res["ap"], res["ap50"]), "10", "the model")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
@@ -2383,7 +2833,7 @@ def main() -> int:
     ap.add_argument("--train-batch", type=int, default=64)
     ap.add_argument("--train-steps", type=int, default=8)
     ap.add_argument("--workers", type=int, default=7,
-                    help="phases 7 and 8's loader worker processes")
+                    help="phases 7-10's loader worker processes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2418,7 +2868,7 @@ def main() -> int:
         # that every stage fires
         calibrate_spiking_bn(model, batches[0][:8])
 
-        per_kernel = phase_kernels(model, batches[0], SEED)
+        per_kernel, _ = phase_kernels(model, batches[0], SEED)
         counts = phase_main_path(exp, model, batches)
         sk = phase_sampler_kernels(model, batches[0], SEED)
         for kname in ("arsnn_v2", "arsnn_step"):
@@ -2454,6 +2904,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_entry_point(B, args.train_steps, args.workers)
     phase_eval_entry_point(EVAL_BATCH, args.workers)
+    torch.cuda.empty_cache()
+    phase_ncaltech(args.train_steps, args.workers)
+    torch.cuda.empty_cache()
+    phase_gen4(4, args.workers)
 
     kernels = []
     for kname, agg in per_kernel.items():

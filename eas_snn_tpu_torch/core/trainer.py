@@ -236,9 +236,16 @@ class Trainer:
         exp = self.exp
         if (exp.no_aug_epochs > 0 and not self.use_l1
                 and self.epoch >= self.max_epoch - exp.no_aug_epochs):
-            # reference trainer.py:228-241: the tail adds the L1 loss
-            self.logger.info("--->no-aug phase: adding L1")
+            # reference trainer.py:228-241: the tail closes mosaic and adds
+            # the L1 loss; the event datasets keep their per-sample
+            # augmentation (JAX core/trainer.py:261-262). The loader's
+            # workers are persistent forks: a dataset that changes here
+            # must be read by a loader built after it.
+            self.logger.info("--->no-aug phase: closing mosaic, adding L1")
             self.use_l1 = True
+            ds = getattr(self.train_loader, "dataset", None)
+            if hasattr(ds, "close_mosaic"):
+                ds.close_mosaic()
 
     def _prepare(self, batch) -> Batch:
         """Device binning and the multiscale resize of a batch on the

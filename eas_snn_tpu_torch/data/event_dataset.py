@@ -8,10 +8,10 @@ reference yolox/data/datasets/gen1.py:43-521).
   * slice generation: ``Tl`` aggregated frames ending at the label
     timestamp, each window loaded with a fixed ``window`` span and the
     reference's zero-event backoff (gen1.py:115-137, 217-236);
-  * aggregation: ``sum`` and ``micro_sum`` (reps.py); the JAX package's
-    ``voxel_grid``, ``voxel_cube`` and ``timesurface`` are not ported
-    (ROADMAP.md §1 item 8) and the constructor refuses them, as it
-    refuses the frame prestore cache (``cache_path``);
+  * aggregation dispatch to the representations of reps.py (``sum``,
+    ``micro_sum``, ``voxel_grid``, ``voxel_cube``, ``timesurface``;
+    gen1.py:330-373), and the frame prestore cache (``cache_path``: 'ram'
+    or a directory, cache.py; reference gen4.py:99-120);
   * joint augmentation + target transform (augment.py), or, for device
     binning, host-indexed raw events (``getitem_raw``);
   * mAP-val mode returning raw-sensor-size boxes + sample ids
@@ -39,14 +39,15 @@ from .augment import (
     resize_frames,
     xyxy2cxcywh_np,
 )
-from .reps import micro_sum, polarity_histogram
+from .cache import SampleCache
+from .reps import (micro_sum, polarity_histogram, slice_time_windows,
+                   timesurface, voxel_cube, voxel_grid)
 
 __all__ = ["EventDetDataset", "LabelGroup"]
 
 LabelGroup = Tuple[int, np.ndarray]  # (timestamp_us, (N, 5) [x1,y1,x2,y2,cls])
 
-
-AGGREGATIONS = ("sum", "micro_sum")
+AGGREGATIONS = ("sum", "micro_sum", "voxel_grid", "voxel_cube", "timesurface")
 
 
 class EventDetDataset(torch.utils.data.Dataset):
@@ -93,14 +94,10 @@ class EventDetDataset(torch.utils.data.Dataset):
         self.letterbox_val = letterbox_val
         self.raw_events = raw_events
         self.max_events_per_slice = max_events_per_slice
+        self._frame_cache = None
         if cache_path is not None:
-            raise NotImplementedError(
-                "the frame prestore cache (cache_path) is not ported yet: "
-                "ROADMAP.md §1 item 8")
-        if aggregation not in AGGREGATIONS:
-            raise NotImplementedError(
-                f"aggregation '{aggregation}' is not ported yet (the port "
-                f"has {AGGREGATIONS}): ROADMAP.md §1 item 8")
+            self._frame_cache = SampleCache(
+                cache_path if cache_path != "ram" else None)
         self.class_names = tuple(class_names)
         self.target_transform = (
             TrainTransform(max_labels) if not map_val else ValTransform()
@@ -176,24 +173,55 @@ class EventDetDataset(torch.utils.data.Dataset):
 
     def generate_slices(self, file_idx: int, group_idx: int) -> np.ndarray:
         """``Tl`` aggregated frames ending at the label timestamp
-        (continuous mode, gen1.py:115-127)."""
+        (continuous mode, gen1.py:115-127); served from the frame prestore
+        cache where there is one (reference gen4.py:99-120)."""
+        key = None
+        if self._frame_cache is not None:
+            key = self.sample_name(file_idx, group_idx)
+            hit = self._frame_cache.read(key)
+            if hit is not None:
+                return hit
         timestamp = int(self.labels[file_idx][group_idx][0])
         w0, w1 = self.window
         span = w1 - w0
-        return np.stack([
+        frames = np.stack([
             self.aggregate(self.search_events(file_idx, timestamp + k * span))
             for k in range(-self.num_slice + 1, 1)
         ], 0)
+        if key is not None:
+            self._frame_cache.write(key, frames)
+        return frames
 
     def aggregate(self, events: Optional[np.ndarray]) -> np.ndarray:
+        """One window's frames: (H, W, 2) for ``sum``, else (Tm, H, W, C)
+        with C 2 (``micro_sum``, ``timesurface``), 1 (``voxel_grid``) or 4
+        (``voxel_cube``); zeros of that shape for an empty window."""
         h, w = self.img_size
+        Tm = self.micro_slice
+        empty = events is None or len(events) == 0
         if self.aggregation == "sum":
-            if events is None or len(events) == 0:
+            if empty:
                 return np.zeros((h, w, 2), np.float32)
             return polarity_histogram(events, h, w)
-        if events is None or len(events) == 0:
-            return np.zeros((self.micro_slice, h, w, 2), np.float32)
-        return micro_sum(events, self.micro_slice, h, w)
+        if self.aggregation == "micro_sum":
+            if empty:
+                return np.zeros((Tm, h, w, 2), np.float32)
+            return micro_sum(events, Tm, h, w)
+        if self.aggregation == "voxel_grid":
+            if empty:
+                return np.zeros((Tm, h, w, 1), np.float32)
+            return voxel_grid(events, h, w, n_time_bins=Tm)
+        if self.aggregation == "voxel_cube":
+            if empty:
+                return np.zeros((Tm, h, w, 4), np.float32)
+            return voxel_cube(events, h, w, num_slices=Tm)
+        if self.aggregation == "timesurface":
+            if empty:
+                return np.zeros((Tm, h, w, 2), np.float32)
+            slices, dt = slice_time_windows(events, Tm, self.overlap)
+            return timesurface(slices, h, w, dt=dt, tau=50e3)
+        raise ValueError(f"unknown aggregation '{self.aggregation}' (the "
+                         f"datasets have {AGGREGATIONS})")
 
     # ------------------------------------------------------------------
     def raw_boxes(self, file_idx: int, group_idx: int) -> np.ndarray:

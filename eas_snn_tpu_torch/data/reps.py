@@ -1,12 +1,14 @@
-"""Event -> tensor representations of the Gen1 presets (the port's copy of
-``eas_snn_tpu/data/reps.py:41-145, 254-350``).
+"""Event -> tensor representations (the port's copy of
+``eas_snn_tpu/data/reps.py``).
 
-Host (numpy) side, run by the dataset in loader workers: ``sum`` and
+Host (numpy) side, run by the datasets in loader workers: ``sum`` and
 ``micro_sum`` polarity histograms (reference yolox/data/datasets/gen1.py:
-313-373), the time-window slicing they share, and ``pad_events``. The
-histograms go through the native core (``fastbin``) where the event
-fields fit its u16/u16/u8 layout; the numpy versions are its plain
-versions (``native=False``) and its test oracle.
+313-373), the time-window slicing they share, the bilinear-in-time
+``voxel_grid``, the ``voxel_cube``, the exponential ``timesurface`` and its
+decay weights (reference yolox/utils/event_reps.py:13-160), and
+``pad_events``. The histograms go through the native core (``fastbin``)
+where the event fields fit its u16/u16/u8 layout; the numpy versions are
+its plain versions (``native=False``) and its test oracle.
 
 Device side: ``bin_event_batch`` scatter-adds host-indexed events into
 (B, Tl, Tm, H, W, 2) micro-frames on the card, the training path's device
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 __all__ = ["polarity_histogram", "slice_time_windows", "micro_sum",
+           "voxel_grid", "voxel_cube", "timesurface_measure", "timesurface",
            "pad_events", "bin_event_batch"]
 
 
@@ -118,6 +121,91 @@ def micro_sum(events: np.ndarray, n_micro: int, height: int, width: int,
         for i, ev in enumerate(slices):
             if ev is not None and len(ev):
                 out[i] = polarity_histogram(ev, height, width, native=False)
+    return out
+
+
+def voxel_grid(events: np.ndarray, height: int, width: int,
+               n_time_bins: int = 10) -> np.ndarray:
+    """(n_time_bins, H, W, 1) f32 event volume of Zhu et al.: polarity as
+    +/-1, split bilinearly between the two nearest time bins (reference
+    event_reps.py:30-89)."""
+    if len(events) == 0:
+        return np.zeros((n_time_bins, height, width, 1), np.float32)
+    grid = np.zeros((n_time_bins, height, width), np.float64).ravel()
+    t = events["t"].astype(np.float64)
+    denom = t[-1] - t[0]
+    ts = n_time_bins * (t - t[0]) / (denom if denom > 0 else 1)
+    xs = events["x"].astype(np.int64)
+    ys = events["y"].astype(np.int64)
+    praw = events["p"].astype(np.float64)
+    pol = np.where(praw == 0, -1.0, praw)
+    tis = ts.astype(np.int64)
+    dts = ts - tis
+    base = xs + ys * width
+    m = tis < n_time_bins
+    np.add.at(grid, base[m] + tis[m] * width * height,
+              (pol * (1.0 - dts))[m])
+    m = (tis + 1) < n_time_bins
+    np.add.at(grid, base[m] + (tis[m] + 1) * width * height, (pol * dts)[m])
+    return grid.reshape(n_time_bins, height, width, 1).astype(np.float32)
+
+
+def voxel_cube(events: np.ndarray, height: int, width: int, num_slices: int,
+               tbins: int = 2) -> np.ndarray:
+    """(num_slices, H, W, 2 * tbins) f32 voxel cube (IJCNN'22): each of
+    ``num_slices`` windows of [first, last) split into ``tbins`` micro
+    bins, channel (p + 1)(tbin + 1) - 1 (reference event_reps.py:92-138)."""
+    out = np.zeros((num_slices, height, width, 2 * tbins), np.float32)
+    if len(events) == 0:
+        return out
+    t = events["t"].astype(np.int64) - int(events["t"][0])
+    time_window = (t[-1] - t[0]) // num_slices
+    if time_window <= 0:
+        return out
+    keep = t < time_window * num_slices
+    t = t[keep]
+    ev = events[keep]
+    sl = t // time_window
+    tbin = ((t % time_window) / (time_window / tbins)).astype(np.int64)
+    ch = ((ev["p"].astype(np.int64) + 1) * (tbin + 1)) - 1
+    flat = (sl * (height * width * 2 * tbins)
+            + ev["y"].astype(np.int64) * (width * 2 * tbins)
+            + ev["x"].astype(np.int64) * (2 * tbins) + ch)
+    np.add.at(out.reshape(-1), flat, 1.0)
+    return out
+
+
+def timesurface_measure(t_events: np.ndarray, t_target: float, tau: float,
+                        decay: str = "exp") -> np.ndarray:
+    """Exponential, tanh or linear time-decay weights of events at
+    ``t_events`` seen from ``t_target`` (reference event_reps.py:13-23)."""
+    if decay == "exp":
+        return np.exp((t_events - t_target) / tau)
+    if decay == "tanh":
+        return 1.0 - np.tanh((t_target - t_events) / tau)
+    if decay == "lin":
+        return (t_events - t_target) / tau
+    raise ValueError(f"unknown decay '{decay}'")
+
+
+def timesurface(slices: Sequence[np.ndarray], height: int, width: int,
+                dt: float, tau: float) -> np.ndarray:
+    """(n, H, W, 2) f32 exponential time surface over consecutive slices:
+    a (polarity, pixel) memory of the last event time; after slice i the
+    surface is exp((memory - t_i) / tau), t_i = start + (i + 1) dt
+    (reference event_reps.py:141-160)."""
+    n = len(slices)
+    out = np.zeros((n, height, width, 2), np.float32)
+    if n == 0 or slices[0] is None or len(slices[0]) == 0:
+        return out
+    memory = np.zeros((2, height, width), np.int64)
+    start_t = int(slices[0]["t"][0])
+    for i, ev in enumerate(slices):
+        if len(ev):
+            memory[ev["p"].astype(np.int64) & 1, ev["y"].astype(np.int64),
+                   ev["x"].astype(np.int64)] = ev["t"].astype(np.int64)
+        diff = memory - ((i + 1) * dt + start_t)
+        out[i] = np.moveaxis(np.exp(diff / tau), 0, -1)
     return out
 
 

@@ -21,9 +21,10 @@ sample count.
 
 from __future__ import annotations
 
+import os
 import time
 from collections import defaultdict
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -182,15 +183,33 @@ class PSEEEvaluator(EventEvaluator):
     """Prophesee-protocol evaluation (reference psee_evaluator.py:86-307):
     predictions are rescaled to the sensor's resolution, stamped with the
     label time parsed from the sample names, buffered, and evaluated with
-    the +/-50 ms protocol at the end."""
+    the +/-50 ms protocol at the end. With ``box_dir`` each stream's
+    boxes as evaluated are also saved, ground truth as
+    ``<box_dir>/gt/<stream>_bbox.npy`` and predictions as
+    ``<box_dir>/dt/<stream>.npy`` (Prophesee's box layout), which
+    ``tools/psee_evaluate_folders.py`` evaluates again to the same AP."""
 
     def __init__(self, dataloader, img_size: Tuple[int, int],
                  confthre: float, nmsthre: float, num_classes: int,
-                 camera: str = "gen1", downsampled_by_2: bool = False):
+                 camera: str = "gen1", downsampled_by_2: bool = False,
+                 box_dir: Optional[str] = None):
         super().__init__(dataloader, img_size, confthre, nmsthre,
                          num_classes)
         self.camera = camera
         self.downsampled_by_2 = downsampled_by_2
+        self.box_dir = box_dir
+
+    def _save_boxes(self, stream: str, gt: np.ndarray, dt: np.ndarray
+                    ) -> None:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_rank() != 0:
+            return
+        for sub, name, arr in (("gt", f"{stream}_bbox.npy", gt),
+                               ("dt", f"{stream}.npy", dt)):
+            os.makedirs(os.path.join(self.box_dir, sub), exist_ok=True)
+            np.save(os.path.join(self.box_dir, sub, name), arr)
 
     @staticmethod
     def _parse_name(name: str) -> Tuple[str, int]:
@@ -265,14 +284,14 @@ class PSEEEvaluator(EventEvaluator):
             d = dt_rows[dt_rows[:, 0] == si]
             if not len(g) and not len(d):
                 continue
-            evaluator.add_labels(boxes_to_prophesee(
-                g[:, 1].astype(np.int64), g[:, 2], g[:, 3], g[:, 4], g[:, 5],
-                g[:, 6].astype(np.int64), g[:, 7].astype(np.float32),
-            ) if len(g) else np.zeros(0, BBOX_DTYPE))
-            evaluator.add_predictions(boxes_to_prophesee(
-                d[:, 1].astype(np.int64), d[:, 2], d[:, 3], d[:, 4], d[:, 5],
-                d[:, 6].astype(np.int64), d[:, 7].astype(np.float32),
-            ) if len(d) else np.zeros(0, BBOX_DTYPE))
+            gt_boxes, dt_boxes = (boxes_to_prophesee(
+                r[:, 1].astype(np.int64), r[:, 2], r[:, 3], r[:, 4], r[:, 5],
+                r[:, 6].astype(np.int64), r[:, 7].astype(np.float32),
+            ) if len(r) else np.zeros(0, BBOX_DTYPE) for r in (g, d))
+            evaluator.add_labels(gt_boxes)
+            evaluator.add_predictions(dt_boxes)
+            if self.box_dir:
+                self._save_boxes(stream_names[si], gt_boxes, dt_boxes)
         metrics = evaluator.evaluate_buffer()
         tm["match_s"] = time.perf_counter() - t0
         tm["wall_s"] = time.perf_counter() - t_start

@@ -75,6 +75,9 @@ class EventExp:
         self.thresh = 1
         self.readout = "sum"
         self.spike_fn = "rect"
+        # the surrogate gradient's alpha at the spiking sites in training
+        # (rect pinned to 1, ops/surrogate.py:train_alpha)
+        self.alpha = 2.0
         # conv/BN compute dtype and ARSNN state dtype (None: f32)
         self.compute_dtype = "float32"
         self.embedding_state_dtype = None
@@ -94,6 +97,9 @@ class EventExp:
         self.input_size = (640, 640)
         self.flip_prob = 0.5
         self.max_labels = 50
+        # N-Caltech101: rescale each training stream's time axis by a
+        # draw from (0.5, 1.5) (data/ncaltech.py)
+        self.speed_aug = False
         # every N train steps a seeded size from input_size +- 32 * k,
         # k <= multiscale_range (0: off)
         self.multiscale_interval = 0
@@ -156,7 +162,8 @@ class EventExp:
         model = EASYOLOX(
             num_classes=self.num_classes, depth=self.depth, width=self.width,
             act=self.act, use_spike=self.use_spike_mode, T=self.T,
-            spike_fn=self.spike_fn, embedding_ksize=self.embedding_ksize,
+            spike_fn=self.spike_fn, alpha=float(self.alpha),
+            embedding_ksize=self.embedding_ksize,
             embedding_depth=self.embedding_depth, Ts=self.Ts,
             readout=self.readout, spike_attach=self.spike_attach,
             write_zero=self.write_zero, use_abs=self.abs,
@@ -212,7 +219,7 @@ class EventExp:
             flip_prob=self.flip_prob if training else 0.0,
             raw_events=self.device_binning and training,
             max_events_per_slice=self.max_events_per_slice,
-            **self.get_slice_args())
+            speed_aug=self.speed_aug, **self.get_slice_args())
 
     def get_data_loader(self, batch_size: int, training: bool = True,
                         map_val: bool = False, seed: int = 0,
@@ -354,6 +361,21 @@ def _gen4_rvt_syolox_m(exp: EventExp) -> EventExp:
     return exp
 
 
+def _ncaltech_syolox_m(exp: EventExp) -> EventExp:
+    """exps/default/ncaltech_syolox_m.py (reference readme.md:147-153): the
+    Gen1 recipe at M width on N-Caltech101, 640x640, 100 classes, the
+    whole stream (window 0), atan at alpha 1.5, 60 epochs, eval every 10."""
+    _gen1_syolox(exp, 0.67, 0.75)
+    exp.num_classes = 100
+    exp.data_name = "n-caltech"
+    exp.input_size = exp.test_size = (640, 640)
+    exp.alpha = 1.5
+    exp.window = 0
+    exp.max_epoch = 60
+    exp.eval_interval = 10
+    return exp
+
+
 def _named(name: str, exp: EventExp) -> EventExp:
     exp.exp_name = name
     return exp
@@ -369,6 +391,9 @@ _PRESETS = {
     # exps/default/gen4_rvt_syolox_m.py
     "gen4_rvt_syolox_m": lambda: _named(
         "gen4_rvt_syolox_m", _gen4_rvt_syolox_m(EventExp())),
+    # exps/default/ncaltech_syolox_m.py
+    "ncaltech_syolox_m": lambda: _named(
+        "ncaltech_syolox_m", _ncaltech_syolox_m(EventExp())),
 }
 
 

@@ -37,13 +37,15 @@ Pieces = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 class Neuron(NamedTuple):
     """How a block's activations behave. ``fuse`` is the conv+BN+PLIF
-    policy mode (ops/conv_plif_policy.py) for its spiking sites."""
+    policy mode (ops/conv_plif_policy.py) for its spiking sites; ``alpha``
+    the surrogate gradient's width in training (JAX ``NeuronCfg.alpha``)."""
 
     spiking: bool = False
     T: int = 1
     spike_fn: str = "atan"
     thresh: float = 1.0
     fuse: str = "auto"
+    alpha: float = 2.0
 
 
 # flax's momentum: running <- 0.97 * running + 0.03 * batch statistic
@@ -160,12 +162,13 @@ class PLIF(_KeptConstant, nn.Module):
     """Parametric LIF over T steps folded in the batch axis; one learnable
     scalar decay logit ``w`` (spikingjelly ParametricLIFNode). At eval the
     spikes are int8 (patan runs atan's hard forward); in training they are
-    in x's dtype, with the surrogate gradient of ``spike_fn`` (alpha 2,
-    the JAX package's default; rect 1)."""
+    in x's dtype, with the surrogate gradient of ``spike_fn`` at ``alpha``
+    (rect pinned to 1, as in the JAX package)."""
 
-    def __init__(self, T: int, spike_fn: str = "atan", thresh: float = 1.0):
+    def __init__(self, T: int, spike_fn: str = "atan", thresh: float = 1.0,
+                 alpha: float = 2.0):
         super().__init__()
-        self.T, self.thresh = T, thresh
+        self.T, self.thresh, self.alpha = T, thresh, alpha
         self.spike_fn = spike_fn
         self.kind = "atan" if spike_fn == "patan" else spike_fn
         self.w = nn.Parameter(torch.tensor(PLIF_W_INIT))
@@ -187,7 +190,8 @@ class PLIF(_KeptConstant, nn.Module):
             bn = tuple(torch.full((C,), v, device=x.device)
                        for v in (0.0, 1.0, 0.0))
         a = 1.0 - torch.sigmoid(self.w.float())
-        return plif_train(x, self.T, a, *bn, self.thresh, self.spike_fn)
+        return plif_train(x, self.T, a, *bn, self.thresh, self.spike_fn,
+                          self.alpha)
 
 
 _ACTS = {"silu": nn.SiLU, "relu": nn.ReLU,
@@ -221,7 +225,8 @@ class BaseConv(nn.Module):
                          padding=(ksize - 1) // 2, bias=False)
         self.conv = nn.Sequential(conv) if neuron.spiking else conv
         self.bn = BatchNorm(out_channels)
-        self.act = (PLIF(neuron.T, neuron.spike_fn, neuron.thresh)
+        self.act = (PLIF(neuron.T, neuron.spike_fn, neuron.thresh,
+                         neuron.alpha)
                     if neuron.spiking else _analog_act(act))
 
     @property

@@ -40,7 +40,8 @@ class EASYOLOX(nn.Module):
     def __init__(self, num_classes: int = 2, depth: float = 0.33,
                  width: float = 0.50, act: str = "silu",
                  use_spike: str = "backbone", T: int = 3,
-                 spike_fn: str = "atan", embedding_ksize: int = 5,
+                 spike_fn: str = "atan", alpha: float = 2.0,
+                 embedding_ksize: int = 5,
                  embedding_depth: int = 1, Ts: int = 1, readout: str = "sum",
                  spike_attach: bool = False, write_zero: bool = False,
                  use_abs: bool = False, thresh: float = 1.0,
@@ -67,7 +68,7 @@ class EASYOLOX(nn.Module):
             dtype=compute_dtype if compute_dtype == torch.bfloat16 else None,
             state_dtype=embedding_state_dtype, fused_sampler=fused_sampler,
         )
-        neuron = (Neuron(True, T, spike_fn, fuse=fuse)
+        neuron = (Neuron(True, T, spike_fn, fuse=fuse, alpha=alpha)
                   if use_spike == "backbone" else Neuron())
         self.backbone = YOLOPAFPN(depth, width, act=act,
                                   backbone_neuron=neuron,

@@ -4,8 +4,8 @@ checkpoint, the COCO or the Prophesee protocol, a speed or an energy
 report, free-form ``key value`` overrides.
 
     python -m eas_snn_tpu_torch.tools.eval_event -n gen1_syolox_m -b 64 \\
-        -c best.pth [--fp16] [--eval_proh | --speed | --energy] \\
-        data_dir /data/gen1 [key value ...]
+        -c best.pth [--fp16] [--eval_proh [--save_boxes DIR] | --speed |
+        --energy] data_dir /data/gen1 [key value ...]
 
 Runs on the card (``--device cuda``, the default) or on the CPU with
 ``--device cpu``. ``main`` returns what it reported as a dict.
@@ -44,6 +44,11 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--eval_proh", action="store_true",
                         help="use the Prophesee +/-50 ms protocol")
     parser.add_argument(
+        "--save_boxes", type=str, default=None, metavar="DIR",
+        help="with --eval_proh: save each stream's ground truth and "
+             "predictions under DIR/gt and DIR/dt, the folders "
+             "tools/psee_evaluate_folders.py reads")
+    parser.add_argument(
         "--fp16", "--bf16", dest="fp16", action="store_true",
         help="deployment precision (exp.deploy(): bf16 compute, bf16 "
              "sampler state, the fused sampler route on the card; the "
@@ -78,6 +83,9 @@ def build(argv: Optional[Sequence[str]] = None):
     if args.opts:
         exp.merge(args.opts)
     exp.eval_proph = args.eval_proh
+    if args.save_boxes and not args.eval_proh:
+        raise SystemExit("--save_boxes: the box files are the Prophesee "
+                         "protocol's; pass --eval_proh")
     return exp, args
 
 
@@ -148,6 +156,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         return out
 
     evaluator = exp.get_evaluator(batch_size=args.batch_size)
+    if args.save_boxes:
+        if not hasattr(evaluator, "box_dir"):
+            raise SystemExit("--save_boxes: the Prophesee protocol runs on "
+                             f"gen* datasets, not '{exp.data_name}'")
+        evaluator.box_dir = args.save_boxes
     ap, ap50, summary = exp.eval(model, evaluator)
     logger.info("\n%s", summary)
     logger.info("AP: %.4f, AP50: %.4f", ap, ap50)

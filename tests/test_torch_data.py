@@ -260,15 +260,26 @@ def test_gen1_raw_samples_equal_jax(tree):
 
 
 def test_build_dataset_reads_gen1_and_refuses_the_rest(tree):
+    """gen1 is read; names the JAX package does not know and unknown
+    aggregations are refused. (The other datasets, aggregations and the
+    frame cache are held to the JAX package in test_torch_datasets.py.)"""
     ds = build_dataset("gen1", tree, input_size=(64, 96), **_KW)
     assert isinstance(ds, PGen1Dataset) and len(ds) == 12
-    for name in ("gen4", "rvt-gen4", "n-caltech"):
-        with pytest.raises(NotImplementedError, match="item 8"):
+    for name in ("coco", "gen2", ""):
+        with pytest.raises(KeyError, match="unknown dataset"):
             build_dataset(name, tree)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_dataset("gen1", tree, **dict(_KW, aggregation="voxel_grid"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_dataset("gen1", tree, cache_path="ram", **_KW)
+    vg = build_dataset("gen1", tree, input_size=(64, 96),
+                       **dict(_KW, aggregation="voxel_grid"))
+    assert vg[0][0].shape == (1, 4, 64, 96, 1)
+    bad = build_dataset("gen1", tree, input_size=(64, 96),
+                        **dict(_KW, aggregation="histogram"))
+    with pytest.raises(ValueError, match="unknown aggregation"):
+        bad[0]
+    cached = build_dataset("gen1", tree, training=False, cache_path="ram",
+                           input_size=(64, 96), **_KW)
+    first = cached[3][0]
+    assert len(cached._frame_cache) == 1
+    np.testing.assert_array_equal(cached[3][0], first)
     with pytest.raises(IndexError):
         ds[12]
 

@@ -11,6 +11,7 @@ would prove nothing). The port receives the same tree through
 """
 
 import functools
+import importlib.util
 import os
 import re
 import subprocess
@@ -354,6 +355,90 @@ def test_flagship_train_step_sites_pass_the_train_kernels_checks(
     assert all(p.grad is not None for p in model.parameters())
 
 
+@pytest.mark.parametrize("name,overrides", [
+    ("ncaltech_syolox_m", []),
+    ("gen4_rvt_syolox_m", ["data_name", "gen4", "Tl", "1"])])
+def test_new_presets_train_step_sites_pass_the_train_kernels_checks(
+        monkeypatch, name, overrides):
+    """One train step of the N-Caltech (640x640, 100 classes) and the raw
+    1Mpx (384x640, Tl 1) presets on meta tensors, as
+    ``test_flagship_train_step_sites_pass_the_train_kernels_checks``: all
+    50 spiking sites pass the train kernels' checks, 50 + 50 launches."""
+    from eas_snn_tpu_torch.ops import _build, launch_counts, reset_launches
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
+    monkeypatch.setattr(_build, "get_lib", lambda name: Lib())
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
+    exp = get_exp(name).merge(overrides)
+    model = exp.get_model(device="cpu", train=True).to("meta")
+    H, W = exp.input_size
+    ev = torch.empty((1, exp.Tl, exp.Tm, H, W, 2), device="meta")
+    reset_launches()
+    losses = model(ev, torch.zeros((1, 50, 5), device="meta"))
+    losses["total_loss"].backward()
+    counts = launch_counts()
+    reset_launches()
+    assert counts == {k: {"plif_train_fwd": 50, "plif_train_bwd": 50}.get(
+        k, 0) for k in counts}
+
+
+def _jax_preset(name):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "exps", "default", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.Exp()
+
+
+def test_ncaltech_preset_fields_equal_the_jax_exp():
+    """``get_exp('ncaltech_syolox_m')`` holds every field it shares with
+    ``exps/default/ncaltech_syolox_m.py``'s Exp, at the same value."""
+    jexp, pexp = _jax_preset("ncaltech_syolox_m"), get_exp(
+        "ncaltech_syolox_m")
+    shared = set(vars(jexp)) & set(vars(pexp))
+    assert {"alpha", "window", "Tl", "Tm", "Ts", "T", "num_classes",
+            "speed_aug", "data_name", "eval_interval"} <= shared
+    assert len(shared) >= 59
+    for f in sorted(shared):
+        assert getattr(pexp, f) == getattr(jexp, f), f
+    assert (pexp.alpha, pexp.window, pexp.Tl, pexp.Tm, pexp.Ts, pexp.T) == (
+        1.5, 0, 1, 4, 3, 3)
+
+
+def test_narrow_ncaltech_forward_matches_jax():
+    """The N-Caltech preset's model cut to depth 0.33, width 0.125 and
+    64x64 in f32, port against JAX from the same drawn weights: the
+    eval forward's decoded outputs over 100 classes, with the tolerance of
+    ``test_whole_slice_matches_jax_f32``."""
+    over = dict(depth=0.33, width=0.125, input_size=(64, 64),
+                test_size=(64, 64), compute_dtype="float32")
+    jexp, pexp = _jax_preset("ncaltech_syolox_m"), get_exp(
+        "ncaltech_syolox_m")
+    for e in (jexp, pexp):
+        for k, val in over.items():
+            setattr(e, k, val)
+    jm = jexp.get_model()
+    rng = np.random.default_rng(4)
+    ev = rng.poisson(0.2, (2, 1, 4, 64, 64, 2)).astype(np.float32)
+    v = jax.tree_util.tree_map(np.copy, _random_variables(jm, ev, rng))
+    for k in range(3):
+        for p in ("obj_pred", "cls_pred"):
+            pred = v["params"]["head"][f"{p}{k}"]
+            pred["bias"] = np.zeros_like(pred["bias"])
+    want = np.asarray(jax.jit(jm.apply)(v, jnp.asarray(ev)))
+    pm = pexp.get_model(device="cpu")
+    pm.load_state_dict(state_dict_from_jax(v), strict=True)
+    with torch.no_grad():
+        got = pm(torch.from_numpy(ev)).numpy()
+    assert got.shape == want.shape == (2, 84, 105)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    assert (want[..., 4] > 0.01).mean() > 0.1
+
+
 def test_calibrate_spiking_bn_makes_every_stage_fire():
     """At the JAX init (identity BN) the deep stages of a random network
     fall silent; calibrated BN statistics make each fire near 20%."""
@@ -453,6 +538,16 @@ from eas_snn_tpu_torch.evaluators import DetEval
 gt = np.array([[0, 1, 10.0, 10.0, 40.0, 30.0], [1, 0, 5.0, 5.0, 60.0, 50.0]])
 det = np.c_[gt, [0.9, 0.8]]
 assert DetEval(2).evaluate(det, gt).ap == 1.0
+import eas_snn_tpu_torch.tools.psee_evaluate_folders
+from eas_snn_tpu_torch.data import (ConcatDataset, Gen4Dataset,
+                                    NCaltechDataset, RVTGen4Dataset,
+                                    SampleCache, encode_atis,
+                                    read_atis_events, voxel_grid)
+ev = read_atis_events(encode_atis([5, 9, 70], [1, 2, 3], [4, 240, 6],
+                                  [1, 0, 1]))
+assert list(ev["t"]) == [5, 70 + 8192]
+assert voxel_grid(ev, 8, 8, 2).shape == (2, 8, 8, 1)
+assert get_exp("ncaltech_syolox_m").alpha == 1.5
 assert not any(k.split(".")[0] in ("jax", "flax", "optax", "orbax",
                                    "eas_snn_tpu", "cv2")
                for k in sys.modules if sys.modules[k] is not None)
@@ -485,7 +580,10 @@ def test_no_jax_import_in_port_sources():
                 ("evaluators", "voc_eval.py"), ("evaluators", "prophesee.py"),
                 ("evaluators", "event_evaluator.py"),
                 ("evaluators", "energy.py"),
-                ("evaluators", "cocoeval", "__init__.py")):
+                ("evaluators", "cocoeval", "__init__.py"),
+                ("data", "cache.py"), ("data", "concat.py"),
+                ("data", "gen4.py"), ("data", "ncaltech.py"),
+                ("tools", "psee_evaluate_folders.py")):
         assert any(f.endswith(os.path.join(*new)) for f in files), new
     hits = [f for f in files if pat.search(open(f).read())]
     assert not hits, hits

@@ -629,15 +629,16 @@ def test_wrappers_refuse_what_the_sampler_kernels_cannot_take(monkeypatch,
     ("gen1_syolox_m", 1, {"plif_fwd": 35, "conv1x1_plif": 8,
                           "conv3x3_plif": 6, "conv3x3s2_plif": 1,
                           "arsnn_v2": 4}),
-    ("gen4_rvt_syolox_m", 1, {"plif_fwd": 50, "arsnn_v2": 3})])
+    ("gen4_rvt_syolox_m", 1, {"plif_fwd": 50, "arsnn_v2": 3}),
+    ("ncaltech_syolox_m", 1, {"plif_fwd": 50, "arsnn_v2": 4})])
 def test_fused_route_sites_pass_the_kernel_wrappers_checks(monkeypatch, name,
                                                            B, want):
-    """The deploy forward with the fused route at the flagship and the
-    Gen4 geometry, on meta tensors as on the card (the library replaced by
-    stubs that launch nothing): every kernel wrapper takes its inputs, and
-    a forward launches the whole-scan kernel Tm times (at Gen4 no site is
-    in the TPU's fusion table, so all 50 spiking sites take the PLIF
-    kernel)."""
+    """The deploy forward with the fused route at the flagship, the Gen4
+    and the N-Caltech geometry, on meta tensors as on the card (the
+    library replaced by stubs that launch nothing): every kernel wrapper
+    takes its inputs, and a forward launches the whole-scan kernel Tm times
+    (at 384x640 and 640x640 no site is in the TPU's fusion table, so all
+    50 spiking sites take the PLIF kernel)."""
     from eas_snn_tpu_torch.ops import _build, launch_counts, reset_launches
 
     class Lib:

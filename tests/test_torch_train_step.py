@@ -28,6 +28,7 @@ from eas_snn_tpu_torch.core import (CheckpointManager, build_lr_schedule,
                                     load_partial_params, train_step)
 from eas_snn_tpu_torch.exp import get_exp
 from eas_snn_tpu_torch.models import EASYOLOX
+from eas_snn_tpu_torch.models.blocks import PLIF
 from eas_snn_tpu_torch.utils import state_dict_from_jax
 
 from test_torch_model import SMALL, _random_variables
@@ -174,6 +175,62 @@ def test_train_steps_match_jax(jax_two_steps):
         with torch.no_grad():
             for name, p in pm.named_parameters():
                 p.copy_(want["model"][name])
+
+
+def test_train_step_at_alpha_1_5_matches_jax():
+    """The surrogate's alpha reaches every spiking site: one train step of
+    the small spiking model at alpha 1.5 (the N-Caltech preset's), JAX
+    against the port from the same weights, with the tolerances of
+    ``test_train_steps_match_jax`` (loss terms 1e-5 relative, each
+    gradient 1e-4 of its tensor's largest magnitude, a PLIF decay's 1e-3).
+    The port at alpha 2.0 (what every site ran before alpha was carried
+    through) misses the JAX gradients at 1.5 at the spiking convs, and the
+    exp's override reaches the model."""
+    rng = np.random.default_rng(3)
+    ev = rng.poisson(0.2, (2, 1, 4, 64, 64, 2)).astype(np.float32)
+    jm = JEASYOLOX(use_spike="backbone", embedding="arsnn", alpha=1.5,
+                   **SMALL)
+    v = _random_variables(jm, ev, rng)
+    lab = _labels()
+
+    def loss_fn(params):
+        out, _ = jm.apply({"params": params,
+                           "batch_stats": v["batch_stats"]}, ev, lab,
+                          train=True, mutable=["batch_stats"])
+        return out["total_loss"], out
+
+    (_, metrics), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        v["params"])
+    want = _torch_tree({"params": grads})
+    ev_t, lab_t = torch.from_numpy(ev), torch.from_numpy(lab)
+
+    def port_grads(alpha):
+        pm = EASYOLOX(use_spike="backbone", alpha=alpha, **SMALL)
+        pm.load_state_dict(_torch_tree(v), strict=True)
+        pm.train()
+        losses = pm(ev_t, lab_t)
+        losses["total_loss"].backward()
+        return losses, {n: p.grad for n, p in pm.named_parameters()}
+
+    losses, got = port_grads(1.5)
+    for k in ("total_loss", "iou_loss", "conf_loss", "cls_loss"):
+        np.testing.assert_allclose(float(losses[k].detach()), float(metrics[k]),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+    for name, g in want.items():
+        _close(got[name], g, 0, _grad_noise(name, g) + 1e-12,
+               f"alpha 1.5 grad {name}")
+    _, at_2 = port_grads(2.0)
+    spiking = [n for n in want if n.startswith("backbone.backbone.")
+               and n.endswith("conv.0.weight")]
+    assert spiking
+    missed = [n for n in spiking if float((at_2[n] - want[n]).abs().max())
+              > _grad_noise(n, want[n])]
+    assert len(missed) == len(spiking), missed
+    exp = get_exp("ncaltech_syolox_m").merge(["alpha", "1.75"])
+    exp.width, exp.depth, exp.compute_dtype = 0.125, 0.33, "float32"
+    model = exp.get_model(device="cpu", train=True)
+    alphas = {m.alpha for m in model.modules() if isinstance(m, PLIF)}
+    assert alphas == {1.75} and get_exp("ncaltech_syolox_m").alpha == 1.5
 
 
 # ------------------------------------------------------------ checkpoints
