@@ -180,8 +180,43 @@ Phases, each of which fails the run (exit code 1, no result line):
    16 --save_boxes`` (50 + 3 launches a batch); the port's
    ``tools/psee_evaluate_folders.py`` over both runs' box files must give
    the evaluator's AP and AP50;
-11. one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+11. the fully spiking Gen1 detector (``gen1_syolox_m`` with ``use_spike
+   full_spike_v2``: spiking backbone, neck and head; 11a-11c and 11e in a
+   process of their own, ``full_spike_phases``): (11a) phase 2 / 2b's
+   checks at every neck and head site of the deploy forward at B=128
+   (39 on row 1, 6 on row 2, 2 on row 3 by the policy; the wgmma kernels
+   called directly at the others) and phase 5's at the 47 neck and head
+   train sites at B=64; (11b) 10 ``detect`` forwards at B=128: frames/s,
+   launches 74 / 14 / 8 / 1 + Tm a forward by the wrappers and by kernel
+   name in a profiled forward, layer ms, and card against CPU stage by
+   stage at B=2 (``stages_card_vs_cpu``: the embedding, the stem, every
+   spiking site on the card's input, the head's predictions on the
+   card's tower outputs); (11c) the step as CUDA graphs at B=64: 97 + 97
+   train PLIF launches a step (the wrappers over the warm-up and the
+   capture, by name in 3 profiled replays), eager and captured ms/step
+   in turns, idle share, peak, and a captured step bit-equal to an eager
+   one from one snapshot; (11d) the train CLI on a synthetic Gen1 tree,
+   the eval CLI ``--fp16`` (the ground truth as predictions: AP 1.0;
+   calibrated weights: 74 / 14 / 8 / 1 + Tm a batch) and ``--energy``
+   against the backbone-only detector on the same weights (the spiking
+   share of the conv work must grow); (11e) ``full_spike``: one deploy
+   forward (60 / 13 / 8 / 1 + Tm) and one captured step (82 + 82);
+12. the other variants: (12a) ``e_yolox_m`` (count embedding, analog
+   YOLOX, 640x640, 100 classes, f32) through the train CLI at B=32 (which
+   must turn TF32 off for the f32 preset) and the eval CLI on phase 9's
+   N-Caltech101 tree: no
+   hand-written kernel launched (the wrappers' counts, and by name in
+   the profiled replays), AP 1.0 with the ground truth; (12b) the snn
+   and rsnn embeddings, ``norm bn`` and ``spike_fn patan`` on
+   ``gen1_syolox_m``'s widths at B=16: a captured step bit-equal to the
+   eager step (patan: no launch of rows 7 and 8: it trains through the
+   plain scan), a deploy forward's launches, and card against CPU stage
+   by stage at B=2;
+13. when every check passed, one ``{"kernels": [...]}`` line, the
+   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+
+``determinism_cost`` (not run by ``main``) times the captured step with
+cuDNN's deterministic algorithms on and off.
 
 Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM, 989 TFLOP/s
 bf16 on the tensor cores, 67 TFLOP/s f32 outside them. TF32 is off for
@@ -211,7 +246,7 @@ from eas_snn_tpu_torch.core.train_state import (init_ema, optimizer_update,
                                                 train_step)
 from eas_snn_tpu_torch.exp import detect, get_exp
 from eas_snn_tpu_torch.models.blocks import PLIF, BaseConv
-from eas_snn_tpu_torch.models.embedding import fold_time
+from eas_snn_tpu_torch.models.embedding import apply_stack, fold_time
 from eas_snn_tpu_torch.ops import KERNEL_WRAPPERS, launch_counts, reset_launches
 from eas_snn_tpu_torch.ops import _build
 from eas_snn_tpu_torch.ops import arsnn_fused as af
@@ -452,8 +487,9 @@ def nvidia_smi_line() -> str:
 
 # ---------------------------------------------------------------- phase 2
 
-def site_geometries(model, events):
-    """Run one forward with pre-hooks on every spiking BaseConv and return
+def site_geometries(model, events, where=None):
+    """Run one forward with pre-hooks on every spiking BaseConv (whose name
+    ``where`` accepts, where given) and return
     ({key: [count, module, pieces' shapes, input dtype, kernel]}, where the
     kernel is the one the site launches (the PLIF kernel for an unfused
     site, whose input is then the conv+BN output), and the same for the
@@ -488,8 +524,10 @@ def site_geometries(model, events):
             sites[key] = [0, mod, shapes, dtype, name]
         sites[key][0] += 1
 
-    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
-               if isinstance(m, BaseConv) and m.neuron.spiking]
+    handles = [m.register_forward_pre_hook(hook)
+               for n, m in model.named_modules()
+               if isinstance(m, BaseConv) and m.neuron.spiking
+               and (where is None or where(n))]
     feats = {}
     handles.append(model.backbone.backbone.register_forward_hook(
         lambda m, i, o: feats.update(o)))
@@ -657,13 +695,15 @@ def phase_other_sites(others, gen, phase: str = "2b") -> list:
 
 
 def phase_kernels(model, events, seed, expect=PER_FORWARD, phase="2",
-                  what="flagship", extras=True, sites_phase="2b"):
+                  what="flagship", extras=True, sites_phase="2b",
+                  where=None):
     """Each eval kernel against its plain version at every site geometry
-    of ``model``'s forward on ``events``, which must send ``expect``
-    sites to each kernel; then the PLIF kernel off those layouts (with
-    ``extras``) and the wgmma kernels at the unfused sites. Returns the
-    per-kernel sums a forward and the wgmma refusals."""
-    sites, others = site_geometries(model, events)
+    of ``model``'s forward on ``events`` (the sites whose name ``where``
+    accepts, where given), which must send ``expect`` sites to each
+    kernel; then the PLIF kernel off those layouts (with ``extras``) and
+    the wgmma kernels at the unfused sites. Returns the per-kernel sums a
+    forward and the wgmma refusals."""
+    sites, others = site_geometries(model, events, where)
     gen = torch.Generator(device=DEV).manual_seed(seed + 1)
     per_kernel = {n: dict(ms=0.0, kernel_ms=0.0, plain_ms=0.0, bound_ms=0.0,
                           chain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
@@ -1181,21 +1221,20 @@ def phase_sampler_routes(exp, model, batches, seed):
     # (cuDNN, TF32 off) over the same events, held to kernel 5's slots
     ev = sampler_events(model, batches[0]).float()
     emb32 = copy.deepcopy(emb).float()
-    emb32.dtype = None
     kw = emb.scan_kwargs()
     v2 = af.arsnn_fused_v2(ev, *emb.stack_weights(), **kw)
     torch.cuda.synchronize()
     reset_launches()
-    v1 = af.arsnn_scan_fused(ev, emb32._apply_stack(emb32.input_conv),
-                             emb32._apply_stack(emb32.gate_conv), **kw)
+    v1 = af.arsnn_scan_fused(ev, apply_stack(emb32.input_conv),
+                             apply_stack(emb32.gate_conv), **kw)
     torch.cuda.synchronize()
     counts = launch_counts()
     launches = {"arsnn_step": counts["arsnn_step"]}
     rel = _rel_err(v1, v2)
     share = float((rel > ANALOG_TOL).float().mean())
     v1_ms = cuda_ms(lambda: af.arsnn_scan_fused(
-        ev, emb32._apply_stack(emb32.input_conv),
-        emb32._apply_stack(emb32.gate_conv), **kw), 3)
+        ev, apply_stack(emb32.input_conv),
+        apply_stack(emb32.gate_conv), **kw), 3)
     print(f"  v1 route (kernel 9, cuDNN f32 convs) over the same events: "
           f"{v1_ms:.4f} ms a scan; slots vs kernel 5: share beyond "
           f"{ANALOG_TOL:.0e} relative {share:.2e} (tolerance {V1_TOL:.0e}), "
@@ -1250,13 +1289,14 @@ def _rel_err(card: torch.Tensor, cpu: torch.Tensor) -> torch.Tensor:
     return (card.float() - cpu.float()).abs() / (1 + cpu.float().abs())
 
 
-def _check_analog(what: str, card: torch.Tensor, cpu: torch.Tensor) -> None:
+def _check_analog(what: str, card: torch.Tensor, cpu: torch.Tensor,
+                  phase: str = "4") -> None:
     rel = _rel_err(card, cpu)
     n_bad = int((rel > ANALOG_TOL).sum())
     print(f"  {what}: max |card - cpu| / (1 + |cpu|) {float(rel.max()):.3e}, "
           f"{n_bad} of {rel.numel()} beyond {ANALOG_TOL:.0e}")
     if n_bad or card.shape != cpu.shape or not torch.isfinite(card).all():
-        fail(f"phase 4: {what} disagrees between card and CPU")
+        fail(f"phase {phase}: {what} disagrees between card and CPU")
 
 
 @torch.no_grad()
@@ -1401,10 +1441,10 @@ def phase_card_vs_cpu(seed, events):
 BWD_OPS = 24  # f32 operations per element and step of the train backward
 
 
-def train_site_geometries(model, events, labels):
+def train_site_geometries(model, events, labels, where=None):
     """{(shape, dtype, T, thresh, spike_fn, alpha): count} of the spiking
-    sites' preactivations in one train forward (pre-hooks on the neurons;
-    run without gradients)."""
+    sites' preactivations in one train forward (pre-hooks on the neurons
+    whose name ``where`` accepts, where given; run without gradients)."""
     sites = OrderedDict()
 
     def hook(mod, args):
@@ -1413,8 +1453,9 @@ def train_site_geometries(model, events, labels):
                mod.alpha)
         sites[key] = sites.get(key, 0) + 1
 
-    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
-               if isinstance(m, PLIF)]
+    handles = [m.register_forward_pre_hook(hook)
+               for n, m in model.named_modules()
+               if isinstance(m, PLIF) and (where is None or where(n))]
     with torch.no_grad():
         model(events, labels)
     for h in handles:
@@ -1513,13 +1554,15 @@ def check_train_site(shape, dtype, T, th, kind, gen, identity=False,
 
 
 def phase_train_kernels(model, events, labels, seed, phase="5",
-                        extras=True, alpha=2.0):
+                        extras=True, alpha=2.0, where=None,
+                        expect_sites=PER_STEP["plif_train_fwd"]):
     """Both train kernels against their plain versions at every spiking
-    site geometry of ``model``'s train step on ``events``, each at the
-    site's own alpha, which must be ``alpha``; then (with ``extras``) the
-    identity BN, the other surrogates, f32 storage and a ragged H*W.
-    Returns the per-kernel sums a step."""
-    sites = train_site_geometries(model, events, labels)
+    site geometry of ``model``'s train step on ``events`` (the sites whose
+    name ``where`` accepts, where given: ``expect_sites`` of them), each
+    at the site's own alpha, which must be ``alpha``; then (with
+    ``extras``) the identity BN, the other surrogates, f32 storage and a
+    ragged H*W. Returns the per-kernel sums a step."""
+    sites = train_site_geometries(model, events, labels, where)
     gen = torch.Generator(device=DEV).manual_seed(seed + 3)
     agg = {n: dict(ms=0.0, kernel_ms=0.0, plain_ms=0.0, bound_ms=0.0,
                    bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0)
@@ -1571,9 +1614,9 @@ def phase_train_kernels(model, events, labels, seed, phase="5",
         f"{a['bound_ms']:.4f}" for name, a in agg.items()) +
         f"; torch.add of x and g into a third tensor (the backward's bytes) "
         f"{add_ms:.4f}")
-    if n_sites != PER_STEP["plif_train_fwd"] or str(dtype) != "torch.bfloat16":
-        fail(f"train step: {n_sites} spiking sites in {dtype}, expected "
-             f"{PER_STEP['plif_train_fwd']} in bf16")
+    if n_sites != expect_sites or str(dtype) != "torch.bfloat16":
+        fail(f"phase {phase}: {n_sites} spiking sites in {dtype}, expected "
+             f"{expect_sites} in bf16")
     if not extras:
         return agg
     # the backward of kernel 1 (pallas_call at plif_pallas.py:338): the
@@ -1733,12 +1776,14 @@ def step_pair(step, model, opt, ema, snap, events, labels):
     """From ``snap``: one captured step, then one eager step, then two
     eager steps; returns the losses and end states of the captured and the
     first eager step and the eager pair's state difference (the noise of
-    the eager step against itself)."""
+    the eager step against itself). The eager steps run under the cuDNN
+    setting the captured step was captured under (``cudnn_mode``)."""
     runs = []
     for fn in (step, lambda e, t: train_step(model, opt, ema, e, t),
                lambda e, t: train_step(model, opt, ema, e, t)):
         restore(snap, model, opt, ema)
-        losses = {k: float(v) for k, v in fn(events, labels).items()}
+        with step.cudnn_mode():
+            losses = {k: float(v) for k, v in fn(events, labels).items()}
         torch.cuda.synchronize()
         runs.append((losses, [t.detach().clone() for t in
                               _state_tensors(model, opt, ema)]))
@@ -2535,14 +2580,16 @@ def calibrated_checkpoint(exp, path: str, seed: int) -> None:
 
 
 def train_through_cli(argv: list, B: int, steps: int, workers: int,
-                      phase: str) -> None:
+                      phase: str, per_step=PER_STEP) -> tuple:
     """``argv`` through the train CLI's parser, ``exp.get_data_loader``
     (``workers`` forked workers) and ``Trainer`` on the card: images/s
     with the loader in the loop over the last ``steps`` captured steps
     (after the batches the workers had ready), the data-time share, peak
     allocated and reserved memory, finite losses, the train PLIF launches
-    of the eager warm-up and the capture (the wrappers' counts: 50 + 50 a
-    step, no eval kernel) and of 2 profiled replays (by kernel name)."""
+    of the eager warm-up and the capture (the wrappers' counts:
+    ``per_step``, 50 + 50 a step at the flagship, no eval kernel) and of 2
+    profiled replays (by kernel name). Returns the profiled rows and the
+    wrappers' launches a step."""
     from eas_snn_tpu_torch.core.train_state import CapturedStep
     from eas_snn_tpu_torch.tools.train_event import build
     drain = 2 * workers + 2
@@ -2592,7 +2639,7 @@ def train_through_cli(argv: list, B: int, steps: int, workers: int,
     if step.replays != n_iters - step.WARMUP:
         fail(f"phase {phase}: {step.replays} replays, expected "
              f"{n_iters - step.WARMUP}")
-    want = {k: (step.WARMUP + 1) * PER_STEP.get(k, 0) for k in counts}
+    want = {k: (step.WARMUP + 1) * per_step.get(k, 0) for k in counts}
     print(f"  launches of the warm-up and the capture (the wrappers' "
           f"counts): {counts}")
     if counts != want:
@@ -2605,17 +2652,21 @@ def train_through_cli(argv: list, B: int, steps: int, workers: int,
             for k in ("plif_fwd_kernel", "plif_bwd")}
     print(f"  PLIF launches in the 2 profiled replays, by kernel name: "
           f"{plif}")
-    if plif != {"plif_fwd_kernel": 2 * PER_STEP["plif_train_fwd"],
-                "plif_bwd": 2 * PER_STEP["plif_train_bwd"]}:
+    if plif != {"plif_fwd_kernel": 2 * per_step.get("plif_train_fwd", 0),
+                "plif_bwd": 2 * per_step.get("plif_train_bwd", 0)}:
         fail(f"phase {phase}: PLIF launches {plif} in 2 replays, expected "
-             "50 + 50 a step")
+             f"{per_step} a step")
     tr.after_train()
+    return rows, {k: v // (step.WARMUP + 1) for k, v in counts.items()}
 
 
-def eval_through_cli(flags: list, opts: list, B: int, phase: str) -> dict:
+def eval_through_cli(flags: list, opts: list, B: int, phase: str,
+                     base=UNFUSED_PER_FORWARD, v2: bool = True) -> tuple:
     """``tools/eval_event.py:main`` from zeroed launch counts, which must
-    be 50 of the PLIF kernel + Tm of kernel 5 a batch and nothing else;
-    prints the evaluator's split."""
+    be ``base`` (50 of the PLIF kernel at 640x640 and 384x640) + Tm of
+    kernel 5 (with ``v2``) a batch and nothing else; prints the
+    evaluator's split. Returns what ``main`` reported and the wrappers'
+    launches a batch."""
     from eas_snn_tpu_torch.tools import eval_event
     reset_launches()
     t0 = time.perf_counter()
@@ -2631,10 +2682,10 @@ def eval_through_cli(flags: list, opts: list, B: int, phase: str) -> dict:
     print(f"  {_timing_line(tm)}", flush=True)
     exp, _ = eval_event.build(flags + opts)
     check_counts(f"phase {phase} (eval entry point)", counts, n_batches,
-                 exp.Tm, UNFUSED_PER_FORWARD)
+                 exp.Tm if v2 else 0, base)
     if not np.isfinite(res["ap"]):
         fail(f"phase {phase}: AP {res['ap']}")
-    return res
+    return res, {k: v // n_batches for k, v in counts.items()}
 
 
 def truth_ap(pexp, B: int, what: str, phase: str, box_dir=None):
@@ -2724,8 +2775,10 @@ def ncaltech_kernels() -> int:
     return 1 if FAILURES else 0
 
 
-def phase_ncaltech(steps: int, workers: int) -> None:
-    """Phase 9: ``ncaltech_syolox_m`` (640x640, 100 classes, alpha 1.5)."""
+def phase_ncaltech(steps: int, workers: int) -> str:
+    """Phase 9: ``ncaltech_syolox_m`` (640x640, 100 classes, alpha 1.5).
+    Returns its synthetic tree's directory, which phase 12a reads and
+    removes."""
     import shutil
 
     from eas_snn_tpu_torch.tools import eval_event
@@ -2771,8 +2824,9 @@ def phase_ncaltech(steps: int, workers: int) -> None:
     calibrated_checkpoint(pexp, ckpt, SEED + 9)
     eval_through_cli(["-n", NCALTECH, "--fp16", "-b", str(NC_BATCH), "-c",
                       ckpt, "--device", DEV], opts, NC_BATCH, "9e")
-    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "out"), ignore_errors=True)
     print(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return data
 
 
 def phase_gen4(steps: int, workers: int) -> None:
@@ -2814,7 +2868,7 @@ def phase_gen4(steps: int, workers: int) -> None:
     ckpt = os.path.join(root, "calibrated.pth")
     calibrated_checkpoint(pexp, ckpt, SEED + 10)
     boxes = os.path.join(root, "boxes")
-    res = eval_through_cli(["-n", "gen4_rvt_syolox_m", "--fp16", "-b",
+    res, _ = eval_through_cli(["-n", "gen4_rvt_syolox_m", "--fp16", "-b",
                             str(B), "-c", ckpt, "--device", DEV,
                             "--eval_proh", "--save_boxes", boxes], opts, B,
                            "10")
@@ -2824,6 +2878,538 @@ def phase_gen4(steps: int, workers: int) -> None:
     folders_ap(boxes, (res["ap"], res["ap50"]), "10", "the model")
     shutil.rmtree(root, ignore_errors=True)
     print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------------------------------- phases 11 and 12
+
+FULL_V2 = ["use_spike", "full_spike_v2"]
+FULL_V1 = ["use_spike", "full_spike"]
+# launches of a deploy forward of gen1_syolox_m (256x320) on rows 1-4: the
+# JAX package's policy applied to the fully spiking detector's sites,
+# pinned on the CPU (tests/test_torch_variants.py::
+# test_fully_spiking_flagship_site_routing)
+FULL_V2_PER_FORWARD = {"plif_fwd": 74, "conv1x1_plif": 14, "conv3x3_plif": 8,
+                       "conv3x3s2_plif": 1}
+FULL_V1_PER_FORWARD = {"plif_fwd": 60, "conv1x1_plif": 13, "conv3x3_plif": 8,
+                       "conv3x3s2_plif": 1}
+# the neck's and the head's sites (the backbone's are phase 2's)
+FULL_V2_NEW_SITES = {k: FULL_V2_PER_FORWARD[k] - PER_FORWARD[k]
+                     for k in PER_FORWARD}
+FULL_V2_STEP = {"plif_train_fwd": 97, "plif_train_bwd": 97}
+FULL_V1_STEP = {"plif_train_fwd": 82, "plif_train_bwd": 82}
+FULL_B = 128          # the deploy forward's batch (phase 3's)
+FULL_FORWARDS = 10    # forwards timed in phase 11b
+FULL_TRAIN_B = 64     # the train step's batch (phase 6's)
+VARIANT_B = 16        # phase 12b's train batch
+E_YOLOX = "e_yolox_m"
+E_YOLOX_B = 32        # the reference's N-Caltech batch
+# every hand-written kernel, by the symbol torch.profiler shows
+HAND_KERNELS = ("plif_fwd_kernel", "plif_bwd", "conv_wgmma_kernel",
+                "arsnn_v2_kernel", "arsnn_step_kernel")
+VARIANTS_12B = (("snn", ["embedding", "snn", "Ts", "1"]),
+                ("rsnn", ["embedding", "rsnn", "Ts", "1"]),
+                ("norm bn", ["norm", "bn"]),
+                ("spike_fn patan", ["spike_fn", "patan"]))
+
+
+def neck_or_head(name: str) -> bool:
+    """A site of the neck or of the head (not of the CSPDarknet)."""
+    return not name.startswith("backbone.backbone.")
+
+
+def site_rates(model, events, where=neck_or_head) -> str:
+    """The firing rates of the spiking sites ``where`` accepts in one eval
+    forward: min / mean / max over the sites."""
+    rates = []
+    hs = [m.register_forward_hook(
+        lambda m, i, o: rates.append(float(o.float().mean())))
+        for n, m in model.named_modules()
+        if isinstance(m, BaseConv) and m.neuron.spiking and where(n)]
+    with torch.no_grad():
+        model(events)
+    for h in hs:
+        h.remove()
+    return (f"{len(rates)} sites, rate min {min(rates):.4f} mean "
+            f"{np.mean(rates):.4f} max {max(rates):.4f}") if rates else \
+        "no site"
+
+
+@torch.no_grad()
+def stages_card_vs_cpu(phase: str, overrides: list, events) -> None:
+    """``gen1_syolox_m`` with ``overrides`` in f32 at B=2, card (kernels,
+    cuDNN) against CPU (plain versions), stage by stage as phase 4 does:
+    the embedding on the same events and the analog stem on the card's
+    embedding output (ANALOG_TOL), every spiking site on the card's input
+    (at most SITE_TOL of its spikes flip), and the head's prediction convs
+    and box decode on the card's tower outputs (1e-3 relative)."""
+    exp = get_exp("gen1_syolox_m").merge(overrides)
+    exp.compute_dtype = "float32"
+    cpu_model = exp.get_model(device="cpu", seed=SEED)
+    calibrate_spiking_bn(cpu_model, events)
+    gpu_model = exp.get_model(device=DEV, seed=SEED)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    sites, seen, towers = OrderedDict(), {}, {}
+
+    def keep(name):
+        def hook(mod, args, out):
+            xs = args[0] if isinstance(args[0], (tuple, list)) else args[:1]
+            sites[name] = (tuple(p.cpu() for p in xs), out.cpu())
+        return hook
+
+    def tower_mods(model):
+        return {(kind, k): getattr(model.head, f"{kind}_convs")[k]
+                for kind in ("cls", "reg") for k in range(3)}
+
+    hs = [m.register_forward_hook(keep(n))
+          for n, m in gpu_model.named_modules()
+          if isinstance(m, BaseConv) and m.neuron.spiking]
+    hs += [m.register_forward_hook(
+        lambda m, i, o, n=n: towers.update({n: o.cpu()}))
+        for n, m in tower_mods(gpu_model).items()]
+    hs.append(gpu_model.embedding.register_forward_hook(
+        lambda m, i, o: seen.update(embedding=o.cpu())))
+    bb = gpu_model.backbone.backbone
+    hs.append(bb.stem.register_forward_hook(
+        lambda m, i, o: seen.update(stem_in=i[0].cpu(), stem=o.cpu())))
+    gpu = gpu_model(events.to(DEV)).float().cpu()
+    for h in hs:
+        h.remove()
+    _check_analog(f"{overrides}: embedding output", seen["embedding"],
+                  cpu_model.embedding(events), phase)
+    _check_analog(f"{overrides}: stem output", seen["stem"],
+                  cpu_model.backbone.backbone.stem(seen["stem_in"]), phase)
+    cpu_mods = dict(cpu_model.named_modules())
+    worst, n_diff, n_all = 0.0, 0, 0
+    for name, (xs, y_card) in sites.items():
+        y = cpu_mods[name](xs if len(xs) > 1 else xs[0])
+        d = int((y != y_card).sum())
+        worst = max(worst, d / y.numel())
+        n_diff, n_all = n_diff + d, n_all + y.numel()
+    print(f"  {len(sites)} spiking sites on the card's inputs: {n_diff} of "
+          f"{n_all} spikes differ, worst site {worst:.2e} (tolerance "
+          f"{SITE_TOL:.0e})")
+    if not sites or worst > SITE_TOL:
+        fail(f"phase {phase}: {overrides}: spiking sites disagree between "
+             "card and CPU")
+    # the prediction convs and the decode on the card's tower outputs
+    hs = [m.register_forward_hook(lambda m, i, o, n=n: towers[n])
+          for n, m in tower_mods(cpu_model).items()]
+    tail = cpu_model(events).float()
+    for h in hs:
+        h.remove()
+    rel = float(_rel_err(gpu, tail).max())
+    print(f"  {overrides}: head predictions and decode on the card's tower "
+          f"outputs: max |card - cpu| / (1 + |cpu|) {rel:.3e} (tolerance "
+          "1e-3)")
+    if not torch.isfinite(gpu).all() or rel > 1e-3:
+        fail(f"phase {phase}: {overrides}: decoded outputs disagree on the "
+             "same tower outputs")
+
+
+def captured_step_check(phase: str, exp, events, labels, per_step: dict,
+                        steps: int = 0) -> dict:
+    """``exp``'s train step at the events' batch as CUDA graphs
+    (``CapturedStep``): the wrappers' launches over the eager warm-up and
+    the capture (``per_step`` a step, no eval kernel), with ``steps``
+    eager and captured steps timed in turns (ms/step, images/s, peak
+    memory), then from one snapshot a captured step against an eager one
+    (the eager step's own difference as tolerance: its bits). Returns the
+    launches a step."""
+    from eas_snn_tpu_torch.core.train_state import CapturedStep
+    B = events.shape[0]
+    model = exp.get_model(device=DEV, seed=SEED + 1, train=True)
+    opt = exp.get_optimizer(model, B, iters_per_epoch=1000)
+    ema = init_ema(model) if exp.ema else None
+    step = CapturedStep(model, opt, ema)
+    eager = lambda e, t: train_step(model, opt, ema, e, t)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(step.WARMUP + 1):
+        step(events, labels)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"  {step.WARMUP} warm-up steps, capture and first replay at B={B} "
+          f"in {time.perf_counter() - t0:.2f} s, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"(the wrappers' counts over the warm-up and the capture) {counts}")
+    want = {k: (step.WARMUP + 1) * per_step.get(k, 0) for k in counts}
+    if counts != want:
+        fail(f"phase {phase}: launches {counts}, expected {want}")
+    for name in (("eager", "captured", "captured", "eager") if steps
+                 else ()):
+        fn = step if name == "captured" else eager
+        ms, ips, peak, losses = timed_steps(fn, events, labels, steps)
+        print(f"  B={B} {name:8s}: {ms:.3f} ms/step, {ips:.2f} images/s "
+              f"({steps} steps, host clock), peak allocated {peak:.3f} GiB; "
+              f"total loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        if not all(np.isfinite(losses)):
+            fail(f"phase {phase}: {name}: a loss is not finite")
+    if steps:
+        rows = profile_call(lambda: [step(events, labels) for _ in range(3)],
+                            f"3 captured steps at B={B}", top=6)
+        by_name = {k: profiled_total(rows, k)[1]
+                   for k in ("plif_fwd_kernel", "plif_bwd")}
+        print(f"  train PLIF launches in the 3 profiled replays, by kernel "
+              f"name: {by_name}")
+        if by_name != {"plif_fwd_kernel": 3 * per_step["plif_train_fwd"],
+                       "plif_bwd": 3 * per_step["plif_train_bwd"]}:
+            fail(f"phase {phase}: launches by name {by_name} in 3 replays, "
+                 f"expected 3 x {per_step}")
+    snap = snapshot(model, opt, ema)
+    check_step_pair(f"phase {phase} B={B}", step_pair(
+        step, model, opt, ema, snap, events, labels), opt.lr_schedule(0))
+    return {k: v // (step.WARMUP + 1) for k, v in counts.items()}
+
+
+def full_spike_phases() -> int:
+    """Phases 11a-11c and 11e, run as a process of its own (the profiler
+    records every launch of a fresh process, PERF.md §7): the fully
+    spiking detector (``gen1_syolox_m`` with ``use_spike full_spike_v2``,
+    then ``full_spike``). Prints, as JSON on its last line, the launches
+    a forward and a step of each path and the neck/head sites' kernel
+    sums. Returns the exit code: 1 if a check failed."""
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + PTXAS_FLAGS  # phase 1's builds
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    exp = get_exp("gen1_syolox_m").deploy().merge(FULL_V2)
+    H, W = exp.test_size
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    shape = (FULL_B, exp.Tl, exp.Tm, H, W, exp.in_dim)
+    batches = [torch.poisson(torch.full(shape, 0.2, device=DEV),
+                             generator=gen) for _ in range(FULL_FORWARDS)]
+    with torch.no_grad():
+        model = exp.get_model(device=DEV, seed=SEED)
+        calibrate_spiking_bn(model, batches[0][:8])
+        print(f"  neck and head firing (calibrated BN, B={FULL_B}): "
+              f"{site_rates(model, batches[0])}")
+        per_kernel, refused = phase_kernels(
+            model, batches[0], SEED + 11, FULL_V2_NEW_SITES, phase="11a",
+            what=f"full_spike_v2 neck/head (deploy, B={FULL_B})",
+            extras=False, sites_phase="11a (wgmma, direct)",
+            where=neck_or_head)
+        out["eval_sites"] = {k: {f: v[f] for f in (
+            "ms", "kernel_ms", "plain_ms", "bound_ms", "max_abs_err",
+            "sites")} for k, v in per_kernel.items() if v["sites"]}
+        print(f"  wgmma refusals at the neck/head sites: {len(refused)} "
+              f"geometries ({sum(r[1] for r in refused)} sites)")
+
+        print(f"phase 11b: the full_spike_v2 deploy forward, "
+              f"{FULL_FORWARDS} forwards at B={FULL_B} (detect)", flush=True)
+        fps, counts, peak, dets, dt = run_detect(exp, model, batches)
+        print(f"  frames/s {fps:.2f} (host clock, {len(dets)} frames in "
+              f"{dt:.4f} s), peak memory {peak:.3f} GiB; launches {counts}")
+        check_counts("phase 11b (full_spike_v2 forward)", counts,
+                     FULL_FORWARDS, exp.Tm, FULL_V2_PER_FORWARD)
+        out["full_v2_forward"] = {k: v // FULL_FORWARDS
+                                  for k, v in counts.items()}
+        layer_times(model, batches[0])
+        rows = profile_call(lambda: model(batches[0]),
+                            "one full_spike_v2 forward")
+        by_name = {k: profiled_total(rows, k)[1] for k in (
+            "plif_fwd_kernel", "conv_wgmma_kernel", "arsnn_v2_kernel")}
+        want = {"plif_fwd_kernel": FULL_V2_PER_FORWARD["plif_fwd"],
+                "conv_wgmma_kernel": sum(
+                    v for k, v in FULL_V2_PER_FORWARD.items()
+                    if k != "plif_fwd"), "arsnn_v2_kernel": exp.Tm}
+        print(f"  launches in the profiled forward, by kernel name: "
+              f"{by_name}")
+        if by_name != want:
+            fail(f"phase 11b: kernels by name {by_name}, expected {want}")
+        del model, batches
+        torch.cuda.empty_cache()
+        small = torch.poisson(torch.full((2,) + shape[1:], 0.2),
+                              generator=torch.Generator().manual_seed(SEED))
+        print("  card vs CPU, full_spike_v2 in f32 at B=2, stage by stage:")
+        stages_card_vs_cpu("11b", FULL_V2, small)
+    torch.cuda.empty_cache()
+
+    texp = get_exp("gen1_syolox_m").merge(FULL_V2)
+    B = FULL_TRAIN_B
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    events = torch.poisson(torch.full((B, texp.Tl, texp.Tm, H, W,
+                                       texp.in_dim), 0.2, device=DEV),
+                           generator=gen)
+    labels = random_labels(B, H, W, np.random.default_rng(SEED + 11)).to(DEV)
+    tmodel = texp.get_model(device=DEV, seed=SEED, train=True)
+    out["train_sites"] = phase_train_kernels(
+        tmodel, events, labels, SEED + 11, phase="11a (train)", extras=False,
+        alpha=texp.alpha, where=neck_or_head,
+        expect_sites=FULL_V2_STEP["plif_train_fwd"] - PER_STEP[
+            "plif_train_fwd"])
+    del tmodel
+    torch.cuda.empty_cache()
+    print(f"phase 11c: the full_spike_v2 train step as CUDA graphs at B={B} "
+          "(Adam, EMA)", flush=True)
+    out["full_v2_step"] = captured_step_check("11c", texp, events, labels,
+                                              FULL_V2_STEP, steps=8)
+    torch.cuda.empty_cache()
+
+    print("phase 11e: full_spike: one deploy forward and one captured step",
+          flush=True)
+    dexp = get_exp("gen1_syolox_m").deploy().merge(FULL_V1)
+    with torch.no_grad():
+        model = dexp.get_model(device=DEV, seed=SEED)
+        calibrate_spiking_bn(model, events[:8])
+        _, counts, peak, _, dt = run_detect(dexp, model, [events])
+    print(f"  one forward at B={B}: {dt * 1e3:.3f} ms (host clock), peak "
+          f"{peak:.3f} GiB; launches {counts}")
+    check_counts("phase 11e (full_spike forward)", counts, 1, dexp.Tm,
+                 FULL_V1_PER_FORWARD)
+    out["full_forward"] = counts
+    del model
+    torch.cuda.empty_cache()
+    out["full_step"] = captured_step_check(
+        "11e", get_exp("gen1_syolox_m").merge(FULL_V1), events, labels,
+        FULL_V1_STEP)
+    print(json.dumps(out))
+    return 1 if FAILURES else 0
+
+
+def _backbone_only_state(sd: dict) -> dict:
+    """A full_spike_v2 state dict as the backbone-only detector's: the
+    neck's and head's convs out of their SeqToANN containers, their PLIF
+    decays dropped."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("backbone.backbone.") or k.startswith("embedding."):
+            out[k] = v
+        elif k.endswith(".act.w"):
+            continue
+        else:
+            out[k.replace(".conv.0.weight", ".conv.weight")] = v
+    return out
+
+
+def phase_full_spike(steps: int, workers: int) -> dict:
+    """Phase 11: the fully spiking Gen1 detector. 11a-11c and 11e in a
+    process of their own (``full_spike_phases``); 11d, the CLIs, here.
+    Returns the child's JSON result."""
+    import shutil
+
+    from eas_snn_tpu_torch.tools import ap_drift, eval_event
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    print("phase 11: the fully spiking Gen1 detector (gen1_syolox_m with "
+          "use_spike full_spike_v2: spiking backbone, neck and head)",
+          flush=True)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.full_spike_phases())"], cwd=here,
+        capture_output=True, text=True, timeout=900)
+    lines = r.stdout.rstrip().splitlines()
+    print("\n".join(lines[:-1]))
+    print(f"  (the process of phases 11a-11c and 11e took "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    try:
+        res = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        res = {}
+    if r.returncode != 0 or not res:
+        fail(f"phase 11a-11e: the process exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    torch.cuda.empty_cache()
+
+    root = os.path.join(here, "outputs", "chip_smoke_phase11")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "gen1")
+    t0 = time.perf_counter()
+    tree = write_gen1_tree(os.path.join(data, "train"), streams=2, groups=16,
+                           seed=SEED + 11)
+    val = ap_drift.make_data(os.path.join(root, "val"), n_train=0, n_val=1)
+    print(f"phase 11d: the CLIs on full_spike_v2; synthetic Gen1 train tree "
+          f"({tree['streams']} streams, {tree['groups']} label groups) and "
+          f"an ap_drift val tree (1 stream of 40 label groups) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    B = FULL_TRAIN_B
+    train_through_cli(["-n", "gen1_syolox_m", "-b", str(B), "-l", "jsonl",
+                       "data_dir", data, "output_dir",
+                       os.path.join(root, "out")] + FULL_V2, B, steps,
+                      workers, "11d", per_step=FULL_V2_STEP)
+    torch.cuda.empty_cache()
+    opts = ["data_dir", val, "data_num_workers", str(workers)] + FULL_V2
+    pexp, _ = eval_event.build(["-n", "gen1_syolox_m", "--fp16"] + opts)
+    truth_ap(pexp, B, "COCO", "11d")
+    ckpt = os.path.join(root, "calibrated.pth")
+    calibrated_checkpoint(pexp, ckpt, SEED + 11)
+    flags = ["-n", "gen1_syolox_m", "--fp16", "-b", str(B), "-c", ckpt,
+             "--device", DEV]
+    eval_through_cli(flags, opts, B, "11d", base=FULL_V2_PER_FORWARD)
+    # the energy report, against the backbone-only detector on the same
+    # weights
+    e2 = eval_event.main(flags + ["--energy"] + opts)["energy"]
+    ckpt1 = os.path.join(root, "backbone_only.pth")
+    torch.save(_backbone_only_state(torch.load(ckpt)), ckpt1)
+    e1 = eval_event.main(flags[:-4] + ["-c", ckpt1, "--device", DEV,
+                                       "--energy"] + opts[:-2])["energy"]
+    share = {}
+    for what, e in (("full_spike_v2", e2), ("backbone only", e1)):
+        share[what] = e["snn_equivalent_macs"] / (
+            e["snn_equivalent_macs"] + e["dense_macs"])
+        print(f"  --energy {what}: {e['sops']:.6g} SOPs, "
+              f"{e['dense_macs']:.6g} dense MACs, "
+              f"{e['snn_equivalent_macs']:.6g} MACs at the spiking sites if "
+              f"dense (spiking share of the conv work "
+              f"{share[what]:.4f}); {e['snn_energy_mJ']:.6g} + "
+              f"{e['ann_energy_mJ']:.6g} = {e['total_energy_mJ']:.6g} mJ a "
+              "frame")
+    if not share["full_spike_v2"] > share["backbone only"] or not e2[
+            "sops"] > e1["sops"]:
+        fail(f"phase 11d: the spiking share {share} does not grow with the "
+             "spiking neck and head")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def phase_variants(nc_data: str, steps: int, workers: int) -> dict:
+    """Phase 12: ``e_yolox_m`` (count embedding, analog YOLOX, 640x640,
+    100 classes, f32) through both CLIs on phase 9's synthetic
+    N-Caltech101 tree (``nc_data``, removed after), launching no
+    hand-written kernel; then the snn and rsnn embeddings, the
+    post-embedding BN and patan on ``gen1_syolox_m``'s widths. Returns
+    the wrappers' launches a step and an eval batch of ``e_yolox_m``."""
+    import shutil
+
+    from eas_snn_tpu_torch.tools import eval_event
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "outputs", "chip_smoke_phase12")
+    shutil.rmtree(root, ignore_errors=True)
+    data = nc_data
+    print(f"phase 12a: {E_YOLOX} (count embedding, analog YOLOX, f32) on "
+          f"phase 9's N-Caltech101 tree", flush=True)
+    # torch's defaults, with cuBLAS's TF32 on too: the CLI must turn both
+    # off for an f32 preset
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    B = E_YOLOX_B
+    rows, out = train_through_cli(
+        ["-n", E_YOLOX, "-b", str(B), "-l", "jsonl", "data_dir", data,
+         "output_dir", os.path.join(root, "out")], B, steps, workers, "12a",
+        per_step={})
+    out = {"e_yolox_m_step": out}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    print(f"  TF32 (cuDNN, cuBLAS) after the train CLI's build: {tf32}: the "
+          "preset's f32 convs and matmuls run in IEEE f32 "
+          "(EventExp.apply_precision), as the JAX package's f32 runs on "
+          "the CPU its tests hold the port to")
+    if any(tf32):
+        fail(f"phase 12a: the train CLI left TF32 {tf32} for an f32 preset")
+    by_name = {k: profiled_total(rows, k)[1] for k in HAND_KERNELS}
+    print(f"  hand-written kernels in the 2 profiled replays, by name: "
+          f"{by_name} (of {sum(r[1] for r in rows)} kernel launches "
+          "recorded)")
+    if any(by_name.values()) or not rows:
+        fail(f"phase 12a: {E_YOLOX} launched hand-written kernels "
+             f"{by_name}, or the profiler recorded nothing")
+    torch.cuda.empty_cache()
+    opts = ["data_dir", data, "data_num_workers", str(workers)]
+    pexp, _ = eval_event.build(["-n", E_YOLOX] + opts)
+    truth_ap(pexp, B, "COCO", "12a")
+    ckpt = os.path.join(root, "random.pth")
+    calibrated_checkpoint(pexp, ckpt, SEED + 12)
+    _, out["e_yolox_m_batch"] = eval_through_cli(
+        ["-n", E_YOLOX, "-b", str(B), "-c", ckpt, "--device", DEV], opts, B,
+        "12a", base={}, v2=False)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(data), ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    H, W = get_exp("gen1_syolox_m").test_size
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    rng = np.random.default_rng(SEED + 13)
+    small = torch.poisson(torch.full((2, 1, 4, H, W, 2), 0.2),
+                          generator=torch.Generator().manual_seed(SEED))
+    for tag, over in VARIANTS_12B:
+        texp = get_exp("gen1_syolox_m").merge(over)
+        events = torch.poisson(torch.full((VARIANT_B, texp.Tl, texp.Tm, H, W,
+                                           texp.in_dim), 0.2, device=DEV),
+                               generator=gen)
+        labels = random_labels(VARIANT_B, H, W, rng).to(DEV)
+        patan = texp.spike_fn == "patan"
+        print(f"phase 12b: gen1_syolox_m with {' '.join(over)} at "
+              f"B={VARIANT_B}" + (": patan trains through the plain scan "
+                                  "(no kernel, as in the JAX package), 0 "
+                                  "launches of rows 7 and 8 expected"
+                                  if patan else ""), flush=True)
+        captured_step_check(f"12b {tag}", texp, events, labels,
+                            {} if patan else PER_STEP)
+        dexp = get_exp("gen1_syolox_m").deploy().merge(over)
+        with torch.no_grad():
+            model = dexp.get_model(device=DEV, seed=SEED)
+            calibrate_spiking_bn(model, events[:4])
+            _, counts, _, _, dt = run_detect(dexp, model, [events])
+        print(f"  one deploy forward at B={VARIANT_B}: {dt * 1e3:.3f} ms "
+              f"(host clock); launches {counts}")
+        check_counts(f"phase 12b {tag} (deploy forward)", counts, 1,
+                     dexp.Tm if dexp.embedding == "arsnn" else 0)
+        del model
+        torch.cuda.empty_cache()
+        stages_card_vs_cpu(f"12b {tag}", over, small)
+    print(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def determinism_cost(steps: int = 6) -> int:
+    """The cost of cuDNN's deterministic algorithms in the captured step
+    (``CapturedStep.deterministic``), as a process of its own: for
+    ``e_yolox_m`` (f32, IEEE) and ``ncaltech_syolox_m`` (bf16) at B=32,
+    640x640, one model and optimizer, captured with the flag on, off, off,
+    on, each from one snapshot of the train state (the same work each
+    time) and timed over ``steps`` replays (host clock to a synchronize).
+    Run with ``python3 -c "import sys, chip_smoke;
+    sys.exit(chip_smoke.determinism_cost())"``. Returns the exit code."""
+    import gc
+
+    from eas_snn_tpu_torch.core.train_state import CapturedStep
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + PTXAS_FLAGS
+    _build.build_all()
+    print(f"device {torch.cuda.get_device_name(0)}; nvidia-smi: "
+          f"{nvidia_smi_line()}", flush=True)
+    for name in (E_YOLOX, NCALTECH):
+        exp = get_exp(name)
+        exp.apply_precision()
+        B, (H, W) = E_YOLOX_B, exp.input_size
+        model = exp.get_model(device=DEV, seed=SEED, train=True)
+        opt = exp.get_optimizer(model, B, iters_per_epoch=1000)
+        ema = init_ema(model) if exp.ema else None
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 14)
+        events = torch.poisson(torch.full((B, exp.Tl, exp.Tm, H, W,
+                                           exp.in_dim), 0.2, device=DEV),
+                               generator=gen)
+        labels = random_labels(B, H, W, np.random.default_rng(SEED)).to(DEV)
+        ms = {True: [], False: []}
+        train_step(model, opt, ema, events, labels)  # Adam's state exists
+        snap = snapshot(model, opt, ema)
+        for det in (True, False, False, True):
+            restore(snap, model, opt, ema)
+            step = CapturedStep(model, opt, ema)
+            step.deterministic = det
+            for _ in range(step.WARMUP + 1):
+                step(events, labels)
+            t, _, peak, losses = timed_steps(step, events, labels, steps)
+            ms[det].append(t)
+            print(f"  {name} B={B} {H}x{W} {exp.compute_dtype} (cuDNN TF32 "
+                  f"{torch.backends.cudnn.allow_tf32}), deterministic {det}: {t:.3f} ms a captured step "
+                  f"({steps} replays), peak {peak:.3f} GiB, total loss "
+                  f"{losses[-1]:.4f}; flag after "
+                  f"{torch.backends.cudnn.deterministic}", flush=True)
+            if not np.isfinite(losses).all():
+                fail(f"determinism cost: {name}: a loss is not finite")
+            del step
+            gc.collect()
+            torch.cuda.empty_cache()
+        on, off = np.mean(ms[True]), np.mean(ms[False])
+        print(f"  {name}: deterministic {on:.3f} ms against {off:.3f} ms a "
+              f"step: x{on / off:.4f}", flush=True)
+        del model, opt, ema, events, snap
+        torch.cuda.empty_cache()
+    return 1 if FAILURES else 0
 
 
 def main() -> int:
@@ -2905,10 +3491,27 @@ def main() -> int:
     phase_entry_point(B, args.train_steps, args.workers)
     phase_eval_entry_point(EVAL_BATCH, args.workers)
     torch.cuda.empty_cache()
-    phase_ncaltech(args.train_steps, args.workers)
+    nc_data = phase_ncaltech(args.train_steps, args.workers)
     torch.cuda.empty_cache()
     phase_gen4(4, args.workers)
+    torch.cuda.empty_cache()
+    res11 = phase_full_spike(4, args.workers)
+    torch.cuda.empty_cache()
+    res12 = phase_variants(nc_data, 4, args.workers)
+    if FAILURES:
+        print(smi)
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
+        return 1
 
+    # each path of this run, its launches read from zeroed counts just
+    # after it: the full_spike_v2 and full_spike forwards and steps
+    # (phase 11's process; None where it gave no result), e_yolox_m's
+    # step and eval batch (phase 12a)
+    paths = {p: res11.get(p) for p in ("full_v2_forward", "full_v2_step",
+                                       "full_forward", "full_step")}
+    paths.update(res12)
+    neck_head = dict(res11.get("eval_sites", {}),
+                     **res11.get("train_sites", {}))
     kernels = []
     for kname, agg in per_kernel.items():
         source, replaces = KERNEL_INFO[kname]
@@ -2919,7 +3522,12 @@ def main() -> int:
             plain_ms=agg["plain_ms"], bound_ms=agg["bound_ms"],
             bound_by=agg.get("bound_by") or (
                 "bytes" if agg["bytes_ms"] >= agg["ops_ms"] else "operations"),
-            library_ms=None))
+            library_ms=None,
+            path_launches={p: None if c is None else c.get(kname, 0)
+                           for p, c in paths.items()},
+            neck_head=({k: neck_head[kname][k] for k in (
+                "ms", "kernel_ms", "plain_ms", "bound_ms", "max_abs_err")}
+                if kname in neck_head else None)))
     print("kernel times: eval kernels per forward, train kernels per train "
           "step, each the sum over the kernel's sites of the per-call times "
           "above (ms: the wrapper's call, CUDA events; kernel_ms: the "
@@ -2928,15 +3536,17 @@ def main() -> int:
           "launches), arsnn_step per call at the flagship step geometry in "
           "f32; launches from phase 3 (eval, arsnn_v2 included: deploy()'s "
           "own route), phase 3c (arsnn_step: the v1 scan) and phase 6 "
-          "(train); no "
+          "(train); path_launches: a forward or a step of phase 11's "
+          "full_spike_v2 and full_spike paths, a step of phase 12a's "
+          "e_yolox_m through the train CLI and a batch through the eval CLI "
+          "(by the wrappers, from zeroed counts); neck_head: the sums over "
+          "the neck and head sites of the full_spike_v2 forward (rows 1-3) "
+          "and step (rows 7, 8), phase 11a; no "
           "single PyTorch call computes a fused site, the PLIF recurrence, "
           "its backward, the sampler scan or its step, so library_ms is "
           "null")
     print(json.dumps({"kernels": kernels}))
     print(smi)
-    if FAILURES:
-        print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
-        return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -16,6 +16,7 @@ scalars, copies the batch in and replays.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -139,12 +140,29 @@ class CapturedStep:
     Restore checkpoints (``load_optimizer_state`` replaces Adam's state
     tensors) before the first capture; after a reload, build a new
     ``CapturedStep``.
+
+    The warm-up steps and the capture run with
+    ``torch.backends.cudnn.deterministic`` set to ``deterministic``, and
+    the flag is restored after each: the graph keeps the algorithms it
+    captured, so every replay gives the same bits, those of an eager step
+    run under the flag. cuDNN otherwise picks weight-gradient algorithms
+    that sum with atomics for f32 convs (the snn and rsnn embeddings' 5x5
+    stacks, ``e_yolox_*``'s convs). A model whose step draws random
+    numbers (``model.draws_random_numbers``: patan at ``asgl_p > 0``) is
+    refused, since a replay would repeat the captured draw.
     """
 
     WARMUP = 3
+    deterministic = True
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  ema: Optional[Dict[str, torch.Tensor]]):
+        if getattr(model, "draws_random_numbers", False):
+            raise NotImplementedError(
+                "CapturedStep: patan at asgl_p > 0 draws a fresh Bernoulli "
+                "mask a step, which a replayed graph would repeat; run "
+                "train_step eagerly (asgl_p = 0, the reference's value, "
+                "draws no random numbers and captures)")
         dev = next(model.parameters()).device
         if dev.type != "cuda":
             raise ValueError("CapturedStep: the model is on "
@@ -189,7 +207,7 @@ class CapturedStep:
     def _warm_up(self, key, events, targets, use_l1):
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
+        with torch.cuda.stream(self.stream), self.cudnn_mode():
             losses = train_step(self.model, self.optimizer, self.ema,
                                 events, targets, use_l1=use_l1)
         cur.wait_stream(self.stream)
@@ -203,7 +221,8 @@ class CapturedStep:
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
         with torch.cuda.graph(g.graph, pool=self.pool, stream=self.stream,
-                              capture_error_mode="thread_local"):
+                              capture_error_mode="thread_local"), \
+                self.cudnn_mode():
             self.optimizer.zero_grad(set_to_none=True)
             losses = self.model(g.events, g.targets, use_l1=use_l1)
             losses["total_loss"].backward()
@@ -215,6 +234,17 @@ class CapturedStep:
         cur.wait_stream(self.stream)
         self._graphs[key] = g
         return g
+
+    @contextlib.contextmanager
+    def cudnn_mode(self):
+        """The cuDNN setting of the warm-up steps and the capture; an
+        eager step held to a replay bit for bit runs under it too."""
+        old = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = self.deterministic
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.deterministic = old
 
     def _replay(self, g: _Graph, events, targets) -> Dict[str, torch.Tensor]:
         t = updates(self.optimizer)

@@ -67,6 +67,11 @@ class EventExp:
         self.spike_attach = False
         self.write_zero = False
         self.abs = False
+        # declare the arsnn sampler's unused *_agg convs (reference
+        # embedding.py:100-102)
+        self.split = False
+        # None, or any value for a BatchNorm after the embedding
+        self.norm = None
         self.Tl = 1
         self.Tm = 4
         self.Ts = 1
@@ -74,7 +79,14 @@ class EventExp:
         self.reset = 0
         self.thresh = 1
         self.readout = "sum"
+        # the snn embedding's initial LIF decay
+        self.decay = 0.5
         self.spike_fn = "rect"
+        # patan (ASGL): the mixing probability (the reference pins 0 at its
+        # registry, event_yolox_base.py:148) and the learnable alpha's
+        # granularity: 'layer' | 'channel' | 'neuron'
+        self.asgl_p = 0.0
+        self.alpha_granularity = "layer"
         # the surrogate gradient's alpha at the spiking sites in training
         # (rect pinned to 1, ops/surrogate.py:train_alpha)
         self.alpha = 2.0
@@ -154,26 +166,28 @@ class EventExp:
         ``train``), its weights drawn from a ``torch.Generator`` seeded
         with ``seed``."""
         dev = resolve_device(device)
-        if self.embedding != "arsnn":
-            raise NotImplementedError(
-                f"embedding '{self.embedding}' is not ported yet (ROADMAP.md, "
-                "modules to port: 'Remaining model surface')")
         state_dt = self.embedding_state_dtype
         model = EASYOLOX(
             num_classes=self.num_classes, depth=self.depth, width=self.width,
             act=self.act, use_spike=self.use_spike_mode, T=self.T,
             spike_fn=self.spike_fn, alpha=float(self.alpha),
-            embedding_ksize=self.embedding_ksize,
+            asgl_p=float(self.asgl_p),
+            alpha_granularity=self.alpha_granularity, norm=self.norm,
+            embedding=self.embedding, embedding_ksize=self.embedding_ksize,
             embedding_depth=self.embedding_depth, Ts=self.Ts,
             readout=self.readout, spike_attach=self.spike_attach,
-            write_zero=self.write_zero, use_abs=self.abs,
+            write_zero=self.write_zero, use_abs=self.abs, split=self.split,
             thresh=float(self.thresh),
             vreset=None if self.reset is None else float(self.reset),
+            decay=float(self.decay),
             compute_dtype=_DTYPES[self.compute_dtype],
             embedding_state_dtype=None if state_dt is None else _DTYPES[state_dt],
             fuse=self.conv_plif_fuse, fused_sampler=self.fused_sampler,
         )
         model.reset_parameters(torch.Generator().manual_seed(seed))
+        # a 'neuron' patan alpha takes its shape from the input size
+        model.materialize_alpha((1, self.Tl, self.Tm, *self.input_size,
+                                 self.in_dim))
         return model.to(dev).train(train)
 
     def detect(self, model: EASYOLOX, events: torch.Tensor
@@ -304,6 +318,16 @@ class EventExp:
             raise ValueError(f"input size {self.input_size} must be "
                              "multiples of 32")
 
+    def apply_precision(self) -> None:
+        """Process-wide: an exp that computes in f32 runs its convs and
+        matmuls in IEEE f32, with cuDNN's and cuBLAS's TF32 off (torch's
+        default runs cuDNN's f32 convs in TF32), as the JAX package's f32
+        runs on the CPU its tests hold the port to. A bf16 exp leaves
+        torch's settings."""
+        if self.compute_dtype == "float32":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+
     def get_trainer(self, args=None, device="cuda",
                     iters_per_epoch: Optional[int] = None):
         from ..core.trainer import Trainer
@@ -376,6 +400,14 @@ def _ncaltech_syolox_m(exp: EventExp) -> EventExp:
     return exp
 
 
+def _e_yolox(exp: EventExp, depth: float, width: float) -> EventExp:
+    """exps/default/e_yolox_{s,m,l}.py: EventExp's defaults (the count
+    embedding, an analog YOLOX, N-Caltech101 at 640x640, 100 classes) at
+    the preset's depth and width."""
+    exp.depth, exp.width = depth, width
+    return exp
+
+
 def _named(name: str, exp: EventExp) -> EventExp:
     exp.exp_name = name
     return exp
@@ -394,6 +426,10 @@ _PRESETS = {
     # exps/default/ncaltech_syolox_m.py
     "ncaltech_syolox_m": lambda: _named(
         "ncaltech_syolox_m", _ncaltech_syolox_m(EventExp())),
+    # exps/default/e_yolox_{s,m,l}.py
+    "e_yolox_s": lambda: _named("e_yolox_s", _e_yolox(EventExp(), 0.33, 0.50)),
+    "e_yolox_m": lambda: _named("e_yolox_m", _e_yolox(EventExp(), 0.67, 0.75)),
+    "e_yolox_l": lambda: _named("e_yolox_l", _e_yolox(EventExp(), 1.0, 1.0)),
 }
 
 

@@ -24,8 +24,9 @@ from ..ops.conv_plif import (
     fold_conv3x3,
 )
 from ..ops.conv_plif_policy import should_fuse
-from ..ops.lif import PLIF_W_INIT
+from ..ops.lif import PLIF_W_INIT, plif_scan
 from ..ops.plif import bn_eval, decay_multiplier, plif_forward, plif_train
+from ..ops.surrogate import asgl_spike
 
 __all__ = [
     "Neuron", "BatchNorm", "PLIF", "BaseConv", "Bottleneck", "SPPBottleneck",
@@ -38,7 +39,10 @@ Pieces = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 class Neuron(NamedTuple):
     """How a block's activations behave. ``fuse`` is the conv+BN+PLIF
     policy mode (ops/conv_plif_policy.py) for its spiking sites; ``alpha``
-    the surrogate gradient's width in training (JAX ``NeuronCfg.alpha``)."""
+    the surrogate gradient's width in training (JAX ``NeuronCfg.alpha``);
+    ``asgl_p`` and ``alpha_granularity`` concern patan only: the ASGL
+    mixing probability and the shape of its learnable alpha ('layer',
+    'channel' or 'neuron')."""
 
     spiking: bool = False
     T: int = 1
@@ -46,6 +50,8 @@ class Neuron(NamedTuple):
     thresh: float = 1.0
     fuse: str = "auto"
     alpha: float = 2.0
+    asgl_p: float = 0.0
+    alpha_granularity: str = "layer"
 
 
 # flax's momentum: running <- 0.97 * running + 0.03 * batch statistic
@@ -163,15 +169,43 @@ class PLIF(_KeptConstant, nn.Module):
     scalar decay logit ``w`` (spikingjelly ParametricLIFNode). At eval the
     spikes are int8 (patan runs atan's hard forward); in training they are
     in x's dtype, with the surrogate gradient of ``spike_fn`` at ``alpha``
-    (rect pinned to 1, as in the JAX package)."""
+    (rect pinned to 1, as in the JAX package).
+
+    patan (ASGL) trains as the JAX package trains it, through the plain
+    scan (``ops/lif.py:plif_scan``) with ``asgl_spike`` and a learnable
+    ``asgl_alpha`` of shape (1,), (C,) or (C, H, W) for the granularity
+    'layer', 'channel' or 'neuron' (JAX ``PLIF.alpha``; reference
+    activation.py:73-83, 181-205): no kernel of either package serves it.
+    A 'neuron' alpha takes its (C, H, W) from the input size when the
+    model is built (``EASYOLOX.materialize_alpha``, a train forward on the
+    meta device, as the JAX package's init on an example input). At
+    ``asgl_p > 0`` the mask is drawn from the device's default
+    generator."""
+
+    GRANULARITIES = ("layer", "channel", "neuron")
 
     def __init__(self, T: int, spike_fn: str = "atan", thresh: float = 1.0,
-                 alpha: float = 2.0):
+                 alpha: float = 2.0, asgl_p: float = 0.0,
+                 alpha_granularity: str = "layer", channels: int = 1):
         super().__init__()
         self.T, self.thresh, self.alpha = T, thresh, alpha
         self.spike_fn = spike_fn
         self.kind = "atan" if spike_fn == "patan" else spike_fn
         self.w = nn.Parameter(torch.tensor(PLIF_W_INIT))
+        self.asgl_p, self.alpha_granularity = asgl_p, alpha_granularity
+        if spike_fn == "patan":
+            if alpha_granularity not in self.GRANULARITIES:
+                raise NotImplementedError(
+                    f"granularity '{alpha_granularity}'")
+            if alpha_granularity != "neuron":
+                shape = (1,) if alpha_granularity == "layer" else (channels,)
+                self.asgl_alpha = nn.Parameter(torch.full(shape, alpha))
+
+    def materialize_alpha(self, shape) -> None:
+        """Create the 'neuron' granularity's alpha at ``shape`` (C, H, W),
+        filled with ``alpha``, on w's device."""
+        self.asgl_alpha = nn.Parameter(torch.full(
+            tuple(shape), float(self.alpha), device=self.w.device))
 
     def decay(self) -> torch.Tensor:
         """The eval decay multiplier ``decay_multiplier(w)``, (1,) f32:
@@ -185,6 +219,15 @@ class PLIF(_KeptConstant, nn.Module):
         if not self.training:
             return plif_forward(x, self.T, self.w, self.thresh, self.kind,
                                 bn=bn, a=self.decay())
+        if self.spike_fn == "patan":
+            if not hasattr(self, "asgl_alpha"):
+                if not x.is_meta:
+                    raise RuntimeError(
+                        "PLIF: the 'neuron' patan alpha is created when the "
+                        "model is built (EASYOLOX.materialize_alpha); "
+                        "this site has none")
+                self.materialize_alpha(x.shape[1:])
+            return self._asgl_scan(x, bn)
         if bn is None:
             C = x.shape[1]
             bn = tuple(torch.full((C,), v, device=x.device)
@@ -192,6 +235,23 @@ class PLIF(_KeptConstant, nn.Module):
         a = 1.0 - torch.sigmoid(self.w.float())
         return plif_train(x, self.T, a, *bn, self.thresh, self.spike_fn,
                           self.alpha)
+
+    def _asgl_scan(self, x: torch.Tensor, bn) -> torch.Tensor:
+        """Training with patan: the BN normalize as the unfused path does
+        it, then the differentiable scan with ``asgl_spike`` (JAX
+        ``eas_snn_tpu/models/blocks.py:193-222``)."""
+        if bn is not None:
+            x = bn_eval(x, *bn, x.dtype)
+        alpha = self.asgl_alpha.to(x.dtype)
+        if self.alpha_granularity == "channel":
+            alpha = alpha.reshape(-1, 1, 1)
+
+        def spike(v: torch.Tensor) -> torch.Tensor:
+            return asgl_spike(v, alpha, p=self.asgl_p)
+
+        xs = x.reshape((self.T, -1) + tuple(x.shape[1:]))
+        spikes, _ = plif_scan(xs, self.w.to(x.dtype), spike, self.thresh)
+        return spikes.reshape(x.shape)
 
 
 _ACTS = {"silu": nn.SiLU, "relu": nn.ReLU,
@@ -226,7 +286,8 @@ class BaseConv(nn.Module):
         self.conv = nn.Sequential(conv) if neuron.spiking else conv
         self.bn = BatchNorm(out_channels)
         self.act = (PLIF(neuron.T, neuron.spike_fn, neuron.thresh,
-                         neuron.alpha)
+                         neuron.alpha, neuron.asgl_p,
+                         neuron.alpha_granularity, out_channels)
                     if neuron.spiking else _analog_act(act))
 
     @property
@@ -379,5 +440,6 @@ class Focus(nn.Module):
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x spatial upsample of (N, C, H, W)."""
+    """Nearest-neighbour 2x spatial upsample of (N, C, H, W), in x's dtype
+    (int8 spike trains of a spiking neck stay int8)."""
     return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)

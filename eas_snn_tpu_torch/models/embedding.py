@@ -1,6 +1,16 @@
-"""The ARSNN adaptive sampler as an event-to-frame front end (counterpart
-of ``eas_snn_tpu/models/embedding.py:ARSNNEmbedding``; reference
-embedding.py:79-226).
+"""Event-to-frame front ends (counterpart of
+``eas_snn_tpu/models/embedding.py``; reference embedding.py): ``count``
+(the micro-frames summed), ``snn`` (a feedforward LIF), ``rsnn`` (a gated
+recurrent LIF) and ``arsnn``, the adaptive sampler (reference
+embedding.py:79-226), built by :func:`build_embedding`. count, snn and
+rsnn emit one (B*Tl, C, H, W) frame; their forward is plain PyTorch, as
+the JAX package's is plain XLA (no kernel of either package serves them).
+Their spike is rect at alpha 1 whatever the detector's (reference
+get_kwargs_spikes, event_yolox_base.py:153-158). Parameter names are the
+reference's where the JAX package's importer knows them: the snn stack
+``embedding_conv.layer.{0,2,..}`` (the reference's time-distributed
+``tdLayer``), the rsnn and arsnn stacks ``input_conv.{0,2,..}`` and
+``gate_conv.{0,2,..}``, the snn decay logit ``decay``.
 
 Events arrive as (B, Tl, Tm, H, W, C); macro slices Tl fold into the
 batch and the Tm micro-steps are scanned in reversed order
@@ -35,9 +45,14 @@ import torch.nn.functional as F
 
 from ..ops.arsnn import arsnn_scan
 from ..ops.arsnn_fused import arsnn_fused_v2, arsnn_scan_fused, v2_supported
+from ..ops.lif import gated_lif_update, lif_scan
 from ..ops.surrogate import get_spike_fn
 
-__all__ = ["ARSNNEmbedding", "fold_time", "FUSED_SAMPLER_MODES"]
+__all__ = ["ARSNNEmbedding", "LIFEmbedding", "RSNNEmbedding",
+           "SpikeCountEmbedding", "build_embedding", "fold_time",
+           "logit_decay", "FUSED_SAMPLER_MODES", "EMBEDDINGS"]
+
+EMBEDDINGS = ("count", "snn", "rsnn", "arsnn")
 
 FUSED_SAMPLER_MODES = ("never", "auto", "always")
 
@@ -53,6 +68,12 @@ def fold_time(events: torch.Tensor) -> torch.Tensor:
     return events.movedim(1, 0).flip(0)
 
 
+def logit_decay(decay: float) -> float:
+    """The logit of ``decay``, so that sigmoid(param) is the decay
+    (reference utils/util.py:278-280 warp_decay)."""
+    return math.log(decay / (1.0 - decay))
+
+
 def _conv_stack(in_ch: int, out_ch: int, ksize: int, depth: int) -> nn.Sequential:
     layers = []
     for i in range(depth):
@@ -63,11 +84,157 @@ def _conv_stack(in_ch: int, out_ch: int, ksize: int, depth: int) -> nn.Sequentia
     return nn.Sequential(*layers)
 
 
+def _init_orthogonal(stack: nn.Module, generator: torch.Generator) -> None:
+    """Every conv of ``stack`` orthogonal x sqrt(2), its bias zero (the JAX
+    package's ``_ORTHO``; reference embedding.py:121-127)."""
+    for m in stack.modules():
+        if isinstance(m, nn.Conv2d):
+            nn.init.orthogonal_(m.weight, math.sqrt(2.0), generator=generator)
+            nn.init.zeros_(m.bias)
+
+
+def _init_fan_in_uniform(stack: nn.Module,
+                         generator: torch.Generator) -> None:
+    """Every conv of ``stack`` uniform in +-sqrt(3 / fan_in), its bias zero
+    (the JAX package's ``_KAIMING_SIGMOID``; reference
+    embedding.py:128-130)."""
+    for m in stack.modules():
+        if isinstance(m, nn.Conv2d):
+            lim = math.sqrt(3.0 / (m.weight[0].numel()))
+            nn.init.uniform_(m.weight, -lim, lim, generator=generator)
+            nn.init.zeros_(m.bias)
+
+
+def apply_stack(stack: nn.Sequential, dtype: Optional[torch.dtype] = None):
+    """``x -> stack(x)`` computed in ``dtype`` (None: x's), the bias added
+    after each conv and the result cast back to x's dtype, as the JAX
+    package's conv-stack closure computes."""
+    def apply(x: torch.Tensor) -> torch.Tensor:
+        out_dtype = x.dtype
+        cdt = dtype or out_dtype
+        x = x.to(cdt)
+        for m in stack:
+            if isinstance(m, nn.ReLU):
+                x = torch.relu(x)
+            else:
+                x = F.conv2d(x, m.weight.to(cdt), padding=m.padding) + \
+                    m.bias.to(cdt)[None, :, None, None]
+        return x.to(out_dtype)
+
+    return apply
+
+
+class _TimeDistributed(nn.Module):
+    """A stack applied with time folded into the batch (the reference's
+    ``tdLayer``, layer.py:122-132): here only a holder that gives its
+    parameters the reference's ``.layer`` names."""
+
+    def __init__(self, layer: nn.Sequential):
+        super().__init__()
+        self.layer = layer
+
+
+def _events_nchw(events: torch.Tensor) -> torch.Tensor:
+    """(B, Tl, Tm, H, W, C) -> time-reversed (Tm, B*Tl, C, H, W)."""
+    return fold_time(events).permute(0, 1, 4, 2, 3)
+
+
+def _over_steps(fn, ev: torch.Tensor) -> torch.Tensor:
+    """``fn`` over the (Tm * N, C, H, W) steps of a (Tm, N, C, H, W) ``ev``,
+    as one batch; the result back as (Tm, N, ...)."""
+    y = fn(ev.reshape((-1,) + tuple(ev.shape[2:])))
+    return y.reshape(tuple(ev.shape[:2]) + tuple(y.shape[1:]))
+
+
+class SpikeCountEmbedding(nn.Module):
+    """The event micro-frames summed over time (reference
+    embedding.py:9-24): (B*Tl, C, H, W)."""
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        pass
+
+    def forward(self, events: torch.Tensor) -> torch.Tensor:
+        return _events_nchw(events).sum(0)
+
+
+class LIFEmbedding(nn.Module):
+    """One conv stack over all Tm steps, then a LIF over them with a
+    learnable decay logit; readout 'sum' (the no-reset membranes summed)
+    or 'last' (the final membrane) (reference embedding.py:28-76)."""
+
+    def __init__(self, ksize: int = 7, in_channels: int = 2,
+                 out_channels: int = 2, depth: int = 1, readout: str = "sum",
+                 thresh: float = 1.0, vreset: Optional[float] = 0.0,
+                 decay: float = 0.5):
+        super().__init__()
+        if readout not in ("sum", "last"):
+            raise NotImplementedError(f"readout '{readout}'")
+        self.readout, self.thresh, self.vreset = readout, thresh, vreset
+        self.decay_init = decay
+        self.embedding_conv = _TimeDistributed(
+            _conv_stack(in_channels, out_channels, ksize, depth))
+        self.decay = nn.Parameter(torch.tensor(logit_decay(decay)))
+        self.spike_fn = get_spike_fn("rect")
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _init_orthogonal(self.embedding_conv, generator)
+        self.decay.fill_(logit_decay(self.decay_init))
+
+    def forward(self, events: torch.Tensor) -> torch.Tensor:
+        ev = _events_nchw(events)
+        psp = _over_steps(apply_stack(self.embedding_conv.layer), ev)
+        _, v, vsum = lif_scan(psp, self.decay.to(psp.dtype), self.thresh,
+                              self.vreset, self.spike_fn)
+        return vsum if self.readout == "sum" else v
+
+
+class RSNNEmbedding(nn.Module):
+    """A gated recurrent LIF without segmentation (reference
+    embedding.py:229-316 SpikingEmbedding): the input conv runs once over
+    all steps, the gate conv on each step's last spike;
+    gate = sigmoid(g_in + g_rec), v <- gate * v + c_in + c_rec. Readout
+    'sum' or 'last', ReLU'd with ``use_relu`` (the exp's ``abs``)."""
+
+    def __init__(self, ksize: int = 7, in_channels: int = 2,
+                 out_channels: int = 2, depth: int = 1, readout: str = "sum",
+                 use_relu: bool = False, thresh: float = 1.0,
+                 vreset: Optional[float] = 0.0):
+        super().__init__()
+        C = out_channels
+        self.readout, self.use_relu = readout, use_relu
+        self.thresh, self.vreset = thresh, vreset
+        self.input_conv = _conv_stack(in_channels, 2 * C, ksize, depth)
+        self.gate_conv = _conv_stack(C, 2 * C, ksize, depth)
+        self.spike_fn = get_spike_fn("rect")
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _init_orthogonal(self.input_conv, generator)
+        _init_fan_in_uniform(self.gate_conv, generator)
+
+    def forward(self, events: torch.Tensor) -> torch.Tensor:
+        ev = _events_nchw(events)
+        inp = _over_steps(apply_stack(self.input_conv), ev)
+        C = inp.shape[2] // 2
+        gate_conv = apply_stack(self.gate_conv)
+        v = spike = vsum = torch.zeros_like(inp[0, :, :C])
+        for t in range(inp.shape[0]):
+            rec = gate_conv(spike)
+            gate = torch.sigmoid(inp[t, :, :C] + rec[:, :C])
+            v, v_noreset, spike = gated_lif_update(
+                v, gate, inp[t, :, C:] + rec[:, C:], self.thresh,
+                self.vreset, self.spike_fn)
+            vsum = vsum + v_noreset
+        out = vsum if self.readout == "sum" else v
+        return torch.relu(out) if self.use_relu else out
+
+
 class ARSNNEmbedding(nn.Module):
     def __init__(self, ksize: int = 7, in_channels: int = 2,
                  out_channels: int = 2, Ts: int = 1, depth: int = 1,
                  readout: str = "sum", spike_attach: bool = False,
                  write_zero: bool = False, use_abs: bool = False,
+                 split: bool = False,
                  thresh: float = 1.0, vreset: Optional[float] = 0.0,
                  dtype: Optional[torch.dtype] = None,
                  state_dtype: Optional[torch.dtype] = None,
@@ -85,37 +252,26 @@ class ARSNNEmbedding(nn.Module):
         self.dtype, self.state_dtype = dtype, state_dtype
         self.input_conv = _conv_stack(in_channels, 2 * C, ksize, depth)
         self.gate_conv = _conv_stack(C, 2 * C, ksize, depth)
+        if split:
+            # declared only, as the reference declares them
+            # (embedding.py:100-102, 129-130): no forward uses them
+            self.input_conv_agg = nn.Conv2d(in_channels, 2 * C, ksize,
+                                            padding=ksize // 2)
+            self.gate_conv_agg = nn.Conv2d(C, 2 * C, ksize,
+                                           padding=ksize // 2)
         # the sampler's spike is rect whatever the detector uses
         # (reference get_kwargs_spikes, event_yolox_base.py:153-158)
         self.spike_fn = get_spike_fn("rect")
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Input convs: orthogonal x sqrt(2); gate convs: fan-in uniform;
-        biases zero (reference embedding.py:121-130)."""
-        for m in self.input_conv:
-            if isinstance(m, nn.Conv2d):
-                nn.init.orthogonal_(m.weight, math.sqrt(2.0), generator=generator)
-                nn.init.zeros_(m.bias)
-        for m in self.gate_conv:
-            if isinstance(m, nn.Conv2d):
-                lim = math.sqrt(3.0 / (m.weight[0].numel()))
-                nn.init.uniform_(m.weight, -lim, lim, generator=generator)
-                nn.init.zeros_(m.bias)
-
-    def _apply_stack(self, stack: nn.Sequential):
-        def apply(x: torch.Tensor) -> torch.Tensor:
-            out_dtype = x.dtype
-            cdt = self.dtype or out_dtype
-            x = x.to(cdt)
-            for m in stack:
-                if isinstance(m, nn.ReLU):
-                    x = torch.relu(x)
-                else:
-                    x = F.conv2d(x, m.weight.to(cdt), padding=m.padding) + \
-                        m.bias.to(cdt)[None, :, None, None]
-            return x.to(out_dtype)
-
-        return apply
+        biases zero (reference embedding.py:121-130); the split convs with
+        the two inits swapped."""
+        _init_orthogonal(self.input_conv, generator)
+        _init_fan_in_uniform(self.gate_conv, generator)
+        if hasattr(self, "input_conv_agg"):
+            _init_fan_in_uniform(self.input_conv_agg, generator)
+            _init_orthogonal(self.gate_conv_agg, generator)
 
     def stack_weights(self):
         """[(weight, bias), ...] of the input and of the gate conv stack,
@@ -143,14 +299,14 @@ class ARSNNEmbedding(nn.Module):
         return "v1" if self.fused_sampler == "always" else "plain"
 
     def forward(self, events: torch.Tensor) -> torch.Tensor:
-        ev = fold_time(events).permute(0, 1, 4, 2, 3)  # (Tm, N, C, H, W)
+        ev = _events_nchw(events)
         in_dtype = ev.dtype
         if self.state_dtype is not None:
             ev = ev.to(self.state_dtype)
         kw = self.scan_kwargs()
         route = self.route(ev)
-        convs = (self._apply_stack(self.input_conv),
-                 self._apply_stack(self.gate_conv))
+        convs = (apply_stack(self.input_conv, self.dtype),
+                 apply_stack(self.gate_conv, self.dtype))
         if route == "v2":
             agg = arsnn_fused_v2(ev.contiguous(), *self.stack_weights(), **kw)
         elif route == "v1":
@@ -158,3 +314,33 @@ class ARSNNEmbedding(nn.Module):
         else:
             agg = arsnn_scan(ev, *convs, spike_fn=self.spike_fn, **kw)
         return agg.to(in_dtype)
+
+
+def build_embedding(name: str, *, dtype: Optional[torch.dtype] = None,
+                    ksize: int = 7, depth: int = 1, Ts: int = 1,
+                    readout: str = "sum", spike_attach: bool = False,
+                    write_zero: bool = False, use_abs: bool = False,
+                    split: bool = False, thresh: float = 1.0,
+                    vreset: Optional[float] = 0.0, decay: float = 0.5,
+                    state_dtype: Optional[torch.dtype] = None,
+                    fused_sampler: str = "never") -> nn.Module:
+    """The embedding ``name`` (JAX ``build_embedding``; reference
+    embedding_dict, event_yolox_base.py:166-177). ``dtype``, the state
+    dtype and the fused sampler concern the arsnn sampler only, as in the
+    JAX package."""
+    if name == "count":
+        return SpikeCountEmbedding()
+    if name == "snn":
+        return LIFEmbedding(ksize=ksize, depth=depth, readout=readout,
+                            thresh=thresh, vreset=vreset, decay=decay)
+    if name == "rsnn":
+        return RSNNEmbedding(ksize=ksize, depth=depth, readout=readout,
+                             use_relu=use_abs, thresh=thresh, vreset=vreset)
+    if name == "arsnn":
+        return ARSNNEmbedding(
+            ksize=ksize, depth=depth, Ts=Ts, readout=readout,
+            spike_attach=spike_attach, write_zero=write_zero,
+            use_abs=use_abs, split=split, thresh=thresh, vreset=vreset,
+            dtype=dtype, state_dtype=state_dtype,
+            fused_sampler=fused_sampler)
+    raise KeyError(f"unknown embedding '{name}'; one of {EMBEDDINGS}")

@@ -1,5 +1,14 @@
 """Decoupled anchor-free YOLOX head (counterpart of
-``eas_snn_tpu/models/head.py``; reference yolo_head.py), NCHW, analog.
+``eas_snn_tpu/models/head.py``; reference yolo_head.py,
+spiking_yolo_head.py), NCHW.
+
+Analog by default. With ``decode_input`` (the 'full_spike' mode) each
+level arrives as a (T*B, ...) spike train and is rate-decoded before the
+analog stem (spiking_yolo_head.py:159-160). With a spiking ``neuron``
+('full_spike_v2') the stems and towers are spiking sites at T*B, the
+``*_pred`` 1x1 convs run on their spike trains (cast to the compute
+dtype: int8 at eval) and the predictions are rate-decoded
+(spiking_yolo_head.py:175-178).
 
 Per level the output channels are [reg(4), obj(1), cls(C)], decoded as
 xy = (reg_xy + grid) * stride and wh = exp(reg_wh) * stride with an ``ij``
@@ -18,7 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import BaseConv
+from .blocks import BaseConv, Neuron
+from .pafpn import rate_decode
 
 __all__ = ["YOLOXHead", "HeadOutput"]
 
@@ -40,12 +50,14 @@ class YOLOXHead(nn.Module):
                  strides: Tuple[int, ...] = (8, 16, 32),
                  in_channels: Tuple[int, ...] = (256, 512, 1024),
                  act: str = "silu", dtype=torch.float32,
-                 prior_prob: float = 1e-2):
+                 prior_prob: float = 1e-2, neuron: Neuron = Neuron(),
+                 decode_input: bool = False, T: int = 1):
         super().__init__()
         self.num_classes, self.strides, self.dtype = num_classes, strides, dtype
+        self.neuron, self.decode_input, self.T = neuron, decode_input, T
         self.prior_bias = -log((1 - prior_prob) / prior_prob)
         hidden = int(256 * width)
-        kw = dict(act=act, dtype=dtype)
+        kw = dict(act=act, neuron=neuron, dtype=dtype)
 
         def tower():
             return nn.Sequential(BaseConv(hidden, hidden, 3, 1, **kw),
@@ -69,13 +81,17 @@ class YOLOXHead(nn.Module):
             conv.bias.fill_(self.prior_bias)
 
     def _pred(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        # conv in the compute dtype, bias added in it, then f32 (flax Conv)
-        y = F.conv2d(x, conv.weight.to(self.dtype))
-        return (y + conv.bias.to(self.dtype)[None, :, None, None]).float()
+        # conv in the compute dtype, bias added in it, then f32 (flax Conv);
+        # a spiking head's predictions are rate-decoded
+        y = F.conv2d(x.to(self.dtype), conv.weight.to(self.dtype))
+        y = (y + conv.bias.to(self.dtype)[None, :, None, None]).float()
+        return rate_decode(y, self.T) if self.neuron.spiking else y
 
     def forward(self, xin: Sequence[torch.Tensor]):
         outputs, origins, gxs, gys, svs = [], [], [], [], []
         for k, (stride, x) in enumerate(zip(self.strides, xin)):
+            if self.decode_input and not self.neuron.spiking:
+                x = rate_decode(x, self.T)
             x = self.stems[k](x)
             cls_out = self._pred(self.cls_preds[k], self.cls_convs[k](x))
             reg_feat = self.reg_convs[k](x)

@@ -1,8 +1,13 @@
 """YOLO-PAFPN neck (counterpart of ``eas_snn_tpu/models/pafpn.py``;
-reference yolo_pafpn.py / spiking_yolo_pafpn.py), NCHW, analog.
+reference yolo_pafpn.py / spiking_yolo_pafpn.py), NCHW.
 
-With a spiking backbone the dark3..dark5 spike trains are rate-decoded
-(mean over T, in f32) before the analog neck (spiking_yolo_pafpn.py:98).
+``backbone_neuron`` makes the CSPDarknet spiking, ``neck_neuron`` the
+neck's convs (the 'full_spike' modes). With a spiking backbone and an
+analog neck the dark3..dark5 spike trains are rate-decoded (mean over T,
+in f32) before the neck (spiking_yolo_pafpn.py:98); a spiking neck takes
+the (T*B, ...) spike trains themselves (int8 at eval). The merges hand
+their CSP layer a tuple (a channel concat that only the unfused path
+materializes), so a fused 1x1 site reads the pieces directly.
 """
 
 from __future__ import annotations
@@ -28,16 +33,16 @@ class YOLOPAFPN(nn.Module):
                  in_features: Tuple[str, ...] = ("dark3", "dark4", "dark5"),
                  in_channels: Tuple[int, int, int] = (256, 512, 1024),
                  act: str = "silu", backbone_neuron: Neuron = Neuron(),
-                 dtype=torch.float32):
+                 neck_neuron: Neuron = Neuron(), dtype=torch.float32):
         super().__init__()
         self.in_features = in_features
-        self.backbone_neuron = backbone_neuron
+        self.backbone_neuron, self.neck_neuron = backbone_neuron, neck_neuron
         self.backbone = CSPDarknet(depth, width, out_features=in_features,
                                    act=act, neuron=backbone_neuron,
                                    dtype=dtype)
         c0, c1, c2 = (int(c * width) for c in in_channels)
         n = round(3 * depth)
-        kw = dict(act=act, dtype=dtype)
+        kw = dict(act=act, neuron=neck_neuron, dtype=dtype)
         csp = dict(n=n, shortcut=False, **kw)
         self.lateral_conv0 = BaseConv(c2, c1, 1, 1, **kw)
         self.C3_p4 = CSPLayer(2 * c1, c1, **csp)
@@ -51,7 +56,7 @@ class YOLOPAFPN(nn.Module):
     def forward(self, x: torch.Tensor, return_features: bool = False):
         feats: Dict[str, torch.Tensor] = self.backbone(x)
         features = [feats[f] for f in self.in_features]
-        if self.backbone_neuron.spiking:
+        if self.backbone_neuron.spiking and not self.neck_neuron.spiking:
             features = [rate_decode(f, self.backbone_neuron.T)
                         for f in features]
         x2, x1, x0 = features

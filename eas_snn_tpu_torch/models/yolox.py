@@ -1,10 +1,22 @@
-"""The assembled event detector: ARSNN sampler -> PAFPN (spiking CSPDarknet
-backbone, analog neck) -> YOLOX head (counterpart of
-``eas_snn_tpu/models/yolox.py:EASYOLOX``).
+"""The assembled event detector: embedding -> PAFPN (CSPDarknet backbone
+and neck) -> YOLOX head (counterpart of ``eas_snn_tpu/models/yolox.py:
+EASYOLOX``; reference event_yolox_base.py:197-214).
 
-``use_spike`` is 'backbone' (spiking CSPDarknet, features rate-decoded
-before the analog neck) or 'none' (all analog; a multi-slice embedding
-output keeps slice 0). Events go in as (B, Tl, Tm, H, W, C). At eval
+``use_spike`` picks one of the reference's four variants:
+
+* 'none': all analog; a multi-slice embedding output keeps slice 0;
+* 'backbone': spiking CSPDarknet, its features rate-decoded before the
+  analog neck;
+* 'full' ('full_spike'): spiking backbone and neck, each head level
+  rate-decoded before the analog head;
+* 'full_v2' ('full_spike_v2'): spiking head too, its predictions
+  rate-decoded.
+
+``embedding`` is 'count', 'snn', 'rsnn' or 'arsnn'
+(``models/embedding.py:build_embedding``); ``norm`` (any value but None)
+puts a BatchNorm over the embedding's output, after keeping its first
+slice where it emits several (the reference's ModuleList wrap,
+spiking_yolox.py:41-47). Events go in as (B, Tl, Tm, H, W, C). At eval
 decoded (B, A, 5 + num_classes) comes out, as in the JAX package; in
 training with targets (B, M, 5) the loss dict of the JAX package
 (total, iou (already x5), conf, cls, l1, num_fg), and without targets the
@@ -13,14 +25,15 @@ head's decoded train outputs (obj/cls as logits).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+import copy
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
 
 from ..ops.lif import PLIF_W_INIT
-from .blocks import BaseConv, Neuron
-from .embedding import ARSNNEmbedding
+from .blocks import PLIF, BaseConv, BatchNorm, Neuron
+from .embedding import build_embedding
 from .head import YOLOXHead
 from .pafpn import YOLOPAFPN
 from .simota import yolox_losses
@@ -31,9 +44,7 @@ __all__ = ["EASYOLOX", "USE_SPIKE_MODES"]
 # it so that the truncated draw keeps variance 1/fan_in)
 _TRUNC_STD = 0.87962566103423978
 
-USE_SPIKE_MODES = ("none", "backbone")
-# modes of the JAX package that this port does not run yet
-_LATER_MODES = ("full", "full_v2")
+USE_SPIKE_MODES = ("none", "backbone", "full", "full_v2")
 
 
 class EASYOLOX(nn.Module):
@@ -41,40 +52,48 @@ class EASYOLOX(nn.Module):
                  width: float = 0.50, act: str = "silu",
                  use_spike: str = "backbone", T: int = 3,
                  spike_fn: str = "atan", alpha: float = 2.0,
+                 asgl_p: float = 0.0, alpha_granularity: str = "layer",
+                 norm: Optional[str] = None, embedding: str = "arsnn",
                  embedding_ksize: int = 5,
                  embedding_depth: int = 1, Ts: int = 1, readout: str = "sum",
                  spike_attach: bool = False, write_zero: bool = False,
-                 use_abs: bool = False, thresh: float = 1.0,
-                 vreset: Optional[float] = 0.0,
+                 use_abs: bool = False, split: bool = False,
+                 thresh: float = 1.0, vreset: Optional[float] = 0.0,
+                 decay: float = 0.5,
                  compute_dtype: torch.dtype = torch.float32,
                  embedding_state_dtype: Optional[torch.dtype] = None,
                  fuse: str = "auto", fused_sampler: str = "never"):
         super().__init__()
-        if use_spike in _LATER_MODES:
-            raise NotImplementedError(
-                f"use_spike='{use_spike}' is not ported yet (ROADMAP.md, "
-                "modules to port: 'Remaining model surface')")
         if use_spike not in USE_SPIKE_MODES:
             raise ValueError(f"use_spike '{use_spike}' not in "
-                             f"{USE_SPIKE_MODES + _LATER_MODES}")
-        self.use_spike, self.T = use_spike, T
-        # the embedding's convs run in bf16 when the model does (the JAX
+                             f"{USE_SPIKE_MODES}")
+        self.use_spike, self.T, self.dtype = use_spike, T, compute_dtype
+        # the sampler's convs run in bf16 when the model does (the JAX
         # package's emb_dt); its state dtype is a knob of its own
-        self.embedding = ARSNNEmbedding(
-            ksize=embedding_ksize, depth=embedding_depth, Ts=Ts,
+        self.embedding = build_embedding(
+            embedding, ksize=embedding_ksize, depth=embedding_depth, Ts=Ts,
             readout=readout, spike_attach=spike_attach,
-            write_zero=write_zero, use_abs=use_abs, thresh=thresh,
-            vreset=vreset,
+            write_zero=write_zero, use_abs=use_abs, split=split,
+            thresh=thresh, vreset=vreset, decay=decay,
             dtype=compute_dtype if compute_dtype == torch.bfloat16 else None,
             state_dtype=embedding_state_dtype, fused_sampler=fused_sampler,
         )
-        neuron = (Neuron(True, T, spike_fn, fuse=fuse, alpha=alpha)
-                  if use_spike == "backbone" else Neuron())
-        self.backbone = YOLOPAFPN(depth, width, act=act,
-                                  backbone_neuron=neuron,
-                                  dtype=compute_dtype)
-        self.head = YOLOXHead(num_classes, width, act=act,
-                              dtype=compute_dtype)
+        # BatchNorm2d(2) after the embedding (reference
+        # event_yolox_base.py:188-192), eps 1e-3, momentum 0.03
+        self.emb_bn = BatchNorm(2) if norm is not None else None
+        snn = Neuron(True, T, spike_fn, fuse=fuse, alpha=alpha,
+                     asgl_p=asgl_p, alpha_granularity=alpha_granularity)
+        ann = Neuron()
+        self.backbone = YOLOPAFPN(
+            depth, width, act=act,
+            backbone_neuron=ann if use_spike == "none" else snn,
+            neck_neuron=snn if use_spike in ("full", "full_v2") else ann,
+            dtype=compute_dtype)
+        # the head takes (T*B) spike trains when the neck spikes
+        self.head = YOLOXHead(
+            num_classes, width, act=act, dtype=compute_dtype,
+            neuron=snn if use_spike == "full_v2" else ann,
+            decode_input=use_spike == "full", T=T)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -96,8 +115,35 @@ class EASYOLOX(nn.Module):
         for m in self.modules():
             if isinstance(m, BaseConv) and m.neuron.spiking:
                 m.act.w.fill_(PLIF_W_INIT)
+            if isinstance(m, PLIF) and hasattr(m, "asgl_alpha"):
+                m.asgl_alpha.fill_(m.alpha)
         self.embedding.reset_parameters(generator)
         self.head.reset_prior_bias()
+
+    def materialize_alpha(self, sample_shape: Sequence[int]) -> None:
+        """Create every 'neuron'-granularity patan alpha at its site's
+        (C, H, W) for events of ``sample_shape`` (B, Tl, Tm, H, W, C): one
+        train forward of a copy of the model on the meta device gives the
+        shapes (the JAX package's init on an example input)."""
+        sites = [(n, m) for n, m in self.named_modules()
+                 if isinstance(m, PLIF) and m.spike_fn == "patan"
+                 and not hasattr(m, "asgl_alpha")]
+        if not sites:
+            return
+        meta = copy.deepcopy(self).to("meta").train()
+        meta(torch.zeros(tuple(sample_shape), device="meta"))
+        shapes = {n: m.asgl_alpha.shape for n, m in meta.named_modules()
+                  if isinstance(m, PLIF) and hasattr(m, "asgl_alpha")}
+        with torch.no_grad():
+            for n, m in sites:
+                m.materialize_alpha(shapes[n])
+
+    @property
+    def draws_random_numbers(self) -> bool:
+        """Whether a train step draws random numbers: patan at
+        ``asgl_p > 0`` draws a fresh Bernoulli mask a step."""
+        return any(isinstance(m, PLIF) and m.spike_fn == "patan"
+                   and m.asgl_p > 0 for m in self.modules())
 
     def _temporalize(self, x: torch.Tensor) -> torch.Tensor:
         """Embedding output -> (T*B, C, H, W) for the spiking backbone
@@ -114,9 +160,15 @@ class EASYOLOX(nn.Module):
     def forward(self, events: torch.Tensor,
                 targets: Optional[torch.Tensor] = None, use_l1: bool = False
                 ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
-        x = self.embedding(events)  # (Ts, B*Tl, C, H, W)
+        # (Ts, B*Tl, C, H, W) from arsnn, (B*Tl, C, H, W) from the others
+        x = self.embedding(events)
+        if self.emb_bn is not None:
+            if x.dim() > 4:
+                x = x[0]
+            x = self.emb_bn(x.to(self.dtype), self.dtype)
         if self.use_spike == "none":
-            x = x[0]
+            if x.dim() > 4:
+                x = x[0]
         else:
             x = self._temporalize(x)
         out = self.head(self.backbone(x))

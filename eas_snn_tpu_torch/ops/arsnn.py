@@ -16,27 +16,14 @@ last-spike times carry none.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional
 
 import torch
 
 from .arsnn_fused import sigmoid as _sigmoid_rounded
+from .lif import gated_lif_update
 
-__all__ = ["arsnn_scan", "gated_lif_update"]
-
-
-def gated_lif_update(vmem, gate, current, thresh: float,
-                     vreset: Optional[float], spike_fn
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """v <- gate*v + current; spike; reset. Returns (v, v_no_reset, spike)."""
-    v = gate * vmem + current
-    spike = spike_fn(v - thresh)
-    v_noreset = v
-    if vreset is None:
-        v = v - thresh * spike
-    else:
-        v = v * (1.0 - spike) + vreset * spike
-    return v, v_noreset, spike
+__all__ = ["arsnn_scan"]
 
 
 def _gate(x: torch.Tensor) -> torch.Tensor:

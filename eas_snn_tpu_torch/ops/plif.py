@@ -464,9 +464,9 @@ def plif_train(x: torch.Tensor, T: int, a: torch.Tensor, mean: torch.Tensor,
     the three BN terms their gradients."""
     if kind not in _KIND_CODE:
         raise NotImplementedError(
-            f"spike_fn '{kind}' has no train PLIF op (patan/ASGL training "
-            "is not ported yet: ROADMAP.md, modules to port: 'Remaining "
-            "model surface')")
+            f"spike_fn '{kind}' has no train PLIF op: patan (ASGL) trains "
+            "through the plain scan with its learnable alpha "
+            "(models/blocks.py:PLIF), as in the JAX package")
     if x.dim() != 4 or x.shape[0] % T:
         raise ValueError(f"plif_train: expected (T*B, C, H, W) with T={T}, "
                          f"got {tuple(x.shape)}")

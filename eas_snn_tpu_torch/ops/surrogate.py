@@ -6,9 +6,11 @@ threshold) in ``x.dtype`` and backpropagates ``g * f'(x)``, where f' is
 :func:`surrogate_deriv`, the JAX PLIF kernels' ``_surrogate_deriv``
 (``eas_snn_tpu/ops/plif_pallas.py:82-97``) with the same operation order.
 atan and sigmoid fire at ``x >= 0``, rect and tanh at ``x > 0``; rect is
-pinned to alpha = 1 as the JAX registry pins it. patan (ASGL) forwards
-atan's hard spike; its training closure is not ported yet, so its
-backward raises.
+pinned to alpha = 1 as the JAX registry pins it. patan (ASGL,
+:func:`asgl_spike`) forwards the hard spike at ``x >= 0`` through a
+straight-through mix with the smooth :func:`inv_arctanh`, whose
+derivative at p = 0 is atan's at ``|alpha|``; its ``alpha`` may be a
+learnable tensor.
 """
 
 from __future__ import annotations
@@ -17,12 +19,12 @@ import math
 
 import torch
 
+from typing import Optional, Union
+
 __all__ = ["spike_ge", "heaviside", "surrogate_deriv", "get_spike_fn",
-           "train_alpha"]
+           "train_alpha", "inv_arctanh", "asgl_spike"]
 
 _KINDS = ("rect", "atan", "sigmoid", "tanh", "patan")
-_PATAN_TODO = ("patan (ASGL) training is not ported yet (ROADMAP.md, "
-               "modules to port: 'Remaining model surface')")
 
 
 def spike_ge(kind: str) -> bool:
@@ -45,7 +47,9 @@ def heaviside(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 def surrogate_deriv(kind: str, alpha: float, x: torch.Tensor) -> torch.Tensor:
     """f'(x) of the named surrogate, in x's dtype."""
-    if kind == "atan":
+    if kind in ("atan", "patan"):
+        # patan: d/dx of inv_arctanh, atan's derivative at |alpha|
+        alpha = abs(alpha) if kind == "patan" else alpha
         t = ((math.pi / 2.0) * alpha) * x
         return x.new_full((), alpha / 2.0) / (1.0 + t * t)
     if kind == "rect":
@@ -56,8 +60,6 @@ def surrogate_deriv(kind: str, alpha: float, x: torch.Tensor) -> torch.Tensor:
     if kind == "tanh":
         t = torch.tanh(alpha * x)
         return (0.5 * alpha) * (1.0 - t * t)
-    if kind == "patan":
-        raise NotImplementedError(_PATAN_TODO)
     raise KeyError(f"unknown spike_fn '{kind}'")
 
 
@@ -74,10 +76,44 @@ class _Spike(torch.autograd.Function):
         return g * surrogate_deriv(ctx.kind, ctx.alpha, x), None, None
 
 
+def inv_arctanh(x: torch.Tensor, alpha) -> torch.Tensor:
+    """The smooth CDF-like squashing 1/pi * atan(pi/2 * |alpha| * x) + 0.5
+    (reference activation.py:121-131 InvArcTanh)."""
+    return (1.0 / math.pi) * torch.atan((math.pi / 2.0) * abs(alpha) * x) \
+        + 0.5
+
+
+def asgl_spike(x: torch.Tensor, alpha: Union[float, torch.Tensor],
+               p: float = 0.0, generator: Optional[torch.Generator] = None,
+               training: bool = True,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ASGL straight-through spike, ``sig + ((hard - sig) * mask).detach()``
+    with ``sig = inv_arctanh(x, alpha)`` and ``hard = (x >= 0)``: each
+    element takes the hard spike where ``mask`` is 1 and the smooth value
+    where it is 0; the gradient always follows the smooth function, into
+    x and a tensor ``alpha`` (reference activation.py:181-205
+    EfficientNoisySpikeII). ``mask`` defaults to 1 at ``p <= 0`` (no
+    random numbers are drawn) and to a Bernoulli(1 - p) draw from
+    ``generator`` otherwise (the device's default generator when None);
+    an injected ``mask`` overrides both. At eval the hard spike."""
+    hard = (x >= 0).to(x.dtype)
+    if not training:
+        return hard
+    sig = inv_arctanh(x, alpha)
+    if mask is None:
+        if p <= 0.0:
+            return sig + (hard - sig).detach()
+        mask = torch.bernoulli(torch.full_like(x, 1.0 - p),
+                               generator=generator)
+    return sig + ((hard - sig) * mask).detach()
+
+
 def get_spike_fn(kind: str, alpha: float = 2.0):
     """``x -> spike(x)`` for the named surrogate, differentiable through
-    its surrogate gradient (patan: the hard forward, whose backward
-    raises)."""
+    its surrogate gradient (patan: ``asgl_spike`` at p = 0 with a fixed
+    alpha, as the JAX registry gives it)."""
     spike_ge(kind)
+    if kind == "patan":
+        return lambda x: asgl_spike(x, float(alpha))
     alpha = train_alpha(kind, alpha)
     return lambda x: _Spike.apply(x, kind, alpha)

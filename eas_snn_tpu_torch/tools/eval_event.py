@@ -67,7 +67,8 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def build(argv: Optional[Sequence[str]] = None):
-    """(exp, args) from a command line."""
+    """(exp, args) from a command line; sets the exp's precision
+    process-wide (``EventExp.apply_precision``)."""
     from ..exp import get_exp
 
     args = make_parser().parse_args(argv)
@@ -86,6 +87,7 @@ def build(argv: Optional[Sequence[str]] = None):
     if args.save_boxes and not args.eval_proh:
         raise SystemExit("--save_boxes: the box files are the Prophesee "
                          "protocol's; pass --eval_proh")
+    exp.apply_precision()
     return exp, args
 
 

@@ -58,7 +58,8 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def build(argv: Optional[Sequence[str]] = None):
-    """(exp, args) from a command line."""
+    """(exp, args) from a command line; sets the exp's precision
+    process-wide (``EventExp.apply_precision``)."""
     from ..exp import get_exp
 
     args = make_parser().parse_args(argv)
@@ -74,6 +75,7 @@ def build(argv: Optional[Sequence[str]] = None):
     if args.opts:
         exp.merge(args.opts)
     exp.check_exp_value()
+    exp.apply_precision()
     return exp, args
 
 

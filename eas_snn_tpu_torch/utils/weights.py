@@ -35,7 +35,13 @@ _HEAD = (
     (re.compile(r"(cls|reg|obj)_pred(\d+)$"),
      lambda m: (f"{m[1]}_preds", m[2])),
 )
-_EMB = re.compile(r"(input_conv|gate_conv)_(kernel|bias)(\d+)$")
+# embedding leaves: (input|gate)_conv_agg of split, the conv stacks of the
+# arsnn / rsnn samplers and of the snn embedding (as the reference's
+# tdLayer, embedding_conv.layer)
+_EMB_AGG = re.compile(r"(input_conv_agg|gate_conv_agg)_(kernel|bias)0$")
+_EMB = re.compile(r"(input_conv|gate_conv|conv)_(kernel|bias)(\d+)$")
+_EMB_STACK = {"input_conv": "input_conv", "gate_conv": "gate_conv",
+              "conv": "embedding_conv.layer"}
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
        "var": "running_var"}
 
@@ -86,16 +92,28 @@ def state_dict_from_jax(variables: Mapping[str, Any]
     for path, value in _leaves(params):
         value = np.asarray(value)
         leaf, mod = path[-1], path[:-1]
-        m = _EMB.match(leaf) if mod == ("embedding",) else None
-        if m:
-            # conv[ReLU conv]*: the i-th conv sits at Sequential index 2i
-            name = f"embedding.{m[1]}.{2 * int(m[3])}." + (
-                "weight" if m[2] == "kernel" else "bias")
-            sd[name] = _to_torch(value, m[2] == "kernel")
-            continue
+        if mod == ("embedding",):
+            m = _EMB_AGG.match(leaf)
+            if m:
+                name = f"embedding.{m[1]}." + (
+                    "weight" if m[2] == "kernel" else "bias")
+                sd[name] = _to_torch(value, m[2] == "kernel")
+                continue
+            m = _EMB.match(leaf)
+            if m:
+                # conv[ReLU conv]*: the i-th conv sits at Sequential index 2i
+                name = f"embedding.{_EMB_STACK[m[1]]}.{2 * int(m[3])}." + (
+                    "weight" if m[2] == "kernel" else "bias")
+                sd[name] = _to_torch(value, m[2] == "kernel")
+                continue
         tokens = _module_tokens(mod)
-        if mod[-1:] == ("bn",):
+        if mod[-1:] == ("bn",) or mod == ("emb_bn",):
             tokens.append(_BN[leaf])
+        elif leaf == "alpha" and mod[-1:] == ("PLIF_0",):
+            # patan's learnable alpha; a 'neuron' one (H, W, C) -> (C, H, W)
+            tokens.append("asgl_alpha")
+            if value.ndim == 3:
+                value = value.transpose(2, 0, 1)
         elif leaf == "kernel":
             if mod[-1:] == ("conv",) and mod[:-1] in spiking:
                 tokens.append("0")  # SeqToANNContainer around the conv

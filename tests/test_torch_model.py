@@ -240,7 +240,9 @@ def test_whole_slice_matches_jax_f32(small):
 def test_use_spike_none_and_unported_modes(small):
     """The analog model is the spiking one's tree without the PLIF decays,
     its BN redrawn at analog scales (the spiking scales, up to 2.5 at each
-    of ~40 layers, would overflow the box decode's exp)."""
+    of ~40 layers, would overflow the box decode's exp). The 'full' modes,
+    once refused here, run now: ``tests/test_torch_variants_model.py``
+    holds every mode against the JAX package."""
     _, v, ev = small
 
     def drop_plif(tree):
@@ -256,9 +258,6 @@ def test_use_spike_none_and_unported_modes(small):
     with torch.no_grad():
         got = pm(torch.from_numpy(ev[:1])).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
-    for mode in ("full", "full_v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EASYOLOX(use_spike=mode, **SMALL)
 
 
 def test_flagship_site_routing_per_forward(monkeypatch):

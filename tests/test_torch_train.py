@@ -92,13 +92,62 @@ def test_surrogate_forward_and_gradient_match_jax(kind):
     assert np.abs(want_dx).max() > 0
 
 
-def test_patan_training_is_not_ported():
-    x = torch.zeros(4, requires_grad=True)
-    y = get_spike_fn("patan")(x)
-    assert torch.equal(y.detach(), torch.ones(4))  # atan's hard forward
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        y.sum().backward()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("gran", ["layer", "neuron"])
+def test_patan_training_matches_jax(gran):
+    """A patan (ASGL) site in training, the port's ``PLIF`` against the JAX
+    package's (``eas_snn_tpu/models/blocks.py:PLIF``, its plain scan with
+    ``asgl_spike``): the spikes exact; the gradients of x, w and the
+    learnable alpha (a scalar, or one a neuron: (H, W, C) in JAX,
+    (C, H, W) here) 1e-5 relative to their largest magnitude (sums in
+    another order). ``get_spike_fn('patan')`` and ``plif_train``'s kind
+    no longer raise for patan: the op routes by ``spike_fn``."""
+    from eas_snn_tpu.models.blocks import PLIF as JPLIF
+
+    rng = np.random.default_rng(11)
+    B, H, W, C = 4, 5, 6, 8
+    x = rng.normal(0.4, 1.0, (T * B, H, W, C)).astype(np.float32)
+    g = rng.normal(0, 1, x.shape).astype(np.float32)
+    jp = JPLIF(T=T, spike_fn="patan", alpha=2.0, alpha_granularity=gran,
+               fuse="never")
+    v = jp.init(jax.random.PRNGKey(0), jnp.asarray(x), train=True)
+    params = {"w": jnp.float32(-0.3),
+              "alpha": jnp.asarray(rng.uniform(1, 3, v["params"]["alpha"]
+                                               .shape).astype(np.float32))}
+
+    def loss(p, xx):
+        y = jp.apply({"params": p}, xx, train=True)
+        return (y * g).sum(), y
+
+    (_, want), (gp, gx) = jax.value_and_grad(loss, (0, 1), has_aux=True)(
+        params, jnp.asarray(x))
+    site = PLIF(T, "patan", alpha=2.0, alpha_granularity=gran,
+                channels=C).train()
+    alpha = np.asarray(params["alpha"])
+    if gran == "neuron":
+        site.materialize_alpha((C, H, W))
+        alpha = alpha.transpose(2, 0, 1)
+    with torch.no_grad():
+        site.w.fill_(-0.3)
+        site.asgl_alpha.copy_(torch.from_numpy(np.ascontiguousarray(alpha)))
+    xt = nchw(x).requires_grad_()
+    y = site(xt)
+    (y * nchw(g)).sum().backward()
+    np.testing.assert_array_equal(nhwc(y), np.asarray(want))
+    assert 0.05 < float(y.mean()) < 0.95
+    da = site.asgl_alpha.grad.numpy()
+    if gran == "neuron":
+        da = da.transpose(1, 2, 0)
+    for name, a, b in (("x", nhwc(xt.grad), gx), ("w", site.w.grad.numpy(),
+                                                   gp["w"]),
+                       ("alpha", da, gp["alpha"])):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * np.abs(b).max(),
+                                   err_msg=name)
+        assert np.abs(b).max() > 0, name
+    xs = torch.zeros(4, requires_grad=True)
+    get_spike_fn("patan")(xs).sum().backward()
+    assert torch.allclose(xs.grad, torch.full((4,), 1.0))  # alpha / 2
+    with pytest.raises(NotImplementedError, match="plain scan"):
         plif_train(torch.zeros(3, 8, 2, 2), 3, torch.ones(1),
                    *(torch.zeros(8),) * 3, kind="patan")
 

@@ -1,0 +1,23 @@
+"""One train step of the small detector with a spiking backbone and an
+analog neck ('backbone') x embedding {count, arsnn}, norm on for arsnn,
+port against the JAX package on the CPU in f32 (``check_train_case``;
+weights, events and the tolerances: ``tests/test_torch_variants_model.py``)."""
+
+import pytest
+import torch
+
+from test_torch_variants_train import check_train_case
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.mark.parametrize("embedding,norm", [("count", None),
+                                            ("arsnn", "bn")])
+def test_backbone_train_step_matches_jax(embedding, norm):
+    check_train_case("backbone", embedding, norm)
