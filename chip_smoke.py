@@ -212,11 +212,34 @@ Phases, each of which fails the run (exit code 1, no result line):
    eager step (patan: no launch of rows 7 and 8: it trains through the
    plain scan), a deploy forward's launches, and card against CPU stage
    by stage at B=2;
-13. when every check passed, one ``{"kernels": [...]}`` line, the
+13. streaming detection (13a and 13b in a process of their own,
+   ``streaming_phases``): (13a) phases 2 / 2b's checks at every site
+   geometry of ``gen1_syolox_m``'s deploy forward at B=1 (35 / 8 / 6 / 1,
+   refusals listed) and kernel 5 against its plain version at N=1;
+   (13b) ``inference.StreamingDetector`` with calibrated weights on a
+   synthetic Gen1 stream (the ap_drift writer, 240x304, 500k events/s):
+   a detection every 100 ms over a 200 ms window, 100 ticks, captured, at
+   ``max_events`` 65,536 and 262,144 (host ms, end-to-end ms p50 / p99,
+   detections a second, peak memory, 100 replays of one graph); one
+   eager detection's launches (35 / 8 / 6 / 1 + Tm) and a replay's by
+   kernel name; eager and captured detection in turns, their outputs
+   bit-equal and their ms; the re-read baseline
+   (``tools/bench_streaming.py``, its forward captured as the stream's)
+   and the ratios; the binned and letterboxed frames of the card
+   bit-equal to the CPU's, and the
+   streaming outputs bit-equal to the batch path's (host ``micro_sum``)
+   on one window; (13c) ``create_model('syolox-s-gen1')`` and
+   ``load_weights('syolox-s-gen1')`` on the card (430 mapped), captured
+   detections with those weights, and ``tools/eval_event.py -f`` on a
+   user exp file over phase 8's val tree (35 / 8 / 6 / 1 + Tm launches a
+   batch);
+14. when every check passed, one ``{"kernels": [...]}`` line, the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 ``determinism_cost`` (not run by ``main``) times the captured step with
-cuDNN's deterministic algorithms on and off.
+cuDNN's deterministic algorithms on and off; ``nan_trace`` (not run by
+``main``) traces ``e_yolox_m``'s first non-finite tensor on one repeated
+batch.
 
 Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM, 989 TFLOP/s
 bf16 on the tensor cores, 67 TFLOP/s f32 outside them. TF32 is off for
@@ -236,6 +259,7 @@ import subprocess
 import sys
 import time
 from collections import OrderedDict
+from typing import Optional
 
 import numpy as np
 import torch
@@ -3412,6 +3436,516 @@ def determinism_cost(steps: int = 6) -> int:
     return 1 if FAILURES else 0
 
 
+# ---------------------------------------------------------------- phase 13
+
+GEN1_SENSOR = (240, 304)
+STREAM_TICKS = 100           # detections, one every STREAM_TICK_US
+STREAM_TICK_US = 100_000
+STREAM_WINDOW_US = 200_000
+# the JAX tool's event budget (tools/bench_streaming.py) and the default
+STREAM_BUDGETS = (65_536, 262_144)
+STREAM_CONF = 0.3            # the JAX tool's confidence threshold
+
+
+def _stream_ticks() -> list:
+    return [STREAM_WINDOW_US + 100_000 + i * STREAM_TICK_US
+            for i in range(STREAM_TICKS)]
+
+
+def _detector(model, exp, max_events: int, eager: bool = False,
+              device=None):
+    from eas_snn_tpu_torch.inference import StreamingDetector
+    return StreamingDetector(
+        model, img_size=GEN1_SENSOR, input_size=exp.test_size, Tm=exp.Tm,
+        window_us=STREAM_WINDOW_US, max_events=max_events,
+        num_classes=exp.num_classes, confthre=STREAM_CONF,
+        nmsthre=exp.nmsthre, device=device or DEV, eager=eager)
+
+
+def _stream_line(what: str, res: dict) -> dict:
+    """Host ms (push and fill), end-to-end ms p50 / p99 and detections a
+    second of one ``bench_streaming.stream`` run; prints them."""
+    a = {k: np.asarray(res[k]) * 1e3 for k in ("push_s", "fill_s",
+                                               "total_s")}
+    out = dict(host_ms=float((a["push_s"] + a["fill_s"]).mean()),
+               push_ms=float(a["push_s"].mean()),
+               fill_ms=float(a["fill_s"].mean()),
+               p50_ms=float(np.percentile(a["total_s"], 50)),
+               p99_ms=float(np.percentile(a["total_s"], 99)),
+               per_s=float(1e3 / a["total_s"].mean()),
+               boxes=res["detections"])
+    print(f"  {what}: host {out['host_ms']:.4f} ms a detection (push "
+          f"{out['push_ms']:.4f}, fill {out['fill_ms']:.4f}), end to end "
+          f"p50 {out['p50_ms']:.4f} / p99 {out['p99_ms']:.4f} ms, "
+          f"{out['per_s']:.2f} detections/s, {out['boxes']} boxes over "
+          f"{len(res['total_s'])} ticks", flush=True)
+    return out
+
+
+def _same_outputs(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.shape == b.shape and np.array_equal(
+        a.view(np.uint32), b.view(np.uint32))
+
+
+def streaming_phases() -> int:
+    """Phases 13a and 13b, run as a process of its own (the profiler
+    records every launch of a fresh process, PERF.md §7): the eval kernels
+    at every site geometry of ``gen1_syolox_m``'s deploy forward at B=1
+    and kernel 5 at N=1, then ``StreamingDetector`` on a synthetic Gen1
+    stream. Prints, as JSON on its last line, the B=1 kernel sums, the
+    launches of one detection and the streaming numbers. Returns the exit
+    code: 1 if a check failed."""
+    import shutil
+
+    from eas_snn_tpu_torch.data import EventStream, micro_sum
+    from eas_snn_tpu_torch.models import EASYOLOX
+    from eas_snn_tpu_torch.tools import bench_streaming as bs
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + PTXAS_FLAGS  # phase 1's builds
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    exp = get_exp("gen1_syolox_m").deploy()
+    H, W = exp.test_size
+    model = exp.get_model(device=DEV, seed=SEED)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    with torch.no_grad():
+        calibrate_spiking_bn(model, torch.poisson(torch.full(
+            (8, exp.Tl, exp.Tm, H, W, exp.in_dim), 0.2, device=DEV),
+            generator=gen))
+        ev1 = torch.poisson(torch.full((1, exp.Tl, exp.Tm, H, W,
+                                        exp.in_dim), 0.2, device=DEV),
+                            generator=gen)
+        per_kernel, refused = phase_kernels(
+            model, ev1, SEED, PER_FORWARD, phase="13a",
+            what=f"deploy forward at B=1 ({H}x{W}, the streaming geometry)",
+            extras=False, sites_phase="13a")
+        print(f"  wgmma refusals at B=1: {len(refused)} site geometries "
+              f"({sum(r[1] for r in refused)} sites)")
+        sev = sampler_events(model, ev1)
+        r = check_v2("at N=1", sev, *model.embedding.stack_weights(),
+                     model.embedding.scan_kwargs(), timed=True)
+        print(f"  arsnn_v2 at {tuple(sev.shape)} {str(sev.dtype)[6:]}: "
+              f"{r['mismatch']} of {r['n']} slots differ, {r['written']:.4f} "
+              f"non-zero; call {r['ms']:.4f} ms (kernel "
+              f"{r['kernel_ms']:.4f}), plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "max_abs_err")
+    out["b1_kernels"] = {k: {q: v[q] for q in keys + ("sites",)}
+                         for k, v in per_kernel.items() if v["sites"]}
+    out["b1_kernels"]["arsnn_v2"] = {q: r[q] for q in keys}
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "outputs", "chip_smoke_phase13")
+    shutil.rmtree(root, ignore_errors=True)
+    ticks = _stream_ticks()
+    t0 = time.perf_counter()
+    duration = ticks[-1] + 2 * STREAM_TICK_US
+    dat = bs.make_stream(root, duration, EVENTS_PER_S)
+    n_ev = EventStream(dat).event_count()
+    print(f"phase 13b: StreamingDetector, gen1_syolox_m under deploy() with "
+          f"calibrated weights; a synthetic Gen1 stream (the ap_drift "
+          f"writer, {GEN1_SENSOR[0]}x{GEN1_SENSOR[1]}, {EVENTS_PER_S} "
+          f"events/s, {n_ev} events over {duration / 1e6:.1f} s) "
+          f"written in {time.perf_counter() - t0:.1f} s; window "
+          f"{STREAM_WINDOW_US} us, a detection every {STREAM_TICK_US} us, "
+          f"{STREAM_TICKS} ticks", flush=True)
+    out["stream"] = {}
+    for me in STREAM_BUDGETS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        det = _detector(model, exp, me)
+        res = bs.stream(det, dat, ticks)
+        s = _stream_line(f"captured, max_events {me}", res)
+        s["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        s["replays"] = det.replays
+        print(f"    peak memory {s['peak_gib']:.3f} GiB; {det.replays} "
+              f"replays of one graph")
+        if det.program.graph is None or det.replays != len(ticks):
+            fail(f"phase 13b: {det.replays} replays at max_events {me}, "
+                 f"expected {len(ticks)} (the capture's and one a tick)")
+        out["stream"][str(me)] = s
+        del det
+    torch.cuda.empty_cache()
+
+    # one window for the checks: the events up to the eleventh tick
+    t_chk = ticks[len(ticks) // 10]
+    pkt = EventStream(dat).load_delta_t(t_chk + 1)
+    me = STREAM_BUDGETS[0]
+    det_e, det_c = _detector(model, exp, me, True), _detector(model, exp, me)
+    for d in (det_e, det_c):
+        d.push(pkt)
+    reset_launches()
+    first = det_e.outputs(t_chk)
+    counts = launch_counts()
+    print(f"  one eager detection: launches {counts}")
+    check_counts("phase 13b (a detection)", counts, 1, exp.Tm)
+    out["stream_detect"] = counts
+    for _ in range(det_c.WARMUP + 1):
+        det_c.outputs(t_chk)
+    want = {"plif_fwd_kernel": PER_FORWARD["plif_fwd"],
+            "conv_wgmma_kernel": sum(v for k, v in PER_FORWARD.items()
+                                     if k != "plif_fwd"),
+            "arsnn_v2_kernel": exp.Tm}
+    for attempt in range(3):
+        rows = profile_call(lambda: det_c.outputs(t_chk),
+                            "one captured detection (a replay)", top=8)
+        by_name = {k: profiled_total(rows, k)[1] for k in want}
+        print(f"  launches in the profiled replay (window {attempt + 1}), "
+              f"by kernel name: {by_name}")
+        if by_name == want:
+            break
+    if by_name != want:
+        fail(f"phase 13b: kernels by name {by_name} in a replay, expected "
+             f"{want}")
+    turns = [("eager", det_e.outputs(t_chk)),
+             ("captured", det_c.outputs(t_chk)),
+             ("captured", det_c.outputs(t_chk)),
+             ("eager", det_e.outputs(t_chk))]
+    same = all(_same_outputs(first, o) for _, o in turns)
+    print(f"  decoded outputs (1, {first.shape[1]}, {first.shape[2]}) of "
+          f"one window in turns (eager, captured, captured, eager): "
+          f"bit-equal {same}; finite {bool(np.isfinite(first).all())}")
+    if not same or not np.isfinite(first).all():
+        fail("phase 13b: the captured detection is not the eager one's bits")
+    del det_e, det_c
+
+    out["turns"] = []
+    for eager in (True, False, False, True):
+        det = _detector(model, exp, me, eager)
+        s = _stream_line(f"{'eager' if eager else 'captured'} (turns), "
+                         f"max_events {me}", bs.stream(det, dat, ticks))
+        out["turns"].append(dict(s, eager=eager))
+        del det
+    t0 = time.perf_counter()
+    base = bs.baseline(exp, model, dat, ticks, STREAM_CONF,
+                       torch.device(DEV))
+    b = dict(host_ms=float(np.mean(base["host_s"]) * 1e3),
+             p50_ms=float(np.percentile(base["total_s"], 50) * 1e3),
+             p99_ms=float(np.percentile(base["total_s"], 99) * 1e3))
+    b["per_s"] = float(1.0 / np.mean(base["total_s"]))
+    out["baseline"] = b
+    cap = out["stream"][str(me)]
+    out["ratio_host"] = b["host_ms"] / cap["host_ms"]
+    out["ratio_p50"] = b["p50_ms"] / cap["p50_ms"]
+    print(f"  baseline (re-read the window, host micro_sum, bilinear "
+          f"letterbox, pageable copy, the forward at B=1 as one CUDA "
+          f"graph): host {b['host_ms']:.4f} ms a detection, end to end p50 "
+          f"{b['p50_ms']:.4f} / p99 {b['p99_ms']:.4f} ms, {b['per_s']:.2f} "
+          f"detections/s ({time.perf_counter() - t0:.1f} s); baseline over "
+          f"captured stream at max_events {me}: host x{out['ratio_host']:.2f}"
+          f", p50 x{out['ratio_p50']:.2f}", flush=True)
+
+    # binned and letterboxed frames: the card against the CPU, and the
+    # streaming forward against the batch path, on full windows
+    full = STREAM_BUDGETS[1]
+    det_g = _detector(model, exp, full, eager=True)
+    det_h = _detector(EASYOLOX(num_classes=2, width=0.125, depth=0.33),
+                      exp, full, eager=True, device="cpu")
+    for d in (det_g, det_h):
+        d.push(pkt)
+    worst = 0
+    # the buffer holds the newest window_us: a window ending half a tick
+    # before t_chk still lies mostly inside it
+    for t in (t_chk - STREAM_TICK_US // 2, t_chk):
+        fg, fh = det_g.frames(t).cpu(), det_h.frames(t)
+        worst = max(worst, int((fg != fh).sum()))
+        if not torch.equal(fg, fh) or not fg.sum() > 0:
+            fail(f"phase 13b: frames of the window ending at {t} differ "
+                 f"between card and CPU ({int((fg != fh).sum())} values)")
+    win = det_g._buf[(det_g._buf["t"] >= t_chk + 1 - STREAM_WINDOW_US)
+                     & (det_g._buf["t"] <= t_chk)]
+    frames = torch.from_numpy(micro_sum(win, exp.Tm, *GEN1_SENSOR)).to(DEV)
+    ih, iw = det_g._scaled_hw
+    fh = F.interpolate(frames.permute(0, 3, 1, 2), size=(ih, iw),
+                       mode="nearest-exact")
+    canvas = F.pad(fh, (0, W - iw, 0, H - ih)).permute(0, 2, 3, 1)
+    with torch.no_grad():
+        batch = model(canvas[None, None]).float().cpu().numpy()
+    stream_out = det_g.outputs(t_chk)
+    same_batch = _same_outputs(stream_out, batch)
+    print(f"  frames card vs CPU ({len(win)} events a window, max_events "
+          f"{full}): {worst} values differ; the streaming outputs against "
+          f"the batch path (host micro_sum, the same letterbox, the "
+          f"forward) on that window: bit-equal {same_batch}", flush=True)
+    if not same_batch:
+        fail("phase 13b: streaming and batch outputs differ on one window")
+    shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps(out))
+    return 1 if FAILURES else 0
+
+
+_USER_EXP = '''"""A user's exp file: gen1_syolox_m's fields, its own name."""
+from eas_snn_tpu_torch.exp import EventExp, get_exp
+
+
+class Exp(EventExp):
+    def __init__(self):
+        super().__init__()
+        vars(self).update(vars(get_exp("gen1_syolox_m")))
+        self.exp_name = "user_gen1_syolox_m"
+'''
+
+
+def phase_streaming(workers: int) -> dict:
+    """Phase 13: streaming detection. 13a and 13b in a process of their
+    own (``streaming_phases``); 13c here: the model zoo's front door and
+    the eval CLI on a user's exp file. Returns the child's JSON result with
+    13c's launches a batch."""
+    import shutil
+
+    from eas_snn_tpu_torch.models import create_model, load_weights
+    from eas_snn_tpu_torch.tools import ap_drift
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    print("phase 13: streaming detection (StreamingDetector: binning on the "
+          "card, the detect program as one CUDA graph)", flush=True)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.streaming_phases())"], cwd=here,
+        capture_output=True, text=True, timeout=900)
+    lines = r.stdout.rstrip().splitlines()
+    try:
+        res = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        res, lines = {}, lines + [""]
+    print("\n".join(lines[:-1]))
+    print(f"  (the process of phases 13a-13b took "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    if r.returncode != 0 or not res:
+        fail(f"phase 13a-13b: the process exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    torch.cuda.empty_cache()
+
+    print("phase 13c: the zoo (create_model, load_weights) and the eval CLI "
+          "with -f", flush=True)
+    model = create_model("syolox-s-gen1", device=DEV)
+    rep = load_weights(model, "syolox-s-gen1", device=DEV)
+    det = _detector(model, get_exp("gen1_syolox_s"), STREAM_BUDGETS[1])
+    rng = np.random.default_rng(SEED + 13)
+    from eas_snn_tpu_torch.data import EVENT_DTYPE
+    pkt = np.zeros(100_000, EVENT_DTYPE)
+    pkt["t"] = np.sort(rng.integers(0, STREAM_WINDOW_US, len(pkt)))
+    pkt["x"] = rng.integers(0, GEN1_SENSOR[1], len(pkt))
+    pkt["y"] = rng.integers(0, GEN1_SENSOR[0], len(pkt))
+    pkt["p"] = rng.integers(0, 2, len(pkt))
+    det.push(pkt)
+    outs = [det.outputs() for _ in range(det.WARMUP + 2)]
+    dets = det.detect()
+    print(f"  create_model('syolox-s-gen1') on {DEV}, load_weights("
+          f"'syolox-s-gen1'): {rep}; {det.replays} captured detections on "
+          f"Poisson events: outputs {outs[-1].shape}, finite "
+          f"{bool(np.isfinite(outs[-1]).all())}, bit-equal to the eager "
+          f"warm-up's {_same_outputs(outs[0], outs[-1])}; "
+          f"{0 if dets is None else len(dets)} boxes", flush=True)
+    if rep != {"mapped": 430, "kept_current": 0, "total": 430,
+               "unmapped": 0}:
+        fail(f"phase 13c: load_weights report {rep}, expected 430 mapped")
+    if not all(np.isfinite(o).all() for o in outs) or not _same_outputs(
+            outs[0], outs[-1]):
+        fail("phase 13c: the zoo model's detections are not finite or the "
+             "captured ones differ from the eager warm-up's")
+    del model, det
+    torch.cuda.empty_cache()
+
+    root = os.path.join(here, "outputs", "chip_smoke_phase13c")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    data = ap_drift.make_data(os.path.join(root, "gen1"), n_train=0,
+                              n_val=3)
+    user = os.path.join(root, "user_exp.py")
+    with open(user, "w") as f:
+        f.write(_USER_EXP)
+    exp = get_exp(user).deploy()
+    ckpt = os.path.join(root, "calibrated.pth")
+    calibrated_checkpoint(exp, ckpt, SEED + 13)
+    print(f"  phase 8's val tree (the ap_drift writer, 3 streams) and a "
+          f"user exp file written in {time.perf_counter() - t0:.1f} s")
+    flags = ["-f", user, "--fp16", "-b", str(EVAL_BATCH), "-c", ckpt,
+             "--device", DEV]
+    opts = ["data_dir", data, "data_num_workers", str(workers)] + EVAL_OPTS
+    cli, per_batch = eval_through_cli(flags, opts, EVAL_BATCH, "13c",
+                                      base=PER_FORWARD)
+    if cli["exp"] != "user_gen1_syolox_m":
+        fail(f"phase 13c: the eval CLI ran exp {cli['exp']}")
+    res["cli_batch"] = per_batch
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  (phase 13 took {time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+    return res
+
+
+NAN_STEPS = 40
+# e_yolox_s at the reduced size the CPU trajectories of both packages use
+# (tests/test_torch_divergence.py)
+NAN_REDUCED = dict(name="e_yolox_s", B=8, size=(256, 256))
+# smaller runs than the NaN's own at its lr (5e-4 whatever the batch), in
+# search of one that the CPU can run with both packages, then the NaN's
+# own run from three other seeds (``nan_sweep``)
+NAN_SWEEP = tuple(dict(name=n, B=b, size=(s, s), lr=5e-4) for n, b, s in (
+    ("e_yolox_m", 8, 640), ("e_yolox_m", 4, 640), ("e_yolox_m", 2, 640),
+    ("e_yolox_m", 8, 320), ("e_yolox_m", 8, 256), ("e_yolox_s", 8, 640),
+    ("e_yolox_s", 2, 640))) + tuple(
+    dict(name=E_YOLOX, B=E_YOLOX_B, size=None, seed=s) for s in (1, 2, 3))
+NAN_SWEEP_STEPS = 60
+
+
+def _first_nonfinite(model, events, labels):
+    """One eager train step of ``model`` (train mode) with forward hooks on
+    every module and gradient hooks on every module output: the first
+    module whose output is not finite in the forward, then the first
+    whose output gradient is not finite in the backward (backward order),
+    then the parameters whose gradient is not finite. Returns the three
+    findings as strings."""
+    found = {"forward": None, "backward": None}
+
+    def bad(t):
+        return (isinstance(t, torch.Tensor) and t.is_floating_point()
+                and not bool(torch.isfinite(t).all()))
+
+    def describe(name, t):
+        t = t.detach()
+        n = int((~torch.isfinite(t)).sum())
+        fin = t[torch.isfinite(t)]
+        big = float(fin.abs().max()) if fin.numel() else float("nan")
+        return (f"{name} {tuple(t.shape)} {t.dtype}: {n} non-finite of "
+                f"{t.numel()}, largest finite |x| {big:.4g}")
+
+    def hook(name):
+        def fwd(mod, args, out):
+            outs = out if isinstance(out, (tuple, list)) else (
+                list(out.values()) if isinstance(out, dict) else (out,))
+            for o in outs:
+                if found["forward"] is None and bad(o):
+                    ins = [describe("input", a) for a in args if bad(a)]
+                    found["forward"] = describe(name, o) + (
+                        f"; its inputs: {ins}" if ins else
+                        "; its inputs are finite")
+                if isinstance(o, torch.Tensor) and o.requires_grad:
+                    def grad_hook(g, name=name):
+                        if found["backward"] is None and bad(g):
+                            found["backward"] = describe(name + " grad", g)
+                    o.register_hook(grad_hook)
+        return fwd
+
+    handles = [m.register_forward_hook(hook(n or "model"))
+               for n, m in model.named_modules()]
+    try:
+        for p in model.parameters():
+            p.grad = None
+        losses = model(events, labels)
+        losses["total_loss"].backward()
+    finally:
+        for h in handles:
+            h.remove()
+    grads = [describe(n, p.grad) for n, p in model.named_parameters()
+             if p.grad is not None and bad(p.grad)]
+    return found["forward"], found["backward"], grads
+
+
+def nan_run(name: str, B: int, size, steps: int = NAN_STEPS,
+            lr: Optional[float] = None, seed: int = SEED) -> dict:
+    """``steps`` eager Adam steps (at ``lr``, by default the preset's lr at
+    batch ``B``; no warm-up; EMA) of ``name`` in train mode from the
+    weights of ``seed`` on one Poisson(0.2) batch and its random labels
+    drawn from ``seed``, under deterministic cuDNN with TF32 off
+    (what a captured step replays); each step's loss terms, the largest
+    gradient norm and the largest parameter. At the first step whose
+    losses, gradients or parameters are not finite, the step is run again
+    from the state before it with hooks (``_first_nonfinite``)."""
+    exp = get_exp(name)
+    if size is not None:
+        exp.input_size = exp.test_size = tuple(size)
+    if lr is not None:
+        exp.basic_lr_per_img = lr / B
+    exp.apply_precision()
+    H, W = exp.input_size
+    model = exp.get_model(device=DEV, seed=seed, train=True)
+    opt = exp.get_optimizer(model, B, iters_per_epoch=1000)
+    ema = init_ema(model) if exp.ema else None
+    gen = torch.Generator(device=DEV).manual_seed(seed + 14)
+    events = torch.poisson(torch.full((B, exp.Tl, exp.Tm, H, W, exp.in_dim),
+                                      0.2, device=DEV), generator=gen)
+    labels = random_labels(B, H, W, np.random.default_rng(seed)).to(DEV)
+    lr = exp.basic_lr_per_img * B
+    print(f"  {name} B={B} {H}x{W} {exp.compute_dtype}, seed {seed}, Adam "
+          f"lr {lr:g} (scheduler {exp.scheduler}, warm-up epochs "
+          f"{exp.warmup_epochs}), {steps} eager steps on one batch",
+          flush=True)
+    rows, first_bad = [], None
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for step in range(steps):
+            snap = snapshot(model, opt, ema)
+            losses = {k: float(v) for k, v in train_step(
+                model, opt, ema, events, labels).items()}
+            norms = {n: float(p.grad.float().norm())
+                     for n, p in model.named_parameters()
+                     if p.grad is not None}
+            gname = max(norms, key=lambda n: norms[n]
+                        if np.isfinite(norms[n]) else np.inf)
+            pmax = max(float(p.detach().abs().max())
+                       for p in model.parameters())
+            row = dict(step=step + 1, **losses, max_grad_norm=norms[gname],
+                       max_grad_param=gname, max_abs_param=pmax)
+            rows.append(row)
+            print("    step {step}: total {total_loss:.6g} iou {iou_loss:.6g}"
+                  " conf {conf_loss:.6g} cls {cls_loss:.6g} l1 {l1_loss:.6g}"
+                  " num_fg {num_fg:.6g}; largest grad norm {max_grad_norm:.6g}"
+                  " ({max_grad_param}); largest |param| {max_abs_param:.6g}"
+                  .format(**row), flush=True)
+            finite = (all(np.isfinite(v) for k, v in losses.items())
+                      and all(np.isfinite(v) for v in norms.values())
+                      and np.isfinite(pmax))
+            if not finite:
+                first_bad = step + 1
+                restore(snap, model, opt, ema)
+                fwd, bwd, grads = _first_nonfinite(model, events, labels)
+                print(f"    first non-finite at step {first_bad}: forward "
+                      f"{fwd}; backward {bwd}; {len(grads)} parameters with "
+                      f"non-finite gradients, first: {grads[:3]}",
+                      flush=True)
+                rows.append(dict(first_bad=first_bad, forward=fwd,
+                                 backward=bwd, grads=grads[:10]))
+                break
+    finally:
+        torch.backends.cudnn.deterministic = old
+    del model, opt, ema, events
+    torch.cuda.empty_cache()
+    return {"name": name, "B": B, "size": [H, W], "lr": lr, "seed": seed,
+            "first_nonfinite_step": first_bad, "rows": rows}
+
+
+def nan_trace() -> int:
+    """The ``e_yolox_m`` NaN (f32, B=32, 640x640, Adam at the preset's lr
+    5e-4, no warm-up, one repeated batch), as a process of its own: each
+    step's loss terms and the first non-finite tensor; then e_yolox_s at
+    the reduced size of the CPU comparison of both packages (256x256,
+    B=8), at the preset's lr. Prints each run's first non-finite step as
+    JSON on its last line. Run with ``python3 -c "import sys, chip_smoke;
+    sys.exit(chip_smoke.nan_trace())"``."""
+    print(f"device {torch.cuda.get_device_name(0)}; nvidia-smi: "
+          f"{nvidia_smi_line()}", flush=True)
+    runs = [nan_run(E_YOLOX, E_YOLOX_B, None), nan_run(**NAN_REDUCED)]
+    print(json.dumps({r["name"]: r["first_nonfinite_step"] for r in runs}))
+    return 0
+
+
+def nan_sweep() -> int:
+    """``nan_run`` for ``NAN_SWEEP_STEPS`` steps at each of ``NAN_SWEEP``,
+    as a process of its own; prints each run's first non-finite step
+    (null: none) as JSON on its last line. Run with ``python3 -c "import
+    sys, chip_smoke; sys.exit(chip_smoke.nan_sweep())"``."""
+    print(f"device {torch.cuda.get_device_name(0)}; nvidia-smi: "
+          f"{nvidia_smi_line()}", flush=True)
+    runs = [nan_run(**cfg, steps=NAN_SWEEP_STEPS) for cfg in NAN_SWEEP]
+    print(json.dumps([{k: r[k] for k in ("name", "B", "size", "seed",
+                                          "first_nonfinite_step")}
+                      for r in runs]))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
@@ -3419,7 +3953,7 @@ def main() -> int:
     ap.add_argument("--train-batch", type=int, default=64)
     ap.add_argument("--train-steps", type=int, default=8)
     ap.add_argument("--workers", type=int, default=7,
-                    help="phases 7-10's loader worker processes")
+                    help="the loader worker processes of phases 7-13")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3498,6 +4032,8 @@ def main() -> int:
     res11 = phase_full_spike(4, args.workers)
     torch.cuda.empty_cache()
     res12 = phase_variants(nc_data, 4, args.workers)
+    torch.cuda.empty_cache()
+    res13 = phase_streaming(args.workers)
     if FAILURES:
         print(smi)
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
@@ -3510,8 +4046,14 @@ def main() -> int:
     paths = {p: res11.get(p) for p in ("full_v2_forward", "full_v2_step",
                                        "full_forward", "full_step")}
     paths.update(res12)
+    # phase 13: one detection of the streaming program (eager, the wrappers'
+    # counts; its replays launch the same kernels by name) and a batch of
+    # the eval CLI on a user's exp file
+    paths["stream_detect"] = res13.get("stream_detect")
+    paths["stream_cli_batch"] = res13.get("cli_batch")
     neck_head = dict(res11.get("eval_sites", {}),
                      **res11.get("train_sites", {}))
+    b1 = res13.get("b1_kernels", {})
     kernels = []
     for kname, agg in per_kernel.items():
         source, replaces = KERNEL_INFO[kname]
@@ -3527,7 +4069,8 @@ def main() -> int:
                            for p, c in paths.items()},
             neck_head=({k: neck_head[kname][k] for k in (
                 "ms", "kernel_ms", "plain_ms", "bound_ms", "max_abs_err")}
-                if kname in neck_head else None)))
+                if kname in neck_head else None),
+            b1=b1.get(kname)))
     print("kernel times: eval kernels per forward, train kernels per train "
           "step, each the sum over the kernel's sites of the per-call times "
           "above (ms: the wrapper's call, CUDA events; kernel_ms: the "
@@ -3539,9 +4082,13 @@ def main() -> int:
           "(train); path_launches: a forward or a step of phase 11's "
           "full_spike_v2 and full_spike paths, a step of phase 12a's "
           "e_yolox_m through the train CLI and a batch through the eval CLI "
-          "(by the wrappers, from zeroed counts); neck_head: the sums over "
+          "(by the wrappers, from zeroed counts), one streaming detection "
+          "and a batch of the eval CLI on a user exp file (phase 13); "
+          "neck_head: the sums over "
           "the neck and head sites of the full_spike_v2 forward (rows 1-3) "
-          "and step (rows 7, 8), phase 11a; no "
+          "and step (rows 7, 8), phase 11a; b1: the sums over the sites of "
+          "the deploy forward at B=1 (rows 1-4) and kernel 5 at N=1, phase "
+          "13a; no "
           "single PyTorch call computes a fused site, the PLIF recurrence, "
           "its backward, the sampler scan or its step, so library_ms is "
           "null")

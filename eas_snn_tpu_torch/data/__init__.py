@@ -24,7 +24,7 @@ from .ncaltech import (NCaltechDataset, encode_atis, read_atis_events,
                        read_ncaltech_annotation)
 from .psee_io import (BBOX_DTYPE, EVENT_DTYPE, EventStream, load_bboxes,
                       write_bboxes_npy, write_dat_events)
-from .reps import (bin_event_batch, micro_sum, pad_events,
+from .reps import (bin_event_batch, bin_events_device, micro_sum, pad_events,
                    polarity_histogram, slice_time_windows, timesurface,
                    timesurface_measure, voxel_cube, voxel_grid)
 
@@ -40,7 +40,7 @@ __all__ = [
     "read_atis_events", "read_ncaltech_annotation", "encode_atis",
     "polarity_histogram", "micro_sum", "voxel_grid", "voxel_cube",
     "timesurface", "timesurface_measure", "slice_time_windows",
-    "pad_events", "bin_event_batch",
+    "pad_events", "bin_event_batch", "bin_events_device",
 ]
 
 

@@ -12,10 +12,11 @@ its plain versions (``native=False``) and its test oracle.
 
 Device side: ``bin_event_batch`` scatter-adds host-indexed events into
 (B, Tl, Tm, H, W, 2) micro-frames on the card, the training path's device
-binning. JAX computes it as one XLA scatter outside any Pallas kernel; here
-it is one ``index_add_`` onto a flat buffer with a dead slot for padded
-and out-of-window events. Counts stay below 2^24, so the atomic f32 adds
-are exact whatever their order.
+binning, and ``bin_events_device`` bins padded raw events by their
+timestamps, the streaming detector's. JAX computes both as one XLA scatter
+outside any Pallas kernel; here each is one ``index_add_`` onto a flat
+buffer with a dead slot for padded and out-of-window events. Counts stay
+below 2^24, so the atomic f32 adds are exact whatever their order.
 
 Channel-last everywhere: a micro-frame stack is (Tm, H, W, 2).
 """
@@ -29,7 +30,7 @@ import torch
 
 __all__ = ["polarity_histogram", "slice_time_windows", "micro_sum",
            "voxel_grid", "voxel_cube", "timesurface_measure", "timesurface",
-           "pad_events", "bin_event_batch"]
+           "pad_events", "bin_event_batch", "bin_events_device"]
 
 
 def _native_xyp(events: np.ndarray):
@@ -250,3 +251,25 @@ def bin_event_batch(b: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     hist.index_add_(0, flat, torch.ones(flat.shape[0], dtype=torch.float32,
                                         device=dev))
     return hist[:-1].reshape(lead + (n_bins, height, width, 2))
+
+
+def bin_events_device(t: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                      p: torch.Tensor, valid: torch.Tensor, *,
+                      t0, time_window, n_bins: int, height: int,
+                      width: int) -> torch.Tensor:
+    """(N,) int events -> (n_bins, H, W, 2) f32 polarity counts on the
+    events' device (JAX ``data/reps.py:bin_events_device``). Bin i covers
+    [t0 + i * tw, t0 + (i + 1) * tw) with tw = max(time_window, 1): with
+    t0 the first event's time and time_window (t_last - t_first) // n_bins
+    it is ``micro_sum``'s layout, whose remainder past n_bins * tw is
+    dropped. ``t0`` and ``time_window`` may be 0-d integer tensors on the
+    device (a captured graph reads them at replay) or Python ints.
+    Events before t0, at bin n_bins or later, or not ``valid`` go to a
+    dead slot."""
+    dev = t.device
+    tw = torch.clamp_min(torch.as_tensor(time_window, device=dev).long(), 1)
+    rel = t.long() - torch.as_tensor(t0, device=dev).long()
+    b = torch.div(rel, tw, rounding_mode="floor")
+    inside = valid & (rel >= 0) & (b < n_bins)
+    return bin_event_batch(b.clamp(0, n_bins - 1), x, y, p, inside,
+                           n_bins=n_bins, height=height, width=width)

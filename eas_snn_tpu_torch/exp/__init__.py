@@ -1,3 +1,6 @@
-from .event_exp import EventExp, detect, get_exp, resolve_device
+from .base_exp import BaseExp
+from .build import get_exp, get_exp_by_file, get_exp_by_name
+from .event_exp import EventExp, detect, resolve_device
 
-__all__ = ["EventExp", "detect", "get_exp", "resolve_device"]
+__all__ = ["BaseExp", "EventExp", "detect", "get_exp", "get_exp_by_file",
+           "get_exp_by_name", "resolve_device"]

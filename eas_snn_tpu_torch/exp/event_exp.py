@@ -2,24 +2,23 @@
 (counterpart of ``eas_snn_tpu/exp/event_exp.py:EventExp``), with the
 presets the port serves, its eval front door and its training factories.
 
-``get_exp(name)`` gives a preset, ``exp.deploy()`` switches it to the
-deployment precision and the fused sampler route (the counterpart of the
-JAX ``tpu_deploy()``, whose space-to-depth sampler packing is a TPU layout
-trick),
+``exp/build.py:get_exp`` gives a preset (``_PRESETS``) or a user's exp
+file, ``exp.deploy()`` switches it to the deployment precision and the
+fused sampler route (the counterpart of the JAX ``tpu_deploy()``, whose
+space-to-depth sampler packing is a TPU layout trick),
 ``exp.get_model()`` builds the seeded model on the card (in train mode
 with ``train=True``), ``exp.detect(model, events)`` runs the forward
 without gradients, then the confidence filter and NMS,
 ``exp.get_data_loader()`` gives the training batches of ``data_dir`` and
 ``exp.get_evaluator()`` the evaluator over its map_val split,
 ``exp.eval(model, evaluator)`` its AP, and ``exp.get_trainer()`` the
-trainer; ``exp.merge(["key", "value", ...])``
-applies command-line overrides (JAX ``exp/base_exp.py:24``).
+trainer; ``exp.merge(["key", "value", ...])`` (``exp/base_exp.py``)
+applies command-line overrides.
 """
 
 from __future__ import annotations
 
-import ast
-from typing import List, Optional, Sequence
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -27,8 +26,9 @@ import torch
 from ..core.optim import build_lr_schedule, build_optimizer
 from ..models import EASYOLOX
 from ..ops.boxes import postprocess
+from .base_exp import BaseExp
 
-__all__ = ["EventExp", "get_exp", "detect", "resolve_device"]
+__all__ = ["EventExp", "detect", "resolve_device"]
 
 # reference use_spike strings -> internal mode names
 _USE_SPIKE_MAP = {
@@ -49,7 +49,7 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-class EventExp:
+class EventExp(BaseExp):
     """Model, training and test fields of the JAX EventExp, with its
     defaults."""
 
@@ -290,28 +290,6 @@ class EventExp:
         finally:
             model.train(was_training)
 
-    def merge(self, cfg_list: Sequence[str]) -> "EventExp":
-        """Command-line 'key value' overrides, each value coerced to the
-        type of the field it replaces (reference base_exp.py:67-90). A
-        field that is None (``seed``, ``data_dir``) takes the value as a
-        Python literal where it parses as one (``seed 5`` an int), else as
-        the string: the JAX package keeps the string, which its trainer
-        cannot seed from."""
-        if len(cfg_list) % 2:
-            raise ValueError("overrides must be 'key value' pairs, got "
-                             f"{list(cfg_list)}")
-        for k, v in zip(cfg_list[0::2], cfg_list[1::2]):
-            k = k[2:] if k.startswith("--") else k
-            if not hasattr(self, k):
-                raise KeyError(f"unknown config key '{k}'")
-            if not isinstance(getattr(self, k), str):
-                try:
-                    v = ast.literal_eval(v)
-                except (ValueError, SyntaxError):
-                    pass
-            setattr(self, k, v)
-        return self
-
     def check_exp_value(self) -> None:
         h, w = self.input_size
         if h % 32 or w % 32:
@@ -432,8 +410,3 @@ _PRESETS = {
     "e_yolox_l": lambda: _named("e_yolox_l", _e_yolox(EventExp(), 1.0, 1.0)),
 }
 
-
-def get_exp(name: str) -> EventExp:
-    if name not in _PRESETS:
-        raise KeyError(f"unknown exp '{name}'; the port has {sorted(_PRESETS)}")
-    return _PRESETS[name]()

@@ -1,11 +1,15 @@
 """Evaluation CLI of the port (counterpart of ``tools/eval_event.py:19-139``;
-reference tools/eval_event.py:24-237): an experiment by name, a
-checkpoint, the COCO or the Prophesee protocol, a speed or an energy
-report, free-form ``key value`` overrides.
+reference tools/eval_event.py:24-237): an experiment by name or from a
+file, a checkpoint, the COCO or the Prophesee protocol, a speed or an
+energy report, free-form ``key value`` overrides.
 
     python -m eas_snn_tpu_torch.tools.eval_event -n gen1_syolox_m -b 64 \\
         -c best.pth [--fp16] [--eval_proh [--save_boxes DIR] | --speed |
         --energy] data_dir /data/gen1 [key value ...]
+    python -m eas_snn_tpu_torch.tools.eval_event -f my_exp.py ...
+
+``-f`` loads a Python file whose ``Exp`` class subclasses
+``eas_snn_tpu_torch.exp.EventExp``; ``-n`` names a preset of the port.
 
 Runs on the card (``--device cuda``, the default) or on the CPU with
 ``--device cpu``. ``main`` returns what it reported as a dict.
@@ -27,12 +31,17 @@ logger = logging.getLogger("eas_snn_tpu_torch.eval")
 
 
 def make_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser("eas_snn_tpu_torch eval")
+    parser = argparse.ArgumentParser(
+        "eas_snn_tpu_torch eval",
+        epilog="-f loads a Python file whose Exp class subclasses "
+               "eas_snn_tpu_torch.exp.EventExp (a file that imports the JAX "
+               "package is refused); -n names a preset of the port.")
     parser.add_argument("-n", "--name", type=str, default=None,
                         help="exp name (a preset of the port)")
     parser.add_argument("-f", "--exp_file", type=str, default=None,
-                        help="not supported: exp files import the JAX "
-                             "package; use -n")
+                        help="exp file: a Python file whose Exp class "
+                             "subclasses eas_snn_tpu_torch.exp.EventExp "
+                             "(taken before -n)")
     parser.add_argument("-b", "--batch-size", type=int, default=64)
     parser.add_argument(
         "-c", "--ckpt", type=str, default=None,
@@ -69,16 +78,10 @@ def make_parser() -> argparse.ArgumentParser:
 def build(argv: Optional[Sequence[str]] = None):
     """(exp, args) from a command line; sets the exp's precision
     process-wide (``EventExp.apply_precision``)."""
-    from ..exp import get_exp
+    from ..exp.build import exp_from_args
 
     args = make_parser().parse_args(argv)
-    if args.exp_file:
-        raise SystemExit(
-            "-f: exp files import the JAX package (eas_snn_tpu.exp), which "
-            "the port does not import; pass a preset with -n")
-    if not args.name:
-        raise SystemExit("-n: name a preset of the port")
-    exp = get_exp(args.name)
+    exp = exp_from_args(args.exp_file, args.name)
     if args.fp16:
         exp.deploy()  # before merge: explicit 'key value' opts still win
     if args.opts:
@@ -126,8 +129,8 @@ def energy(exp, model, device) -> dict:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     from ..core.checkpoint import load_eval_weights
-    from ..evaluators import conv_macs_per_frame
     from ..exp.event_exp import resolve_device
+    from ..utils.model_info import model_info
 
     exp, args = build(argv)
     if not logging.getLogger().handlers:
@@ -138,11 +141,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         load_eval_weights(model, args.ckpt)
         logger.info("loaded weights from %s", args.ckpt)
     h, w = exp.test_size
-    n_params = sum(p.numel() for p in model.parameters())
-    gflops = 2.0 * conv_macs_per_frame(
-        model, (1, exp.Tl, exp.Tm, h, w, exp.in_dim)) / 1e9
-    logger.info("%s on %s: %.2f M parameters, %.2f conv GFLOPs/frame at "
-                "%dx%d", exp.exp_name, device, n_params / 1e6, gflops, h, w)
+    n_params, gflops = model_info(model, (1, exp.Tl, exp.Tm, h, w,
+                                          exp.in_dim))
+    # the JAX CLI's get_model_info line (tools/eval_event.py:85)
+    logger.info("%s on %s at %dx%d: Params: %.2fM, Gflops: %.2f",
+                exp.exp_name, device, h, w, n_params / 1e6, gflops)
     out = {"exp": exp.exp_name, "device": str(device),
            "params": n_params, "conv_gflops_per_frame": gflops}
 

@@ -1,10 +1,15 @@
 """Training CLI of the port (counterpart of ``tools/train_event.py:24-86``;
-reference tools/train_event.py:24-162): an experiment by name, batch size,
-resume or fine-tune, free-form ``key value`` overrides.
+reference tools/train_event.py:24-162): an experiment by name or from a
+file, batch size, resume or fine-tune, free-form ``key value``
+overrides.
 
     python -m eas_snn_tpu_torch.tools.train_event -n gen1_syolox_m -b 64 \\
         data_dir /data/gen1 [--resume | -c ckpt.pth] [--profile N] \\
         [key value ...]
+    python -m eas_snn_tpu_torch.tools.train_event -f my_exp.py ...
+
+``-f`` loads a Python file whose ``Exp`` class subclasses
+``eas_snn_tpu_torch.exp.EventExp``; ``-n`` names a preset of the port.
 
 Runs on the card (``--device cuda``, the default) with the step captured
 as CUDA graphs, or on the CPU with ``--device cpu``.
@@ -21,15 +26,19 @@ __all__ = ["make_parser", "build", "main"]
 def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         "eas_snn_tpu_torch train",
-        epilog="Multi-process and multi-host training (the JAX CLI's "
+        epilog="-f loads a Python file whose Exp class subclasses "
+               "eas_snn_tpu_torch.exp.EventExp (a file that imports the JAX "
+               "package is refused); -n names a preset of the port. "
+               "Multi-process and multi-host training (the JAX CLI's "
                "--num_processes, --coordinator, --process_id) waits for the "
                "distributed slice of the port (ROADMAP.md §1 item 10).")
     parser.add_argument("-expn", "--experiment-name", type=str, default=None)
     parser.add_argument("-n", "--name", type=str, default=None,
                         help="exp name (a preset of the port)")
     parser.add_argument("-f", "--exp_file", type=str, default=None,
-                        help="not supported: exp files import the JAX "
-                             "package; use -n")
+                        help="exp file: a Python file whose Exp class "
+                             "subclasses eas_snn_tpu_torch.exp.EventExp "
+                             "(taken before -n)")
     parser.add_argument("-b", "--batch-size", type=int, default=64)
     parser.add_argument("--resume", action="store_true",
                         help="continue from the run's latest checkpoint")
@@ -60,16 +69,10 @@ def make_parser() -> argparse.ArgumentParser:
 def build(argv: Optional[Sequence[str]] = None):
     """(exp, args) from a command line; sets the exp's precision
     process-wide (``EventExp.apply_precision``)."""
-    from ..exp import get_exp
+    from ..exp.build import exp_from_args
 
     args = make_parser().parse_args(argv)
-    if args.exp_file:
-        raise SystemExit(
-            "-f: exp files import the JAX package (eas_snn_tpu.exp), which "
-            "the port does not import; pass a preset with -n")
-    if not args.name:
-        raise SystemExit("-n: name a preset of the port")
-    exp = get_exp(args.name)
+    exp = exp_from_args(args.exp_file, args.name)
     if args.fp16:
         exp.compute_dtype = "bfloat16"  # before merge: explicit opts win
     if args.opts:

@@ -498,6 +498,16 @@ def test_entry_points_default_to_the_card():
         get_exp("gen1_syolox_m").get_model(train=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_exp("gen1_syolox_m").get_trainer()
+    from eas_snn_tpu_torch.inference import StreamingDetector
+    from eas_snn_tpu_torch.models import create_model, load_weights
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingDetector(EASYOLOX(**SMALL), img_size=(48, 64),
+                          input_size=(32, 64))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_model("syolox-s-gen1", width=0.125)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_weights(create_model("syolox-s-gen1", device="cpu",
+                                  width=0.125), "syolox-s-gen1")
 
 
 _NO_JAX_RUN = """
@@ -547,6 +557,25 @@ ev = read_atis_events(encode_atis([5, 9, 70], [1, 2, 3], [4, 240, 6],
 assert list(ev["t"]) == [5, 70 + 8192]
 assert voxel_grid(ev, 8, 8, 2).shape == (2, 8, 8, 1)
 assert get_exp("ncaltech_syolox_m").alpha == 1.5
+from eas_snn_tpu_torch.data import EVENT_DTYPE
+from eas_snn_tpu_torch.inference import StreamingDetector
+from eas_snn_tpu_torch.models import create_model, load_weights
+from eas_snn_tpu_torch.utils import (MeterBuffer, fuse_conv_bn,
+                                     get_model_info, hbm_usage_gb)
+import eas_snn_tpu_torch.tools.bench_streaming
+m = create_model("syolox-s-gen1", device="cpu", width=0.125)
+det = StreamingDetector(m, img_size=(48, 64), input_size=(32, 64), Tm=3,
+                        max_events=512, device="cpu")
+ev = np.zeros(300, EVENT_DTYPE)
+ev["t"] = np.arange(300) * 100
+ev["x"], ev["y"], ev["p"] = np.arange(300) % 64, np.arange(300) % 48, 1
+det.push(ev)
+assert det.outputs().shape == (1, 42, 7)
+assert load_weights(create_model("syolox-s-gen1", device="cpu"),
+                    "syolox-s-gen1", device="cpu")["mapped"] == 430
+assert get_model_info(m, torch.zeros(1, 1, 4, 32, 32, 2)).startswith("Params")
+fuse_conv_bn(m)
+assert hbm_usage_gb("cpu") == 0.0
 assert not any(k.split(".")[0] in ("jax", "flax", "optax", "orbax",
                                    "eas_snn_tpu", "cv2")
                for k in sys.modules if sys.modules[k] is not None)
@@ -582,7 +611,12 @@ def test_no_jax_import_in_port_sources():
                 ("evaluators", "cocoeval", "__init__.py"),
                 ("data", "cache.py"), ("data", "concat.py"),
                 ("data", "gen4.py"), ("data", "ncaltech.py"),
-                ("tools", "psee_evaluate_folders.py")):
+                ("tools", "psee_evaluate_folders.py"),
+                ("inference", "__init__.py"), ("inference", "streaming.py"),
+                ("exp", "base_exp.py"), ("exp", "build.py"),
+                ("models", "build.py"), ("utils", "model_info.py"),
+                ("utils", "model_surgery.py"), ("utils", "metric.py"),
+                ("tools", "bench_streaming.py")):
         assert any(f.endswith(os.path.join(*new)) for f in files), new
     hits = [f for f in files if pat.search(open(f).read())]
     assert not hits, hits
