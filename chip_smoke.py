@@ -233,7 +233,26 @@ Phases, each of which fails the run (exit code 1, no result line):
    detections with those weights, and ``tools/eval_event.py -f`` on a
    user exp file over phase 8's val tree (35 / 8 / 6 / 1 + Tm launches a
    batch);
-14. when every check passed, one ``{"kernels": [...]}`` line, the
+14. training at scale, in two processes of their own: (14a,
+   ``scale_phases``) ``ncaltech_syolox_m`` (bf16, 640x640) at B=32 as the
+   captured step with remat off and on and the saved spike trains in
+   bf16 or int8: peak allocated GiB and ms a step of each, every
+   configuration's losses and end state (parameters, BN statistics, Adam,
+   EMA) bit-equal to the plain one's under ``CapturedStep.cudnn_mode()``,
+   the train PLIF launches 50 + 50 a plain step and 100 + 50 a remat step
+   (the wrappers; by kernel name in a replay); ``e_yolox_m`` (f32) at
+   B=32 with remat off and on, bit-equal; then the largest batch of 32,
+   48, 64, 96, 128 that fits with remat and int8 (the first that does
+   not ends the sweep); (14c, ``scale_dp_phases``) the capturable SGD's
+   captured step bit-equal to its eager one at ``gen1_syolox_m`` B=64;
+   (14b) an NCCL group of one process: the captured step with the group
+   bit-equal to the one without from one snapshot, NCCL's kernels by
+   name in a replay (one a collective: each BN site forward and
+   backward, SimOTA's counts, the gradient bucket), ms a step with and
+   without the group in turns, then the train CLI's ``main`` with the
+   group on a Gen1 tree as phase 7 writes it, through captured steps and
+   the evaluation's gather;
+15. when every check passed, one ``{"kernels": [...]}`` line, the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 ``determinism_cost`` (not run by ``main``) times the captured step with
@@ -3946,6 +3965,379 @@ def nan_sweep() -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 14
+
+SCALE_B = 32                         # the reference's N-Caltech batch
+SCALE_SWEEP = (32, 48, 64, 96, 128)  # batches tried with remat + int8
+SCALE_REPLAYS = 3                    # timed replays a configuration
+# remat recomputes each site's train PLIF forward once: 2 x 50 + 50
+PER_STEP_REMAT = {"plif_train_fwd": 100, "plif_train_bwd": 50}
+DP_B = FULL_TRAIN_B                  # phase 6's gen1_syolox_m batch
+DP_CLI_B = 16                        # the train CLI's -b in phase 14b
+
+
+def _poisson_batch(exp, B: int, seed: int):
+    """One Poisson(0.2) batch of ``exp``'s input size and its random
+    labels, on the card."""
+    H, W = exp.input_size
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    events = torch.poisson(torch.full((B, exp.Tl, exp.Tm, H, W, exp.in_dim),
+                                      0.2, device=DEV), generator=gen)
+    return events, random_labels(B, H, W, np.random.default_rng(seed)).to(DEV)
+
+
+def _fits(err: Optional[BaseException]) -> bool:
+    """False for a failure that is the card's memory running out, also
+    where it ended a graph capture and the capture's end raised."""
+    while err is not None:
+        if isinstance(err, torch.cuda.OutOfMemoryError) or \
+                "out of memory" in str(err):
+            return False
+        err = err.__cause__ or err.__context__
+    return True
+
+
+def scale_step(exp, events, labels, remat: bool, store: str, replays: int,
+               profile: bool = False) -> dict:
+    """``exp``'s step as CUDA graphs (``CapturedStep``) with ``remat`` and
+    the spike store ``store``, from the model of seed SEED + 1 on one
+    batch: the eager warm-up and the capture, then ``replays`` timed
+    replays. Returns the peak allocated GiB over all of them, ms a replay
+    (host clock to a synchronize), the wrappers' launches a step over the
+    warm-up and the capture, the last losses, the end state (on the host)
+    and, with ``profile``, the train PLIF kernels' launches in one
+    profiled replay by name."""
+    from eas_snn_tpu_torch.core.train_state import CapturedStep
+    model = exp.get_model(device=DEV, seed=SEED + 1, train=True)
+    model.set_remat(remat)
+    model.train_store = store
+    opt = exp.get_optimizer(model, events.shape[0], iters_per_epoch=1000)
+    ema = init_ema(model) if exp.ema else None
+    step = CapturedStep(model, opt, ema)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for _ in range(step.WARMUP + 1):
+        step(events, labels)
+    torch.cuda.synchronize()
+    counts = {k: v // (step.WARMUP + 1) for k, v in launch_counts().items()}
+    t0 = time.perf_counter()
+    for _ in range(replays):
+        losses = step(events, labels)
+    torch.cuda.synchronize()
+    out = dict(ms=(time.perf_counter() - t0) / replays * 1e3,
+               peak=torch.cuda.max_memory_allocated() / 2**30, counts=counts,
+               losses={k: float(v) for k, v in losses.items()},
+               state=[t.detach().to("cpu", copy=True) for t in
+                      _state_tensors(model, opt, ema)])
+    if profile:
+        rows = profile_call(lambda: step(events, labels),
+                            "one replay of the remat step", top=6)
+        out["by_name"] = {k: profiled_total(rows, k)[1]
+                          for k in ("plif_fwd_kernel", "plif_bwd")}
+    del step, model, opt, ema
+    torch.cuda.empty_cache()
+    return out
+
+
+def _same_step(what: str, a: dict, b: dict) -> None:
+    """b's losses and end state must be a's, bit for bit."""
+    ds, ns = state_diff(a["state"], b["state"])
+    same = a["losses"] == b["losses"] and ns == 0
+    print(f"  {what}: losses and end state (parameters, BN statistics, "
+          f"Adam, EMA) {'bit-equal' if same else 'DIFFER'} (largest |diff| "
+          f"{ds:.3e}, {ns} elements)")
+    if not same:
+        fail(f"{what}: the step is not bit-equal")
+
+
+def scale_phases() -> int:
+    """Phase 14a, run as a process of its own: train memory at 640x640.
+    ``ncaltech_syolox_m`` (bf16) at B=32 as the captured step with remat
+    off and on and the int8 spike store off and on (peak GiB and ms a
+    step each; every configuration's state bit-equal to the plain one's;
+    the train PLIF launches pinned: 50 + 50 a plain step, 100 + 50 with
+    remat, by the wrappers and by name in a replay), ``e_yolox_m`` (f32)
+    at B=32 with remat off and on, then the largest batch of SCALE_SWEEP
+    that fits with remat and int8 (stopping at the first that does not).
+    Prints, as JSON on its last line, the launches a remat step and the
+    measurements. Returns the exit code: 1 if a check failed."""
+    from eas_snn_tpu_torch.core.train_state import CapturedStep
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + PTXAS_FLAGS  # phase 1's builds
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    res = {}
+    exp = get_exp(NCALTECH)
+    events, labels = _poisson_batch(exp, SCALE_B, SEED + 14)
+    print(f"phase 14a: train memory at 640x640: {NCALTECH} "
+          f"({exp.compute_dtype}) at B={SCALE_B} as CUDA graphs, remat off "
+          f"and on, saved spikes in {exp.compute_dtype} or int8; "
+          f"{CapturedStep.WARMUP} eager warm-up steps, the capture, "
+          f"{SCALE_REPLAYS} timed replays each", flush=True)
+    runs = {}
+    for remat in (False, True):
+        for store in ("float", "int8"):
+            r = runs[remat, store] = scale_step(
+                exp, events, labels, remat, store, SCALE_REPLAYS,
+                profile=remat and store == "int8")
+            per = PER_STEP_REMAT if remat else PER_STEP
+            want = {k: per.get(k, 0) for k in r["counts"]}
+            print(f"  remat {'on ' if remat else 'off'}, saved spikes "
+                  f"{store:5s}: peak allocated {r['peak']:.3f} GiB, "
+                  f"{r['ms']:.3f} ms a step, total loss "
+                  f"{r['losses']['total_loss']:.6f}; train PLIF launches a "
+                  f"step (the wrappers) {r['counts']}", flush=True)
+            if r["counts"] != want:
+                fail(f"phase 14a: launches {r['counts']} a step, expected "
+                     f"{want}")
+    base = runs[False, "float"]
+    for (remat, store), r in runs.items():
+        if (remat, store) != (False, "float"):
+            _same_step(f"remat {remat}, spikes {store} against remat off, "
+                       "spikes float", base, r)
+    by_name = runs[True, "int8"]["by_name"]
+    print(f"  remat step: train PLIF launches in one profiled replay, by "
+          f"kernel name: {by_name}")
+    if by_name != {"plif_fwd_kernel": PER_STEP_REMAT["plif_train_fwd"],
+                   "plif_bwd": PER_STEP_REMAT["plif_train_bwd"]}:
+        fail(f"phase 14a: launches by name {by_name}, expected "
+             f"{PER_STEP_REMAT}")
+    res["remat_step"] = runs[True, "int8"]["counts"]
+    res["peaks_gib"] = {f"remat_{int(r)}_{s}": v["peak"]
+                        for (r, s), v in runs.items()}
+    res["ms"] = {f"remat_{int(r)}_{s}": v["ms"] for (r, s), v in runs.items()}
+    del runs, base, events, labels
+    torch.cuda.empty_cache()
+
+    eexp = get_exp(E_YOLOX)
+    eexp.apply_precision()
+    events, labels = _poisson_batch(eexp, E_YOLOX_B, SEED + 15)
+    eruns = {}
+    for remat in (False, True):
+        r = eruns[remat] = scale_step(eexp, events, labels, remat, "int8",
+                                      SCALE_REPLAYS)
+        print(f"  {E_YOLOX} ({eexp.compute_dtype}) B={E_YOLOX_B} remat "
+              f"{'on ' if remat else 'off'}: peak allocated "
+              f"{r['peak']:.3f} GiB, {r['ms']:.3f} ms a step, total loss "
+              f"{r['losses']['total_loss']:.6f}", flush=True)
+    _same_step(f"{E_YOLOX} remat on against off", eruns[False], eruns[True])
+    res["e_yolox_m"] = {f"remat_{int(r)}": dict(peak_gib=v["peak"],
+                                                ms=v["ms"])
+                        for r, v in eruns.items()}
+    del eruns, events, labels
+    torch.cuda.empty_cache()
+
+    largest = None
+    for B in SCALE_SWEEP:
+        events, labels = _poisson_batch(exp, B, SEED + 14)
+        try:
+            r = scale_step(exp, events, labels, True, "int8", 2)
+        except (RuntimeError, torch.cuda.OutOfMemoryError) as err:
+            if _fits(err):
+                raise
+            print(f"  B={B} with remat and int8: does not fit "
+                  f"({str(err).splitlines()[0][:120]})", flush=True)
+            break
+        largest = dict(B=B, peak_gib=r["peak"], ms=r["ms"])
+        print(f"  B={B} with remat and int8: fits, peak allocated "
+              f"{r['peak']:.3f} GiB, {r['ms']:.3f} ms a step", flush=True)
+        del events, labels, r
+        torch.cuda.empty_cache()
+    print(f"  largest batch of {list(SCALE_SWEEP)} that fits with remat and "
+          f"int8: {largest}")
+    res["largest"] = largest
+    print(f"  phase 14a took {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps(res))
+    return 1 if FAILURES else 0
+
+
+
+def _nccl_launches(rows) -> tuple:
+    """(launches, names) of NCCL's kernels in ``profile_call``'s rows."""
+    hits = [(n, key) for _, n, key in rows
+            if "nccl" in key.lower() or "onerank" in key.lower()]
+    return sum(n for n, _ in hits), sorted({k[:60] for _, k in hits})
+
+
+def scale_dp_phases(workers: int) -> int:
+    """Phases 14c and 14b, run as a process of its own. 14c: the
+    capturable SGD's captured step against its eager step from one
+    snapshot at ``gen1_syolox_m`` B=64 (bit-equal). 14b: an NCCL group of
+    one process; the captured step with the group (its collectives in the
+    graph: the BN sites', SimOTA's, the gradient bucket) against the
+    captured step without it from one snapshot (bit-equal), NCCL's kernels
+    by name in a replay, ms a step with and without the group in turns;
+    then the train CLI's ``main`` with the group started, on a Gen1 tree
+    as phase 7 writes it, through the evaluation and its gather. Prints,
+    as JSON on its last line, the launches a step of both paths. Returns
+    the exit code: 1 if a check failed."""
+    import shutil
+    import socket
+
+    from eas_snn_tpu_torch import parallel
+    from eas_snn_tpu_torch.core.train_state import CapturedStep
+    from eas_snn_tpu_torch.evaluators import event_evaluator
+    from eas_snn_tpu_torch.models.blocks import BatchNorm
+    from eas_snn_tpu_torch.tools import train_event
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + PTXAS_FLAGS  # phase 1's builds
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    res = {}
+    exp = get_exp("gen1_syolox_m")
+    events, labels = _poisson_batch(exp, DP_B, SEED + 16)
+
+    exp.optimizer = "SGD"
+    print(f"phase 14c: the capturable SGD (Nesterov, a device lr a group): "
+          f"gen1_syolox_m at B={DP_B}, captured against eager", flush=True)
+    opt_kind = type(exp.get_optimizer(torch.nn.Conv2d(1, 1, 1).to(DEV),
+                                       DP_B)).__name__
+    print(f"  optimizer: {opt_kind}")
+    res["sgd_step"] = captured_step_check("14c", exp, events, labels,
+                                          PER_STEP)
+    exp.optimizer = "ADAM"
+
+    print(f"phase 14b: data parallel on the card: an NCCL group of one "
+          f"process, gen1_syolox_m at B={DP_B}", flush=True)
+    model = exp.get_model(device=DEV, seed=SEED + 1, train=True)
+    opt = exp.get_optimizer(model, DP_B, iters_per_epoch=1000)
+    ema = init_ema(model)
+    plain = CapturedStep(model, opt, ema)
+    for _ in range(plain.WARMUP + 1):
+        plain(events, labels)
+    snap = snapshot(model, opt, ema)
+
+    def one_step(step):
+        restore(snap, model, opt, ema)
+        losses = {k: float(v) for k, v in step(events, labels).items()}
+        torch.cuda.synchronize()
+        return dict(losses=losses, state=[t.detach().clone() for t in
+                                          _state_tensors(model, opt, ema)])
+
+    without = one_step(plain)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    parallel.start_group(f"127.0.0.1:{port}", 1, 0, device=DEV)
+    print(f"  NCCL group of one started in {time.perf_counter() - t0:.2f} s "
+          f"(backend {torch.distributed.get_backend()}, world size "
+          f"{parallel.world_size()})", flush=True)
+    dp = CapturedStep(model, opt, ema)
+    reset_launches()
+    for _ in range(dp.WARMUP + 1):
+        dp(events, labels)
+    torch.cuda.synchronize()
+    res["dp_step"] = {k: v // (dp.WARMUP + 1)
+                      for k, v in launch_counts().items()}
+    print(f"  warm-up and capture with the group: launches a step (the "
+          f"wrappers) {res['dp_step']}")
+    if res["dp_step"] != {k: PER_STEP.get(k, 0) for k in res["dp_step"]}:
+        fail(f"phase 14b: launches {res['dp_step']}, expected {PER_STEP}")
+    _same_step("captured step with the group against without it, from one "
+               "snapshot", without, one_step(dp))
+    sites = sum(isinstance(m, BatchNorm) for m in model.modules())
+    rows = profile_call(lambda: dp(events, labels),
+                        "one replay with the group", top=6)
+    n, names = _nccl_launches(rows)
+    want = 2 * sites + 2  # each BN site forward and backward, SimOTA, bucket
+    print(f"  NCCL kernels in the replay, by name: {n} launches of {names} "
+          f"({want} collectives: {sites} BN sites forward and backward, "
+          f"SimOTA's counts, the gradient bucket)")
+    if n < want:
+        fail(f"phase 14b: {n} NCCL launches in a replay, expected at least "
+             f"{want}")
+    ms = {}
+    for name in ("without", "with", "with", "without"):
+        fn = dp if name == "with" else plain
+        t, ips, peak, losses = timed_steps(fn, events, labels, 5)
+        ms.setdefault(name, []).append(t)
+        print(f"  captured step {name} the group: {t:.3f} ms a step, "
+              f"{ips:.2f} images/s, peak {peak:.3f} GiB")
+    res["dp_ms"] = ms
+    del plain, dp, model, opt, ema, snap, events, labels
+    torch.cuda.empty_cache()
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "outputs", "chip_smoke_phase14")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "gen1")
+    tree = write_gen1_tree(os.path.join(data, "train"), streams=2,
+                           groups=48, seed=SEED + 14)
+    write_gen1_tree(os.path.join(data, "val"), streams=1, groups=8,
+                    seed=SEED + 15)
+    gathered = []
+    gather = event_evaluator._allgather_rows
+
+    def counted(rows):
+        out = gather(rows)
+        gathered.append((len(rows), len(out)))
+        return out
+
+    event_evaluator._allgather_rows = counted
+    t0 = time.perf_counter()
+    train_event.main(["-n", "gen1_syolox_m", "-b", str(DP_CLI_B), "-l",
+                      "jsonl", "data_dir", data, "output_dir",
+                      os.path.join(root, "out"), "data_num_workers",
+                      str(workers), "max_epoch", "1", "print_interval", "1",
+                      "seed", str(SEED), "eval_interval", "1"])
+    event_evaluator._allgather_rows = gather
+    run = os.path.join(root, "out", "gen1_syolox_m")
+    rows = [json.loads(r) for r in open(os.path.join(run, "metrics.jsonl"))]
+    train = [r for r in rows if r["split"] == "train"]
+    val = [r for r in rows if r["split"] == "val"]
+    print(f"  train CLI with the group ({tree['streams']} streams, "
+          f"{tree['groups']} label groups, -b {DP_CLI_B}): {len(train)} "
+          f"steps, last total loss {train[-1]['total_loss']:.4f}, val "
+          f"{val}, gathers (rows in, rows out) {gathered}, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not (len(train) > CapturedStep.WARMUP + 1 and val and gathered
+            and all(a == b for a, b in gathered)
+            and all(np.isfinite(r["total_loss"]) for r in train)):
+        fail("phase 14b: the train CLI with the group did not train "
+             "through a captured step and an evaluation with the gather")
+    parallel.shutdown()
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  phases 14b-14c took {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps(res))
+    return 1 if FAILURES else 0
+
+
+def _child(fn: str, what: str, timeout: int) -> dict:
+    """``chip_smoke.<fn>`` in a process of its own: its output, then its
+    JSON result (empty, and a failure, if it gave none or exited non-zero).
+    """
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                        f"sys.exit(chip_smoke.{fn})"], cwd=here,
+                       capture_output=True, text=True, timeout=timeout)
+    lines = r.stdout.rstrip().splitlines()
+    print("\n".join(lines[:-1]))
+    print(f"  (the process of {what} took {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    try:
+        res = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        res = {}
+    if r.returncode != 0 or not res:
+        fail(f"{what}: the process exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    return res
+
+
+def phase_scale(workers: int) -> dict:
+    """Phase 14: training at scale, in two processes of their own: 14a
+    (``scale_phases``), then 14c and 14b (``scale_dp_phases``: the NCCL
+    group stays in that process). Returns both results."""
+    res = _child("scale_phases()", "phase 14a", 600)
+    torch.cuda.empty_cache()
+    res.update(_child(f"scale_dp_phases({workers})", "phases 14b-14c", 600))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
@@ -4034,6 +4426,8 @@ def main() -> int:
     res12 = phase_variants(nc_data, 4, args.workers)
     torch.cuda.empty_cache()
     res13 = phase_streaming(args.workers)
+    torch.cuda.empty_cache()
+    res14 = phase_scale(args.workers)
     if FAILURES:
         print(smi)
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
@@ -4051,6 +4445,11 @@ def main() -> int:
     # the eval CLI on a user's exp file
     paths["stream_detect"] = res13.get("stream_detect")
     paths["stream_cli_batch"] = res13.get("cli_batch")
+    # phase 14: a step of ncaltech_syolox_m with remat (each site's forward
+    # again in the recompute), of gen1_syolox_m with an NCCL group and with
+    # the capturable SGD (the wrappers, from zeroed counts)
+    for p in ("remat_step", "dp_step", "sgd_step"):
+        paths[p] = res14.get(p)
     neck_head = dict(res11.get("eval_sites", {}),
                      **res11.get("train_sites", {}))
     b1 = res13.get("b1_kernels", {})
@@ -4083,7 +4482,9 @@ def main() -> int:
           "full_spike_v2 and full_spike paths, a step of phase 12a's "
           "e_yolox_m through the train CLI and a batch through the eval CLI "
           "(by the wrappers, from zeroed counts), one streaming detection "
-          "and a batch of the eval CLI on a user exp file (phase 13); "
+          "and a batch of the eval CLI on a user exp file (phase 13), a "
+          "remat step of ncaltech_syolox_m (phase 14a: 100 + 50), a step "
+          "with an NCCL group and one with the capturable SGD (14b, 14c); "
           "neck_head: the sums over "
           "the neck and head sites of the full_spike_v2 forward (rows 1-3) "
           "and step (rows 7, 8), phase 11a; b1: the sums over the sites of "

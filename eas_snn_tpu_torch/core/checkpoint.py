@@ -7,9 +7,10 @@ state dict (parameters and BN buffers), the EMA parameters, the
 optimizer's state dict (its update count included), the step and the best
 AP so far. ``CheckpointManager`` writes ``ckpt_<step>.pth`` files and keeps
 the newest three, and ``best.pth`` beside them when asked (JAX
-``core/checkpoint.py:35-56``). ``eval_state_dict`` reads the weights to
-evaluate from a checkpoint (its EMA where it has one) or from a reference
-``.pth``.
+``core/checkpoint.py:35-56``). In a data-parallel run only rank 0 writes
+(every process holds the same state); every process can restore.
+``eval_state_dict`` reads the weights to evaluate from a checkpoint (its
+EMA where it has one) or from a reference ``.pth``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from .. import parallel
 from ..utils.weights import load_reference_state_dict
 from .optim import load_optimizer_state
 
@@ -35,10 +37,13 @@ class CheckpointManager:
 
     def __init__(self, directory: str):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        if parallel.rank() == 0:
+            os.makedirs(self.directory, exist_ok=True)
 
     def steps(self) -> List[int]:
         """Steps with a checkpoint on disk, ascending."""
+        if not os.path.isdir(self.directory):
+            return []
         found = (_NAME.match(n) for n in os.listdir(self.directory))
         return sorted(int(m[1]) for m in found if m)
 
@@ -58,11 +63,13 @@ class CheckpointManager:
              ema: Optional[Dict[str, torch.Tensor]] = None,
              best_ap: float = 0.0, is_best: bool = False) -> str:
         """Write ``ckpt_<step>.pth`` (and the same payload as ``best.pth``
-        with ``is_best``); returns the step's path."""
+        with ``is_best``) on rank 0; returns the step's path."""
+        path = self.path(step)
+        if parallel.rank() != 0:
+            return path
         payload = {"model": model.state_dict(),
                    "optimizer": optimizer.state_dict(),
                    "ema": ema, "step": int(step), "best_ap": float(best_ap)}
-        path = self.path(step)
         for dst in (path, self.best_path) if is_best else (path,):
             tmp = dst + ".tmp"
             torch.save(payload, tmp)

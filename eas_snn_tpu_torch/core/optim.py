@@ -3,7 +3,8 @@ policy (counterpart of ``eas_snn_tpu/core/optim.py``; reference
 yolox/exp/event_yolox_base.py:353-416, yolox/utils/lr_scheduler.py).
 
 Schedules are plain Python functions of the update count. The optimizer
-is ``torch.optim.Adam`` (or SGD with Nesterov momentum) over three groups:
+is ``torch.optim.Adam`` (or :class:`SGD`, Nesterov momentum) over three
+groups:
 conv kernels outside BN and outside the embedding, which take the weight
 decay (coupled into the gradient, torch's and the JAX package's rule);
 every other parameter outside the embedding; and the embedding, whose
@@ -13,14 +14,13 @@ after its first step). Update t (counted from 0) uses schedule(t); the
 count is each group's ``"updates"`` entry, a host integer, so it travels
 with ``state_dict()``.
 
-On a CUDA device Adam is built capturable (foreach, its step counts and
-bias corrections on the device) and each group's ``lr`` is a 0-d f32
-tensor on the device that ``set_learning_rate`` fills in place before the
-step: the step can then be captured in a CUDA graph
-(``train_state.CapturedStep``), the counterpart of the JAX package
-evaluating its schedule inside the jitted update. On the CPU, and for SGD
-(torch's SGD reads a tensor lr on the host, which a graph cannot
-capture), lr stays a Python float.
+On a CUDA device the optimizer is built capturable (Adam: foreach, its
+step counts and bias corrections on the device; :class:`SGD` always) and
+each group's ``lr`` is a 0-d f32 tensor on the device that
+``set_learning_rate`` fills in place before the step: the step can then
+be captured in a CUDA graph (``train_state.CapturedStep``), the
+counterpart of the JAX package evaluating its schedule inside the jitted
+update. On the CPU Adam's lr stays a Python float.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import torch
 import torch.nn as nn
 
 __all__ = ["build_lr_schedule", "build_optimizer", "set_learning_rate",
-           "updates", "learning_rate", "load_optimizer_state"]
+           "updates", "learning_rate", "load_optimizer_state", "SGD"]
 
 
 def build_lr_schedule(
@@ -106,6 +106,51 @@ def build_lr_schedule(
     return sched
 
 
+class SGD(torch.optim.Optimizer):
+    """SGD with Nesterov momentum and coupled weight decay whose lr is a
+    0-d tensor a group, on the parameters' device: capturable in a CUDA
+    graph, where ``torch.optim.SGD`` reads a tensor lr on the host. Its
+    arithmetic is ``torch.optim.SGD``'s (``nesterov=True``, no dampening)
+    op for op, the last as torch's SGD takes a tensor lr (``addcmul`` with
+    value -1), which gives the bits of its float-lr update; the momentum
+    buffer of the first step is the gradient itself, as in torch's. The
+    JAX package's ``optax.trace(nesterov=True)`` and
+    ``scale_by_learning_rate`` compute the same update."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.9,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      weight_decay=weight_decay,
+                                      capturable=True))
+        for g in self.param_groups:
+            if not isinstance(g["lr"], torch.Tensor):
+                dev = g["params"][0].device
+                g["lr"] = torch.full((), float(g["lr"]), dtype=torch.float32,
+                                     device=dev)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for g in self.param_groups:
+            params = [p for p in g["params"] if p.grad is not None]
+            if not params:
+                continue
+            d = [p.grad for p in params]
+            if g["weight_decay"] != 0:
+                d = torch._foreach_add(d, params, alpha=g["weight_decay"])
+            states = [self.state[p] for p in params]
+            if "momentum_buffer" not in states[0]:
+                bufs = [x.detach().clone() for x in d]
+                for st, b in zip(states, bufs):
+                    st["momentum_buffer"] = b
+            else:
+                bufs = [st["momentum_buffer"] for st in states]
+                torch._foreach_mul_(bufs, g["momentum"])
+                torch._foreach_add_(bufs, d, alpha=1.0)
+            d = torch._foreach_add(d, bufs, alpha=g["momentum"])
+            lr = g["lr"]
+            torch._foreach_addcmul_(params, d, [lr] * len(params), value=-1)
+
+
 def _groups(model: nn.Module):
     """(decay, no_decay, embedding) parameter lists: decay holds the conv
     kernels outside BN and outside ``model.embedding``."""
@@ -128,10 +173,11 @@ def build_optimizer(model: nn.Module, lr_schedule: Callable[[int], float],
                     optimizer: str = "ADAM", weight_decay: float = 0.0,
                     momentum: float = 0.9, emb_lr: float = -1.0,
                     base_lr: float = 1e-3) -> torch.optim.Optimizer:
-    """Adam (default) or SGD(nesterov) with the reference's groups. The
-    schedule rides on the optimizer as ``lr_schedule``; each group's
-    ``lr_scale`` multiplies it. Adam on a CUDA device is capturable, with
-    a 0-d device tensor lr a group."""
+    """Adam (default) or :class:`SGD` (Nesterov) with the reference's
+    groups. The schedule rides on the optimizer as ``lr_schedule``; each
+    group's ``lr_scale`` multiplies it. On a CUDA device both are
+    capturable, with a 0-d device tensor lr a group (SGD's lr is one on
+    the CPU too)."""
     emb_scale = emb_lr / base_lr if emb_lr > 0 else 1.0
     decay, no_decay, emb = _groups(model)
     groups = [
@@ -152,8 +198,9 @@ def build_optimizer(model: nn.Module, lr_schedule: Callable[[int], float],
     elif optimizer.upper() == "ADAM":
         opt = torch.optim.Adam(groups, lr=lr0, betas=(0.9, 0.999), eps=1e-8)
     else:
-        opt = torch.optim.SGD(groups, lr=lr0, momentum=momentum,
-                              nesterov=True)
+        for g in groups:
+            g["lr"] = lr0 * g["lr_scale"]
+        opt = SGD(groups, lr=lr0, momentum=momentum)
     opt.lr_schedule = lr_schedule
     return opt
 

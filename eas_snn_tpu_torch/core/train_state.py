@@ -12,6 +12,16 @@ and the path every parity test uses. ``CapturedStep`` runs the same step
 as one CUDA graph a batch geometry, the counterpart of the JAX package's
 jitted, donated ``train_step``: the host only fills the lr and EMA decay
 scalars, copies the batch in and replays.
+
+With a process group (``parallel``: data parallelism, one process a card)
+both run the JAX package's global-batch step: the BN statistics and
+SimOTA's counts are the global batch's (``models/blocks.py``,
+``models/simota.py``), and between the backward and the update every
+gradient and loss term is summed over the group in one flat buffer
+(:func:`reduce_gradients`), so every process applies the same update.
+:func:`broadcast_state` gives every process rank 0's state before the
+first step. Captured, the collectives are part of the graph; the eager
+warm-up steps create the group's communicator before the capture.
 """
 
 from __future__ import annotations
@@ -24,10 +34,12 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call
 
+from .. import parallel
 from .optim import set_learning_rate, updates
 
 __all__ = ["init_ema", "ema_terms", "ema_apply", "ema_update",
-           "optimizer_update", "train_step", "eval_step", "CapturedStep"]
+           "optimizer_update", "reduce_gradients", "broadcast_state",
+           "train_step", "eval_step", "CapturedStep"]
 
 EMA_DECAY = 0.9998
 
@@ -82,6 +94,43 @@ def optimizer_update(model: nn.Module, optimizer: torch.optim.Optimizer,
         ema_update(ema, model, t + 1)
 
 
+# the loss terms that are sums over the batch (num_fg is a ratio of the
+# global counts already)
+_SUMMED_LOSSES = ("total_loss", "iou_loss", "conf_loss", "cls_loss",
+                  "l1_loss")
+
+
+def reduce_gradients(model: nn.Module, losses: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """With a process group: every parameter's gradient and the detached
+    loss terms summed over the group, in one all-reduce of one flat f32
+    buffer (each process's loss is its share of the global batch's, so
+    the sums are the global batch's gradient and losses). Returns the
+    loss dict with the summed terms. Without a group: ``losses`` as it
+    is."""
+    if not parallel.is_initialized():
+        return losses
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    names = [k for k in losses if k in _SUMMED_LOSSES]
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [torch.stack([losses[k].float() for k in names])])
+    parts = parallel.all_reduce_sum_(flat).split(
+        [g.numel() for g in grads] + [len(names)])
+    with torch.no_grad():
+        for g, v in zip(grads, parts):
+            g.copy_(v.view_as(g))
+    return dict(losses, **dict(zip(names, parts[-1].unbind())))
+
+
+@torch.no_grad()
+def broadcast_state(model: nn.Module,
+                    ema: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """Rank 0's parameters, buffers and EMA on every process of the group
+    (nothing without one): the start of data-parallel training."""
+    parallel.broadcast_(list(model.parameters()) + list(model.buffers())
+                        + (list(ema.values()) if ema is not None else []))
+
+
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                ema: Optional[Dict[str, torch.Tensor]], events: torch.Tensor,
                targets: torch.Tensor, use_l1: bool = False,
@@ -92,8 +141,9 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     optimizer.zero_grad(set_to_none=True)
     losses = model(events, targets, use_l1=use_l1)
     losses["total_loss"].backward()
+    losses = reduce_gradients(model, {k: v.detach()
+                                      for k, v in losses.items()})
     optimizer_update(model, optimizer, ema)
-    losses = {k: v.detach() for k, v in losses.items()}
     return {k: float(v) for k, v in losses.items()} if to_host else losses
 
 
@@ -125,7 +175,10 @@ class CapturedStep:
     backward, the optimizer step and the EMA, then replays; every later
     step copies the batch into the static inputs, fills the lr and decay
     scalars on the host and replays. A capture that fails raises: nothing
-    runs the eager step in its place.
+    runs the eager step in its place. With a process group the graph holds
+    the step's collectives (``reduce_gradients``, the BN sites', SimOTA's):
+    the group's communicator exists before the capture, since the eager
+    warm-up steps ran the same collectives on the capturing stream.
 
     All graphs of one ``CapturedStep`` share one memory pool, so that
     multiscale sizes do not each hold a step's activations. That is safe
@@ -171,10 +224,10 @@ class CapturedStep:
         if not all(g.get("capturable") and isinstance(g["lr"], torch.Tensor)
                    for g in optimizer.param_groups):
             raise NotImplementedError(
-                "CapturedStep: the optimizer must be torch's capturable Adam "
-                "with a device-tensor lr a group (build_optimizer's ADAM on "
-                "a CUDA device); torch's SGD reads its lr on the host, "
-                "which a CUDA graph cannot capture (ROADMAP.md §1 item 7)")
+                "CapturedStep: the optimizer must be capturable, with a "
+                "device-tensor lr a group (build_optimizer's Adam or SGD on "
+                "a CUDA device): a CUDA graph cannot capture an lr read on "
+                "the host")
         self.model, self.optimizer, self.ema = model, optimizer, ema
         self.device = dev
         self.stream = torch.cuda.Stream(dev)
@@ -226,11 +279,12 @@ class CapturedStep:
             self.optimizer.zero_grad(set_to_none=True)
             losses = self.model(g.events, g.targets, use_l1=use_l1)
             losses["total_loss"].backward()
+            losses = reduce_gradients(self.model, {
+                k: v.detach() for k, v in losses.items()})
             self.optimizer.step()
             if self.ema is not None:
                 ema_apply(self.ema, self.model, self._d, self._one_minus_d)
-            g.out.copy_(torch.stack([losses[k].detach().float()
-                                     for k in g.names]))
+            g.out.copy_(torch.stack([losses[k].float() for k in g.names]))
         cur.wait_stream(self.stream)
         self._graphs[key] = g
         return g

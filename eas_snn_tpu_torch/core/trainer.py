@@ -28,9 +28,21 @@ AP also writes ``best.pth``.
 instead: a re-iterable (a list) is walked again when it runs out, a
 one-shot iterable ends the training.
 
+Data parallel (a process group started by ``parallel``, one process a
+card): ``args.batch_size`` is the global batch, and each process loads its
+rank-strided ``batch_size / world_size`` samples a step, as the JAX
+trainer feeds its jitted step one global batch of ``-b`` rows sharded
+over the mesh; the schedule's lr is that of the global batch. Every
+process builds the seeded model, then takes rank 0's state
+(``broadcast_state``), steps on the global-batch step
+(``core/train_state.py``) and takes the same seeded multiscale sizes; the
+evaluation runs each process's share of the val split and gathers the
+rows (``evaluators/event_evaluator.py:_allgather_rows``). Only rank 0
+makes the run directory, logs at INFO, writes the metrics and saves
+checkpoints (JAX ``core/trainer.py:65-77``).
+
 Not here yet: the prediction images of the first eval batch (JAX
-``_log_pred_images``) and multi-process training (ROADMAP.md §1 items 7
-and 10).
+``_log_pred_images``, ROADMAP.md §1 item 7).
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from ..data.loader import DevicePrefetcher
 from ..data.reps import bin_event_batch
 from ..evaluators.energy import conv_macs_per_frame
@@ -58,7 +71,8 @@ from ..utils.tracking import MetricsTracker
 from ..utils.weights import load_reference_state_dict
 from .checkpoint import CheckpointManager, load_partial_params
 from .optim import learning_rate, updates
-from .train_state import CapturedStep, init_ema, train_step
+from .train_state import (CapturedStep, broadcast_state, init_ema,
+                          train_step)
 
 __all__ = ["Trainer", "multiscale_resize"]
 
@@ -108,14 +122,17 @@ class Trainer:
         self.exp = exp
         self.args = args if args is not None else argparse.Namespace()
         self.device = resolve_device(device)
+        self.rank = parallel.rank()
+        self.world_size = parallel.world_size()
         self.iters_per_epoch = iters_per_epoch
         self.max_epoch = exp.max_epoch
         self.meter = MeterBuffer(window_size=exp.print_interval)
         self.file_name = os.path.join(
             exp.output_dir,
             getattr(self.args, "experiment_name", None) or exp.exp_name)
-        os.makedirs(self.file_name, exist_ok=True)
-        self.logger = setup_logger(self.file_name)
+        if self.rank == 0:
+            os.makedirs(self.file_name, exist_ok=True)
+        self.logger = setup_logger(self.file_name, self.rank)
         # without command-line args only the JSONL file: 'auto' would
         # start every importable backend, wandb included
         self.tracker = MetricsTracker(
@@ -123,7 +140,8 @@ class Trainer:
             backend=getattr(self.args, "logger", None) or "jsonl",
             run_config={k: v for k, v in vars(exp).items()
                         if isinstance(v, (int, float, str, bool,
-                                          type(None)))})
+                                          type(None)))},
+            enabled=self.rank == 0)
         self.use_l1 = False
         self.best_ap = 0.0
         self.epoch = self.start_epoch = 0
@@ -157,15 +175,18 @@ class Trainer:
             if not batch_size:
                 raise ValueError("Trainer.train() reads the exp's data "
                                  "loader: args.batch_size is needed")
+            if batch_size % self.world_size:
+                raise ValueError(f"the global batch {batch_size} does not "
+                                 f"split over {self.world_size} processes")
             self.train_loader = exp.get_data_loader(
-                batch_size=batch_size, training=True,
+                batch_size=batch_size // self.world_size, training=True,
                 pin_memory=self.device.type == "cuda")
             n_batches = max(len(self.train_loader.dataset) // batch_size, 1)
             source = ((b[0], b[1]) for b in self.train_loader)
         else:
             it = iter(_cycle(batches))
             first = next(it)
-            batch_size = int(first[0].shape[0])
+            batch_size = int(first[0].shape[0]) * self.world_size
             n_batches = len(batches) if hasattr(batches, "__len__") else None
             source = itertools.chain([first], it)
         # JAX trainer.py:116-118: the exp's count, else a pass over the data
@@ -201,6 +222,7 @@ class Trainer:
                         self.ema[n].copy_(p)
             self.logger.info("fine-tune init from %s: %s", args.ckpt, report)
             self.finetune_report = report
+        broadcast_state(self.model, self.ema)
         if self.device.type == "cuda":
             self.step_fn = CapturedStep(self.model, self.optimizer, self.ema)
         else:
@@ -226,8 +248,9 @@ class Trainer:
         self.logger.info("model: %.2f conv GFLOPs/frame",
                          self._flops_per_frame / 1e9)
         self.logger.info(
-            "training %s on %s: batch %d, %d iters/epoch, epochs %d-%d, "
-            "step %s", exp.exp_name, self.device, batch_size,
+            "training %s on %s: batch %d (%d a process, %d processes), %d "
+            "iters/epoch, epochs %d-%d, step %s", exp.exp_name, self.device,
+            batch_size, batch_size // self.world_size, self.world_size,
             self.iters_per_epoch, self.start_epoch + 1, self.max_epoch,
             "captured as CUDA graphs" if isinstance(
                 self.step_fn, CapturedStep) else "eager")
@@ -345,7 +368,7 @@ class Trainer:
                 or it_s <= 0:
             return ""
         mfu = 3.0 * self._flops_per_frame * self.batch_size / it_s \
-            / PEAK_FLOPS
+            / PEAK_FLOPS / self.world_size
         return f"mfu (conv-only lower bound): {100 * mfu:.1f}%, "
 
     def after_epoch(self) -> None:
@@ -378,7 +401,7 @@ class Trainer:
         checkpoint then also writes ``best.pth``)."""
         if self.evaluator is None:
             self.evaluator = self.exp.get_evaluator(
-                batch_size=self.batch_size)
+                batch_size=self.batch_size // self.world_size)
         ap, ap50, summary = self.exp.eval(self._refresh_eval_model(),
                                           self.evaluator)
         update_best = ap > self.best_ap

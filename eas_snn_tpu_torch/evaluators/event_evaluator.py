@@ -40,8 +40,9 @@ ForwardFn = Callable[[torch.Tensor], np.ndarray]
 
 
 def _allgather_rows(rows: np.ndarray) -> np.ndarray:
-    """Rows of every process of the default group, in rank order; the
-    identity when no process group is initialized. All-gather needs one
+    """Rows of every process of the default group, in rank order (a group
+    of one gathers too); the identity when no process group is
+    initialized. All-gather needs one
     shape on every process, so the counts are gathered first, each
     process's rows padded to the largest count, gathered, and the padding
     stripped."""
@@ -50,8 +51,6 @@ def _allgather_rows(rows: np.ndarray) -> np.ndarray:
     if not (dist.is_available() and dist.is_initialized()):
         return rows
     world = dist.get_world_size()
-    if world == 1:
-        return rows
     dev = (torch.device("cuda", torch.cuda.current_device())
            if dist.get_backend() == "nccl" else torch.device("cpu"))
     n = torch.tensor([len(rows)], dtype=torch.int64, device=dev)

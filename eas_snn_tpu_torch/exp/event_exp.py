@@ -23,6 +23,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..core.optim import build_lr_schedule, build_optimizer
 from ..models import EASYOLOX
 from ..ops.boxes import postprocess
@@ -98,6 +99,9 @@ class EventExp(BaseExp):
         # 'never' | 'auto' | 'always': the fused sampler kernels (the JAX
         # use_pallas; models/embedding.py)
         self.fused_sampler = "never"
+        # recompute the backbone's and the neck's blocks (and the sampler
+        # scan's steps) in the backward: train memory for compute
+        self.remat = False
         # data (reference event_yolox_base.py:61-79); the loader's workers
         # are processes (the JAX data_worker_mode has no counterpart)
         self.data_name = "n-caltech"
@@ -183,6 +187,7 @@ class EventExp(BaseExp):
             compute_dtype=_DTYPES[self.compute_dtype],
             embedding_state_dtype=None if state_dt is None else _DTYPES[state_dt],
             fuse=self.conv_plif_fuse, fused_sampler=self.fused_sampler,
+            remat=self.remat,
         )
         model.reset_parameters(torch.Generator().manual_seed(seed))
         # a 'neuron' patan alpha takes its shape from the input size
@@ -195,6 +200,8 @@ class EventExp(BaseExp):
         return detect(model, events, self.test_conf, self.nmsthre)
 
     def get_lr_schedule(self, batch_size: int, iters_per_epoch: int):
+        """The schedule at ``basic_lr_per_img`` times ``batch_size``, the
+        global batch of a step (every process's samples together)."""
         return build_lr_schedule(
             self.scheduler, self.basic_lr_per_img * batch_size,
             iters_per_epoch, self.max_epoch,
@@ -238,16 +245,17 @@ class EventExp(BaseExp):
     def get_data_loader(self, batch_size: int, training: bool = True,
                         map_val: bool = False, seed: int = 0,
                         pin_memory: bool = False):
-        """Training batches (infinite, shuffled) or one ordered pass. One
-        process: rank 0 of 1 until the distributed slice (ROADMAP.md §1
-        item 10)."""
+        """Training batches (infinite, shuffled) or one ordered pass, of
+        ``batch_size`` samples each: this process's rank-strided share of
+        the indices when a process group is started (``parallel``)."""
         from ..data import EventDataLoader
 
         return EventDataLoader(
             self.get_dataset(training=training, map_val=map_val),
             batch_size=batch_size, shuffle=training, infinite=training,
             num_workers=self.data_num_workers, seed=self.seed or seed,
-            rank=0, world_size=1, pin_memory=pin_memory)
+            rank=parallel.rank(), world_size=parallel.world_size(),
+            pin_memory=pin_memory)
 
     def get_evaluator(self, batch_size: int, testdev: bool = False):
         """The COCO-protocol evaluator over the map_val loader; the

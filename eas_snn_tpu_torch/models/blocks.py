@@ -13,12 +13,16 @@ module branches on ``self.training``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+from torch.utils.weak import WeakTensorKeyDictionary
 
+from .. import parallel
 from ..ops.conv_plif import (
     conv1x1_plif, conv3x3_plif, conv3x3s2_plif, fold_bn, fold_conv1x1,
     fold_conv3x3,
@@ -30,7 +34,8 @@ from ..ops.surrogate import asgl_spike
 
 __all__ = [
     "Neuron", "BatchNorm", "PLIF", "BaseConv", "Bottleneck", "SPPBottleneck",
-    "CSPLayer", "Focus", "spp_pools", "upsample2x",
+    "CSPLayer", "Focus", "spp_pools", "upsample2x", "remat",
+    "int8_saved_spikes", "is_spike_train",
 ]
 
 Pieces = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
@@ -88,13 +93,27 @@ class _BatchStats(torch.autograd.Function):
     """Per-channel mean and biased variance of an NCHW x in f32, flax's fast
     variance: var = max(0, E[x^2] - E[x]^2). The backward recomputes from
     x, which is saved in its own dtype (an f32 copy of every conv output
-    would cost ~5 GB at the flagship's B=64)."""
+    would cost ~5 GB at the flagship's B=64).
+
+    With a process group (``parallel``) the statistics are the global
+    batch's, as under the JAX package's data-parallel jit: each process
+    weights its E[x] and E[x^2] by its share of the global batch and one
+    all-reduce a site sums them; the backward sums the statistics'
+    gradients over the group the same way before it forms dx with the
+    global count. The share of a group of one is 1.0, so such a group
+    gives the bits of no group."""
 
     @staticmethod
     def forward(ctx, x):
         xf = x.float()
         mean = xf.mean((0, 2, 3))
-        z = (xf * xf).mean((0, 2, 3)) - mean * mean
+        msq = (xf * xf).mean((0, 2, 3))
+        if parallel.is_initialized():
+            # every process steps on as many samples (the JAX mesh shards
+            # the batch evenly): its share is 1 / world_size
+            both = torch.cat([mean, msq]) * (1.0 / parallel.world_size())
+            mean, msq = parallel.all_reduce_sum_(both).chunk(2)
+        z = msq - mean * mean
         ctx.save_for_backward(x, mean, z)
         return mean, torch.clamp_min(z, 0.0)
 
@@ -102,12 +121,100 @@ class _BatchStats(torch.autograd.Function):
     def backward(ctx, g_mean, g_var):
         x, mean, z = ctx.saved_tensors
         n = x.numel() // x.shape[1]
+        if parallel.is_initialized():
+            both = parallel.all_reduce_sum_(torch.cat([g_mean, g_var]))
+            g_mean, g_var = both.chunk(2)
+            n = n * parallel.world_size()
         # d max(0, z) / dz: 1 above 0, 1/2 at 0 (JAX's tie rule), 0 below
         g_z = g_var * ((z > 0).float() + 0.5 * (z == 0).float())
         g_m = g_mean - 2.0 * mean * g_z
         shp = (1, -1, 1, 1)
         dx = (g_m / n).reshape(shp) + (2.0 * g_z / n).reshape(shp) * x.float()
         return dx.to(x.dtype)
+
+
+# True while torch.utils.checkpoint recomputes a block (``remat``)
+_RECOMPUTING = [False]
+
+
+@contextlib.contextmanager
+def _recomputing():
+    prev, _RECOMPUTING[0] = _RECOMPUTING[0], True
+    try:
+        yield
+    finally:
+        _RECOMPUTING[0] = prev
+
+
+def _contexts():
+    return contextlib.nullcontext(), _recomputing()
+
+
+def remat(module: nn.Module, *xs: torch.Tensor) -> torch.Tensor:
+    """``module(x)`` (``module(xs)`` for a channel concat's pieces) with
+    its inner activations recomputed in the backward instead of kept: the
+    JAX package's block-granular ``nn.remat`` (``models/darknet.py:
+    29-46``). Only the inputs are saved. The recompute runs the block's
+    forward again (its PLIF kernels too) but moves no BN running
+    statistic (``BatchNorm.terms``), as ``nn.remat`` drops the
+    recomputed mutation. No RNG state is stashed: a block of a train step
+    draws no random numbers (patan at ``asgl_p > 0`` is the one that
+    would, and its model is refused by ``CapturedStep``), and stashing
+    would read the card's RNG state, which a CUDA graph capture refuses.
+    Outside training, or without autograd, the module runs as it is."""
+    if not (module.training and torch.is_grad_enabled()):
+        return module(xs if len(xs) > 1 else xs[0])
+    return checkpoint(_call, module, *xs, use_reentrant=False,
+                      preserve_rng_state=False, context_fn=_contexts)
+
+
+def _call(module: nn.Module, *xs: torch.Tensor) -> torch.Tensor:
+    return module(xs if len(xs) > 1 else xs[0])
+
+
+# The spike trains of the train forward: PLIF outputs and channel concats
+# of them, by identity. Their values are exactly 0 and 1.
+_SPIKE_TRAINS = WeakTensorKeyDictionary()
+
+
+def _mark_spikes(t: torch.Tensor) -> torch.Tensor:
+    _SPIKE_TRAINS[t] = True
+    return t
+
+
+def is_spike_train(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a spike train of a train forward: the output of a
+    spiking site, or a channel concat of such outputs."""
+    return t in _SPIKE_TRAINS
+
+
+class int8_saved_spikes(torch.autograd.graph.saved_tensors_hooks):
+    """Within it, every spike train that autograd saves for the backward
+    (a conv's input, for its weight gradient; a block's input under
+    ``remat``) is held as int8 and turned back into its dtype when the
+    backward reads it: the JAX package's ``'view'`` train store
+    (``ops/plif_pallas.py:314-329``). Bit-lossless, since spikes are 0/1.
+    Only tensors known to be spike trains (``is_spike_train``) are packed,
+    and each once however many ops save it: ``saves`` counts the saves
+    held as int8, ``trains`` the distinct spike trains."""
+
+    def __init__(self):
+        self.packed = WeakTensorKeyDictionary()
+        self.saves = self.trains = 0
+        super().__init__(self._pack, self._unpack)
+
+    def _pack(self, t: torch.Tensor):
+        if t.dtype == torch.int8 or not is_spike_train(t):
+            return t
+        self.saves += 1
+        if t not in self.packed:
+            self.trains += 1
+            self.packed[t] = (t.to(torch.int8), t.dtype)
+        return self.packed[t]
+
+    @staticmethod
+    def _unpack(p):
+        return p[0].to(p[1]) if isinstance(p, tuple) else p
 
 
 class BatchNorm(_KeptConstant, nn.BatchNorm2d):
@@ -144,15 +251,19 @@ class BatchNorm(_KeptConstant, nn.BatchNorm2d):
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(mean, mul, bias) for the NCHW ``x``: the running statistics' at
         eval; in training the batch statistics' (differentiable), and the
-        running statistics are updated."""
+        running statistics are updated (not by a ``remat`` recompute).
+        With a process group the batch statistics are the global
+        batch's (``_BatchStats``)."""
         if not self.training:
             return self.eval_terms()
         mean, var = _BatchStats.apply(x)
-        with torch.no_grad():
-            m = _FLAX_MOMENTUM
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
-            self.num_batches_tracked += 1
+        if not _RECOMPUTING[0]:  # a remat recompute moves nothing
+            with torch.no_grad():
+                m = _FLAX_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                self.num_batches_tracked += 1
         return mean, torch.rsqrt(var + self.eps) * self.weight, self.bias
 
     def forward(self, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
@@ -227,14 +338,14 @@ class PLIF(_KeptConstant, nn.Module):
                         "model is built (EASYOLOX.materialize_alpha); "
                         "this site has none")
                 self.materialize_alpha(x.shape[1:])
-            return self._asgl_scan(x, bn)
+            return _mark_spikes(self._asgl_scan(x, bn))
         if bn is None:
             C = x.shape[1]
             bn = tuple(torch.full((C,), v, device=x.device)
                        for v in (0.0, 1.0, 0.0))
         a = 1.0 - torch.sigmoid(self.w.float())
-        return plif_train(x, self.T, a, *bn, self.thresh, self.spike_fn,
-                          self.alpha)
+        return _mark_spikes(plif_train(x, self.T, a, *bn, self.thresh,
+                                       self.spike_fn, self.alpha))
 
     def _asgl_scan(self, x: torch.Tensor, bn) -> torch.Tensor:
         """Training with patan: the BN normalize as the unfused path does
@@ -323,6 +434,8 @@ class BaseConv(nn.Module):
                       w, n.thresh, kind)
         x = torch.cat([p.to(self.dtype) for p in pieces], 1) \
             if len(pieces) > 1 else pieces[0].to(self.dtype)
+        if len(pieces) > 1 and all(map(is_spike_train, pieces)):
+            _mark_spikes(x)
         y = F.conv2d(x, self.weight.to(self.dtype), stride=self.stride,
                      padding=(self.ksize - 1) // 2)
         if self.neuron.spiking:

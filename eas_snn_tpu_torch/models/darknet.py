@@ -4,6 +4,12 @@ reference yolox/models/darknet.py:97-180), NCHW.
 The Focus stem is always analog: the reference's convert_to_spiking wraps
 it whole in a SeqToANNContainer (hence ``stem.0``) without converting its
 activation. dark2..dark5 are spiking when the neuron config says so.
+
+With ``remat`` (JAX ``CSPDarknet.remat``, ``models/darknet.py:29-46``)
+every block of every stage, the Focus stem, each stage conv, CSP layer
+and SPP, recomputes its inner activations in the backward
+(``blocks.remat``): the backward holds one block's activations at a time
+beside the blocks' inputs.
 """
 
 from __future__ import annotations
@@ -13,7 +19,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn as nn
 
-from .blocks import BaseConv, CSPLayer, Focus, Neuron, SPPBottleneck
+from .blocks import BaseConv, CSPLayer, Focus, Neuron, SPPBottleneck, remat
 
 __all__ = ["CSPDarknet"]
 
@@ -22,9 +28,10 @@ class CSPDarknet(nn.Module):
     def __init__(self, dep_mul: float, wid_mul: float, in_channels: int = 2,
                  out_features: Tuple[str, ...] = ("dark3", "dark4", "dark5"),
                  act: str = "silu", neuron: Neuron = Neuron(),
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat: bool = False):
         super().__init__()
         self.out_features = out_features
+        self.remat = remat
         base = int(wid_mul * 64)
         depth = max(round(dep_mul * 3), 1)
         kw = dict(act=act, neuron=neuron, dtype=dtype)
@@ -47,6 +54,11 @@ class CSPDarknet(nn.Module):
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         outputs = {}
         for name in ("stem", "dark2", "dark3", "dark4", "dark5"):
-            x = getattr(self, name)(x)
+            stage = getattr(self, name)
+            if self.remat:
+                for block in stage:
+                    x = remat(block, x)
+            else:
+                x = stage(x)
             outputs[name] = x
         return {k: v for k, v in outputs.items() if k in self.out_features}

@@ -238,8 +238,9 @@ class ARSNNEmbedding(nn.Module):
                  thresh: float = 1.0, vreset: Optional[float] = 0.0,
                  dtype: Optional[torch.dtype] = None,
                  state_dtype: Optional[torch.dtype] = None,
-                 fused_sampler: str = "never"):
+                 fused_sampler: str = "never", remat: bool = False):
         super().__init__()
+        self.remat = remat
         if fused_sampler not in FUSED_SAMPLER_MODES:
             raise ValueError(f"fused_sampler '{fused_sampler}' not in "
                              f"{FUSED_SAMPLER_MODES}")
@@ -312,7 +313,8 @@ class ARSNNEmbedding(nn.Module):
         elif route == "v1":
             agg = arsnn_scan_fused(ev, *convs, **kw)
         else:
-            agg = arsnn_scan(ev, *convs, spike_fn=self.spike_fn, **kw)
+            agg = arsnn_scan(ev, *convs, spike_fn=self.spike_fn,
+                             remat=self.remat, **kw)
         return agg.to(in_dtype)
 
 
@@ -323,11 +325,13 @@ def build_embedding(name: str, *, dtype: Optional[torch.dtype] = None,
                     split: bool = False, thresh: float = 1.0,
                     vreset: Optional[float] = 0.0, decay: float = 0.5,
                     state_dtype: Optional[torch.dtype] = None,
-                    fused_sampler: str = "never") -> nn.Module:
+                    fused_sampler: str = "never",
+                    remat: bool = False) -> nn.Module:
     """The embedding ``name`` (JAX ``build_embedding``; reference
     embedding_dict, event_yolox_base.py:166-177). ``dtype``, the state
     dtype and the fused sampler concern the arsnn sampler only, as in the
-    JAX package."""
+    JAX package; so does ``remat``, the per-step rematerialization of the
+    sampler's plain scan (JAX ``models/embedding.py:278, 319``)."""
     if name == "count":
         return SpikeCountEmbedding()
     if name == "snn":
@@ -342,5 +346,5 @@ def build_embedding(name: str, *, dtype: Optional[torch.dtype] = None,
             spike_attach=spike_attach, write_zero=write_zero,
             use_abs=use_abs, split=split, thresh=thresh, vreset=vreset,
             dtype=dtype, state_dtype=state_dtype,
-            fused_sampler=fused_sampler)
+            fused_sampler=fused_sampler, remat=remat)
     raise KeyError(f"unknown embedding '{name}'; one of {EMBEDDINGS}")

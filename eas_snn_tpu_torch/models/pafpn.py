@@ -8,6 +8,10 @@ in f32) before the neck (spiking_yolo_pafpn.py:98); a spiking neck takes
 the (T*B, ...) spike trains themselves (int8 at eval). The merges hand
 their CSP layer a tuple (a channel concat that only the unfused path
 materializes), so a fused 1x1 site reads the pieces directly.
+
+``remat`` goes to the backbone and makes every conv and CSP layer of the
+neck recompute its inner activations in the backward (JAX
+``models/pafpn.py:39-41, 68-71``; ``blocks.remat``).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn as nn
 
-from .blocks import BaseConv, CSPLayer, Neuron, upsample2x
+from .blocks import BaseConv, CSPLayer, Neuron, remat, upsample2x
 from .darknet import CSPDarknet
 
 __all__ = ["YOLOPAFPN", "rate_decode"]
@@ -33,13 +37,14 @@ class YOLOPAFPN(nn.Module):
                  in_features: Tuple[str, ...] = ("dark3", "dark4", "dark5"),
                  in_channels: Tuple[int, int, int] = (256, 512, 1024),
                  act: str = "silu", backbone_neuron: Neuron = Neuron(),
-                 neck_neuron: Neuron = Neuron(), dtype=torch.float32):
+                 neck_neuron: Neuron = Neuron(), dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.in_features = in_features
         self.backbone_neuron, self.neck_neuron = backbone_neuron, neck_neuron
         self.backbone = CSPDarknet(depth, width, out_features=in_features,
                                    act=act, neuron=backbone_neuron,
-                                   dtype=dtype)
+                                   dtype=dtype, remat=remat)
         c0, c1, c2 = (int(c * width) for c in in_channels)
         n = round(3 * depth)
         kw = dict(act=act, neuron=neck_neuron, dtype=dtype)
@@ -60,11 +65,17 @@ class YOLOPAFPN(nn.Module):
             features = [rate_decode(f, self.backbone_neuron.T)
                         for f in features]
         x2, x1, x0 = features
-        fpn_out0 = self.lateral_conv0(x0)
-        f_out0 = self.C3_p4((upsample2x(fpn_out0), x1))
-        fpn_out1 = self.reduce_conv1(f_out0)
-        pan_out2 = self.C3_p3((upsample2x(fpn_out1), x2))
-        pan_out1 = self.C3_n3((self.bu_conv2(pan_out2), fpn_out1))
-        pan_out0 = self.C3_n4((self.bu_conv1(pan_out1), fpn_out0))
+        run = self._block
+        fpn_out0 = run(self.lateral_conv0, x0)
+        f_out0 = run(self.C3_p4, upsample2x(fpn_out0), x1)
+        fpn_out1 = run(self.reduce_conv1, f_out0)
+        pan_out2 = run(self.C3_p3, upsample2x(fpn_out1), x2)
+        pan_out1 = run(self.C3_n3, run(self.bu_conv2, pan_out2), fpn_out1)
+        pan_out0 = run(self.C3_n4, run(self.bu_conv1, pan_out1), fpn_out0)
         outs = (pan_out2, pan_out1, pan_out0)
         return (outs, feats) if return_features else outs
+
+    def _block(self, module: nn.Module, *xs: torch.Tensor) -> torch.Tensor:
+        if self.backbone.remat:
+            return remat(module, *xs)
+        return module(xs if len(xs) > 1 else xs[0])

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import parallel
 from ..ops.boxes import iou_loss, pairwise_iou
 
 __all__ = ["simota_assign", "yolox_losses", "AssignResult", "LossOutput"]
@@ -172,7 +173,10 @@ def yolox_losses(outputs: torch.Tensor, origin_preds: Optional[torch.Tensor],
     5 + C): decoded boxes in image units, obj/cls logits; ``origin_preds``
     (B, A, 4) raw reg outputs (for L1); ``labels`` (B, M, 5) [cls, cx, cy,
     w, h] padded with zero rows; grid ``centers_*`` in cells, ``strides``
-    (A,). ``iou_loss`` is reported already weighted by 5."""
+    (A,). ``iou_loss`` is reported already weighted by 5. With a process
+    group the losses are divided by the global batch's foreground count
+    (``num_fg`` is the global batch's too), so that the group's losses sum
+    to the global batch's."""
     f32 = torch.float32
     outputs, labels = outputs.to(f32), labels.to(f32)
     bbox_preds, obj_preds = outputs[..., :4], outputs[..., 4:5]
@@ -187,8 +191,14 @@ def yolox_losses(outputs: torch.Tensor, origin_preds: Optional[torch.Tensor],
                            num_classes)
 
     fg = assign.fg_mask.to(f32)                                 # (B, A)
-    total_num_fg = torch.clamp_min(assign.num_fg.sum(), 1.0)
-    total_num_gt = torch.clamp_min(assign.num_gt.sum(), 1.0)
+    num_fg, num_gt = assign.num_fg.sum(), assign.num_gt.sum()
+    if parallel.is_initialized():
+        # the global batch's counts: each process's loss terms are then
+        # its share of the global loss (the gradients are summed)
+        num_fg, num_gt = parallel.all_reduce_sum_(
+            torch.stack([num_fg, num_gt])).unbind()
+    total_num_fg = torch.clamp_min(num_fg, 1.0)
+    total_num_gt = torch.clamp_min(num_gt, 1.0)
     idx = assign.matched_gt.to(torch.int64)
     reg_t = torch.gather(gt_boxes, 1, idx[..., None].expand(-1, -1, 4))
     cls_t = (_one_hot(torch.gather(gt_classes, 1, idx), num_classes)
@@ -215,4 +225,4 @@ def yolox_losses(outputs: torch.Tensor, origin_preds: Optional[torch.Tensor],
     reg_weight = 5.0
     total = reg_weight * loss_iou + loss_obj + loss_cls + loss_l1
     return LossOutput(total, reg_weight * loss_iou, loss_obj, loss_cls,
-                      loss_l1, assign.num_fg.sum() / total_num_gt)
+                      loss_l1, num_fg / total_num_gt)

@@ -21,10 +21,19 @@ decoded (B, A, 5 + num_classes) comes out, as in the JAX package; in
 training with targets (B, M, 5) the loss dict of the JAX package
 (total, iou (already x5), conf, cls, l1, num_fg), and without targets the
 head's decoded train outputs (obj/cls as logits).
+
+``remat`` (JAX ``EASYOLOX.remat``) recomputes the inner activations of
+every backbone and neck block in the backward, and of every step of the
+arsnn sampler's plain scan. ``train_store`` 'int8' (the default, as the
+JAX package's PLIF ``train_store``) holds the spike trains that a train
+step saves for its backward as int8 (``blocks.int8_saved_spikes``);
+'float' keeps them in the compute dtype. Neither changes a bit of the
+step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Dict, Optional, Sequence, Union
 
@@ -32,7 +41,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.lif import PLIF_W_INIT
-from .blocks import PLIF, BaseConv, BatchNorm, Neuron
+from .blocks import PLIF, BaseConv, BatchNorm, Neuron, int8_saved_spikes
 from .embedding import build_embedding
 from .head import YOLOXHead
 from .pafpn import YOLOPAFPN
@@ -62,11 +71,16 @@ class EASYOLOX(nn.Module):
                  decay: float = 0.5,
                  compute_dtype: torch.dtype = torch.float32,
                  embedding_state_dtype: Optional[torch.dtype] = None,
-                 fuse: str = "auto", fused_sampler: str = "never"):
+                 fuse: str = "auto", fused_sampler: str = "never",
+                 remat: bool = False, train_store: str = "int8"):
         super().__init__()
         if use_spike not in USE_SPIKE_MODES:
             raise ValueError(f"use_spike '{use_spike}' not in "
                              f"{USE_SPIKE_MODES}")
+        if train_store not in ("int8", "float"):
+            raise ValueError(f"train_store '{train_store}' is not 'int8' or "
+                             "'float'")
+        self.train_store = train_store
         self.use_spike, self.T, self.dtype = use_spike, T, compute_dtype
         # the sampler's convs run in bf16 when the model does (the JAX
         # package's emb_dt); its state dtype is a knob of its own
@@ -77,6 +91,7 @@ class EASYOLOX(nn.Module):
             thresh=thresh, vreset=vreset, decay=decay,
             dtype=compute_dtype if compute_dtype == torch.bfloat16 else None,
             state_dtype=embedding_state_dtype, fused_sampler=fused_sampler,
+            remat=remat,
         )
         # BatchNorm2d(2) after the embedding (reference
         # event_yolox_base.py:188-192), eps 1e-3, momentum 0.03
@@ -88,7 +103,7 @@ class EASYOLOX(nn.Module):
             depth, width, act=act,
             backbone_neuron=ann if use_spike == "none" else snn,
             neck_neuron=snn if use_spike in ("full", "full_v2") else ann,
-            dtype=compute_dtype)
+            dtype=compute_dtype, remat=remat)
         # the head takes (T*B) spike trains when the neck spikes
         self.head = YOLOXHead(
             num_classes, width, act=act, dtype=compute_dtype,
@@ -157,9 +172,23 @@ class EASYOLOX(nn.Module):
                              f"T={self.T}")
         return x.reshape((-1,) + tuple(x.shape[2:]))
 
+    def set_remat(self, on: bool) -> None:
+        """Turn ``remat`` on or off after the build (the values and
+        gradients of a step do not change)."""
+        self.backbone.backbone.remat = on
+        if hasattr(self.embedding, "remat"):
+            self.embedding.remat = on
+
     def forward(self, events: torch.Tensor,
                 targets: Optional[torch.Tensor] = None, use_l1: bool = False
                 ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
+        store = (int8_saved_spikes() if self.training
+                 and self.train_store == "int8" and self.use_spike != "none"
+                 and torch.is_grad_enabled() else contextlib.nullcontext())
+        with store:
+            return self._forward(events, targets, use_l1)
+
+    def _forward(self, events, targets, use_l1):
         # (Ts, B*Tl, C, H, W) from arsnn, (B*Tl, C, H, W) from the others
         x = self.embedding(events)
         if self.emb_bn is not None:

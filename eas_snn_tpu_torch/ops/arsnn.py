@@ -11,7 +11,9 @@ events (Tm, N, Cin, H, W) -> aggregation (Ts, N, C, H, W).
 Gradients flow as in the JAX scan: through the spike function's surrogate
 (the caller's ``spike_fn``), the gates, currents and readouts; the control
 masks come from the detached spike, and the int8 slot counters and
-last-spike times carry none.
+last-spike times carry none. With ``remat`` each micro-step keeps only its
+inputs for the backward, which recomputes the step's internals (the JAX
+scan's ``jax.checkpoint(step)``, ``eas_snn_tpu/ops/arsnn.py:182-188``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .arsnn_fused import sigmoid as _sigmoid_rounded
 from .lif import gated_lif_update
@@ -54,10 +57,12 @@ def arsnn_scan(
     spike_attach: bool = False,
     write_zero: bool = False,
     use_abs: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Run the sampler over a time-major (Tm, N, Cin, H, W) stack, already
     time-reversed by the caller. The state lives in ``events.dtype``.
-    Returns the (Ts, N, C, H, W) aggregation."""
+    Returns the (Ts, N, C, H, W) aggregation; ``remat`` recomputes each
+    micro-step in the backward."""
     if readout not in ("sum", "last", "avg"):
         raise NotImplementedError(f"readout '{readout}'")
     Tm, N = events.shape[:2]
@@ -76,12 +81,12 @@ def arsnn_scan(
     t_last = torch.full(shape, -1, dtype=torch.int8, device=dev)
     agg = torch.zeros((Ts,) + tuple(shape), dtype=dt, device=dev)
 
-    for t in range(Tm):
+    def step(t, vmem, spike, vavg, seg, t_last, agg, g_in, c_in):
         state = gate_conv_fn(spike)
         g_rec, c_rec = state[:, :C], state[:, C:]
-        gate = _gate(g_in_all[t] + g_rec)
+        gate = _gate(g_in + g_rec)
         vmem, v_noreset, spike = gated_lif_update(
-            vmem, gate, c_in_all[t] + c_rec, thresh, vreset, spike_fn)
+            vmem, gate, c_in + c_rec, thresh, vreset, spike_fn)
         vavg = vavg + v_noreset
         spiked = spike.detach() > 0.5
         valid = spiked & (seg < Ts)
@@ -99,6 +104,18 @@ def arsnn_scan(
         t_last = torch.where(valid, torch.full((), t, dtype=torch.int8,
                                                device=dev), t_last)
         vavg = torch.where(spiked, torch.zeros((), dtype=dt, device=dev), vavg)
+        return vmem, spike, vavg, seg, t_last, agg
+
+    carry = (vmem, spike, vavg, seg, t_last, agg)
+    for t in range(Tm):
+        xs = (g_in_all[t], c_in_all[t])
+        if remat and torch.is_grad_enabled():
+            # the step draws no random numbers: no RNG state to stash
+            carry = checkpoint(step, t, *carry, *xs, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            carry = step(t, *carry, *xs)
+    vmem, spike, vavg, seg, t_last, agg = carry
 
     # residual write for elements that never closed their last slot
     valid = (spike.detach() <= 0.5) & (seg < Ts)

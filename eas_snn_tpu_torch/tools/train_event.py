@@ -13,6 +13,18 @@ overrides.
 
 Runs on the card (``--device cuda``, the default) with the step captured
 as CUDA graphs, or on the CPU with ``--device cpu``.
+
+Data parallel, one process a card (or a CPU process), each started with
+the same command and its own ``--process_id``::
+
+    python -m eas_snn_tpu_torch.tools.train_event -n gen1_syolox_m -b 64 \
+        --num_processes 2 --coordinator host:port --process_id 0 \
+        data_dir /data/gen1
+
+``-b`` is the global batch, split evenly over the processes (the JAX
+trainer feeds its jitted step one global batch of ``-b`` rows sharded
+over its mesh); the group speaks NCCL on cards and gloo on the CPU, and
+process 0 serves the rendezvous at ``--coordinator``.
 """
 
 from __future__ import annotations
@@ -28,10 +40,7 @@ def make_parser() -> argparse.ArgumentParser:
         "eas_snn_tpu_torch train",
         epilog="-f loads a Python file whose Exp class subclasses "
                "eas_snn_tpu_torch.exp.EventExp (a file that imports the JAX "
-               "package is refused); -n names a preset of the port. "
-               "Multi-process and multi-host training (the JAX CLI's "
-               "--num_processes, --coordinator, --process_id) waits for the "
-               "distributed slice of the port (ROADMAP.md §1 item 10).")
+               "package is refused); -n names a preset of the port.")
     parser.add_argument("-expn", "--experiment-name", type=str, default=None)
     parser.add_argument("-n", "--name", type=str, default=None,
                         help="exp name (a preset of the port)")
@@ -39,7 +48,13 @@ def make_parser() -> argparse.ArgumentParser:
                         help="exp file: a Python file whose Exp class "
                              "subclasses eas_snn_tpu_torch.exp.EventExp "
                              "(taken before -n)")
-    parser.add_argument("-b", "--batch-size", type=int, default=64)
+    parser.add_argument(
+        "-b", "--batch-size", type=int, default=64,
+        help="the global batch of a step: with --num_processes N each "
+             "process loads b / N samples a step from its rank-strided "
+             "share of the data (N must divide b), and the lr is that of "
+             "the global batch, as the JAX trainer feeds its step one "
+             "global batch of b rows")
     parser.add_argument("--resume", action="store_true",
                         help="continue from the run's latest checkpoint")
     parser.add_argument("-c", "--ckpt", type=str, default=None,
@@ -61,6 +76,14 @@ def make_parser() -> argparse.ArgumentParser:
                              "<run dir>/profile")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu'")
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="data-parallel processes, one a card (NCCL) or "
+                             "a CPU process (gloo); 1 or none: one process")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="host:port of the rendezvous, served by "
+                             "process 0")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="this process's rank, 0 to num_processes - 1")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=None,
                         help="free-form 'key value' config overrides")
     return parser
@@ -83,8 +106,17 @@ def build(argv: Optional[Sequence[str]] = None):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
+    from .. import parallel
+
     exp, args = build(argv)
-    exp.get_trainer(args, device=args.device).train()
+    started = (args.num_processes or 1) > 1
+    parallel.initialize_distributed(args.coordinator, args.num_processes,
+                                    args.process_id, device=args.device)
+    try:
+        exp.get_trainer(args, device=args.device).train()
+    finally:
+        if started:
+            parallel.shutdown()
 
 
 if __name__ == "__main__":

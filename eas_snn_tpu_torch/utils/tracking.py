@@ -22,14 +22,18 @@ class MetricsTracker:
     """backend: 'auto' adds every importable backend; 'jsonl' only the
     file; 'tensorboard' / 'wandb' require that backend and raise when it
     cannot be imported (the reference fails the same way on ``--logger
-    wandb`` without wandb)."""
+    wandb`` without wandb). ``enabled=False`` (every process but rank 0
+    of a data-parallel run) writes nothing."""
 
     def __init__(self, output_dir: str, backend: str = "auto",
-                 run_config: Optional[Dict] = None):
+                 run_config: Optional[Dict] = None, enabled: bool = True):
         if backend not in ("auto", "jsonl", "tensorboard", "wandb"):
             raise ValueError(f"unknown metrics backend '{backend}'")
         self._tb = None
         self._wandb = None
+        self._f = None
+        if not enabled:
+            return
         os.makedirs(output_dir, exist_ok=True)
         self._f = open(os.path.join(output_dir, "metrics.jsonl"), "a")
         if backend in ("auto", "tensorboard"):
@@ -55,6 +59,8 @@ class MetricsTracker:
 
     def log(self, step: int, metrics: Dict[str, float],
             split: str = "train") -> None:
+        if self._f is None:
+            return
         row = {"ts": time.time(), "step": int(step), "split": split}
         row.update({k: float(v) for k, v in metrics.items()})
         self._f.write(json.dumps(row) + "\n")
