@@ -232,7 +232,23 @@ Phases, each of which fails the run (exit code 1, no result line):
    ``load_weights('syolox-s-gen1')`` on the card (430 mapped), captured
    detections with those weights, and ``tools/eval_event.py -f`` on a
    user exp file over phase 8's val tree (35 / 8 / 6 / 1 + Tm launches a
-   batch);
+   batch); (13d, in 13b's process) the demo CLI
+   (``tools/demo.py:main --fp16 -c``, weights with their BN calibrated on
+   8 of the demo's own windows, saved as a ``.pth``) over 13b's stream at
+   10 detections a second of stream time, 50 frames, with ``--conf`` the
+   least over the frames of each frame's top score, so that every frame
+   draws a box (the phase fails under 40 of 50):
+   each frame's detections bit-equal to an eager ``StreamingDetector``'s
+   of the same weights over the same ticks (the demo's own launches 3 x
+   35 / 8 / 6 / 1 + Tm: two warm-up runs and the capture; the reference's
+   one eager detection the same 1 x), every PNG read back by ``utils/png.py:read_png``
+   equal to the frame drawn again in memory, ms a frame of detection,
+   drawing and PNG writing, the demo's frames/s and the host ms of the
+   stream's index search, a window's decode and its binning; then
+   ``utils/assign_viz.py:visualize_assignments`` at ``gen1_syolox_m``'s
+   full width, 256x320, B=2 with planted boxes: 50 launches of row 7 in
+   its train-mode forward, a foreground anchor for every planted box,
+   the images' shape and their PNGs;
 14. training at scale, in two processes of their own: (14a,
    ``scale_phases``) ``ncaltech_syolox_m`` (bf16, 640x640) at B=32 as the
    captured step with remat off and on and the saved spike trains in
@@ -251,7 +267,8 @@ Phases, each of which fails the run (exit code 1, no result line):
    backward, SimOTA's counts, the gradient bucket), ms a step with and
    without the group in turns, then the train CLI's ``main`` with the
    group on a Gen1 tree as phase 7 writes it, through captured steps and
-   the evaluation's gather;
+   the evaluation's gather, whose first batch's prediction images
+   (``<run dir>/pred_images/step*.png``) must decode with ``read_png``;
 15. when every check passed, one ``{"kernels": [...]}`` line, the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -452,14 +469,17 @@ def min_margin(pre: torch.Tensor, T: int, a: torch.Tensor, thresh: float
 
 
 @torch.no_grad()
-def calibrate_spiking_bn(model, events: torch.Tensor) -> None:
+def calibrate_spiking_bn(model, events: torch.Tensor,
+                         ann: bool = False) -> None:
     """Give a randomly initialised detector the BN statistics training
     would track: each spiking site's running mean and variance become the
     per-channel moments of its conv output on ``events`` (in forward
     order), with scale 1 and bias 0. Each site's preactivation is then
     about N(0, 1) per channel, so every stage fires (about 20%) whichever
     draw the weights came from; at the JAX init (identity BN) dark3-dark5
-    of the flagship barely fire on Poisson(0.2) events."""
+    of the flagship barely fire on Poisson(0.2) events. With ``ann`` the
+    sites of SiLU neurons too: at the init their activations shrink
+    stage by stage, so that the head's scores stay at its prior."""
 
     def hook(mod, args) -> None:
         x = args[0]
@@ -473,7 +493,7 @@ def calibrate_spiking_bn(model, events: torch.Tensor) -> None:
         mod.bn.bias.fill_(0.0)
 
     handles = [m.register_forward_pre_hook(hook) for m in model.modules()
-               if isinstance(m, BaseConv) and m.neuron.spiking]
+               if isinstance(m, BaseConv) and (ann or m.neuron.spiking)]
     model(events)
     for h in handles:
         h.remove()
@@ -3506,6 +3526,198 @@ def _same_outputs(a: np.ndarray, b: np.ndarray) -> bool:
         a.view(np.uint32), b.view(np.uint32))
 
 
+DEMO_FPS = 10         # detections a second of stream time (13b's tick)
+DEMO_FRAMES = 50
+DEMO_MIN_DRAWN = 40   # frames of the DEMO_FRAMES that must draw a box
+DEMO_CALIB = 8        # the demo's windows its weights' BN is calibrated on
+ASSIGN_BOXES = (      # planted [cls, cx, cy, w, h] a sample, 256x320
+    ((0, 80, 100, 60, 40), (1, 200, 150, 30, 70), (0, 280, 40, 24, 24)),
+    ((1, 160, 128, 100, 80), (0, 40, 220, 48, 36)),
+)
+
+
+def demo_phase(exp, model, dat: str, root: str) -> dict:
+    """Phase 13d: the demo CLI over the stream ``dat`` with ``model``'s
+    weights (``exp`` under ``deploy()``), their BN calibrated again on the
+    demo's own windows so that the scores spread over anchors and frames,
+    held to an eager ``StreamingDetector``; then ``visualize_assignments``
+    at ``gen1_syolox_m``. Returns the demo's launches a detection (its
+    own counts over its warm-up and capture), those of the assignment
+    forward, and the demo's ms."""
+    from eas_snn_tpu_torch.data import EventStream, micro_sum
+    from eas_snn_tpu_torch.inference import CapturedProgram, StreamingDetector
+    from eas_snn_tpu_torch.tools import demo
+    from eas_snn_tpu_torch.utils import event_frame_to_image, vis_detections
+    from eas_snn_tpu_torch.utils.assign_viz import (assign,
+                                                    visualize_assignments)
+    from eas_snn_tpu_torch.utils.png import read_png
+    res = {}
+    os.makedirs(root, exist_ok=True)
+    window_us = abs(exp.window) * 1000
+    step_us = int(1e6 / DEMO_FPS)
+    stream = EventStream(dat)
+    t_first = stream.first_time() + window_us
+    ticks = [t_first + i * step_us for i in range(DEMO_FRAMES)]
+    dmodel = exp.get_model(device=DEV, seed=SEED)
+    dmodel.load_state_dict(model.state_dict())
+
+    def reference(conf):
+        return StreamingDetector(
+            dmodel, img_size=GEN1_SENSOR, input_size=exp.test_size,
+            Tm=exp.Tm, window_us=window_us, num_classes=exp.num_classes,
+            confthre=conf, nmsthre=exp.nmsthre, device=DEV, eager=True)
+
+    # 13b's weights have the spiking sites calibrated; the SiLU neck and
+    # head keep the init's identity BN, whose activations shrink stage by
+    # stage, so that the head's scores sit at its prior in a few bf16
+    # values. Every site calibrated on the demo's own letterboxed windows
+    # spreads them.
+    probe, calib = reference(1.0), []
+    for i, t in enumerate(ticks):
+        probe.push(stream.events_between(t - step_us, t))
+        if i % (DEMO_FRAMES // DEMO_CALIB) == 0 and len(calib) < DEMO_CALIB:
+            calib.append(probe.frames(t).clone())
+    with torch.no_grad():
+        calibrate_spiking_bn(dmodel, torch.stack(calib)[:, None], ann=True)
+    del probe, calib
+    ckpt = os.path.join(root, "calibrated.pth")
+    torch.save(dmodel.state_dict(), ckpt)
+
+    # the scores of every frame's anchors (obj x best class), from an
+    # eager pass over the demo's ticks; --conf is the least of the frames'
+    # top scores, so every frame keeps at least one anchor
+    probe, scores = reference(1.0), []
+    for t in ticks:
+        probe.push(stream.events_between(t - step_us, t))
+        out = probe.outputs(t)
+        scores.append(np.zeros(0, np.float32) if out is None
+                      else out[0, :, 4] * out[0, :, 5:].max(1))
+    del probe
+    conf = float(min((sc.max() for sc in scores if len(sc)), default=1.0))
+    passed = [int((sc >= conf).sum()) for sc in scores]
+    print(f"phase 13d: the demo CLI (tools/demo.py --fp16 -c, gen1_syolox_m "
+          f"with its BN calibrated on {DEMO_CALIB} of the demo's windows, "
+          f"as a .pth) over 13b's stream, {DEMO_FPS} detections a second "
+          f"of stream time, {DEMO_FRAMES} frames, --conf {conf!r} (the "
+          f"least of the frames' top scores; "
+          f"{len(np.unique(np.concatenate(scores)))} distinct scores over "
+          f"the frames; anchors passing a frame: min {min(passed)}, max "
+          f"{max(passed)})", flush=True)
+    out_dir = os.path.join(root, "frames")
+    reset_launches()
+    t0 = time.perf_counter()
+    run = demo.main(["-n", "gen1_syolox_m", "--fp16", "-c", ckpt, "--input",
+                     dat, "--out", out_dir, "--fps", str(DEMO_FPS),
+                     "--conf", repr(conf), "--max-frames", str(DEMO_FRAMES),
+                     "--device", DEV])
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    warm = CapturedProgram.WARMUP + 1
+    print(f"  {run['frames']} frames in {wall:.2f} s "
+          f"({run['frames_per_s']:.2f} frames/s in its loop), "
+          f"{sum(run['boxes_per_frame'])} boxes "
+          f"({max(run['boxes_per_frame'])} at most a frame); launches over "
+          f"the demo (the wrappers): {counts}")
+    for k in ("detect", "draw", "write"):
+        m = run["ms"][k]
+        print(f"    ms a frame, {k}: mean {m['mean']:.4f}, p50 "
+              f"{m['p50']:.4f}")
+    res["demo"] = {k: run[k] for k in ("frames", "boxes_per_frame", "ms",
+                                       "frames_per_s")}
+    res["demo"]["conf"] = conf
+    # where a frame's host time goes: each of the demo's two
+    # events_between calls a frame searches the memory-mapped stream's
+    # timestamps twice, then decodes; the drawn window is binned
+    t_mid = t_first + DEMO_FRAMES // 2 * step_us
+    i0 = stream.time_to_index(t_mid - window_us)
+    i1 = stream.time_to_index(t_mid)
+    window = stream.events_slice(i0, i1)
+    parts = {
+        "time_to_index": host_ms(lambda: stream.time_to_index(t_mid)),
+        "decode_window": host_ms(lambda: stream.events_slice(i0, i1)),
+        "micro_sum": host_ms(lambda: micro_sum(window, 1, *GEN1_SENSOR))}
+    res["demo"]["host_parts_ms"] = parts
+    print(f"    host ms of the parts, on this stream ({stream.event_count()} "
+          f"events; a window {i1 - i0}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
+    check_counts(f"phase 13d (the demo: {warm} eager forwards, warm-up and "
+                 f"capture, then replays)", counts, warm, exp.Tm)
+    res["demo_detect"] = {k: v // warm for k, v in counts.items()}
+    drawn = sum(n > 0 for n in run["boxes_per_frame"])
+    print(f"  frames that draw a box: {drawn} of {run['frames']}")
+    if run["frames"] != DEMO_FRAMES or drawn < DEMO_MIN_DRAWN:
+        fail(f"phase 13d: {run['frames']} frames, {drawn} draw a box "
+             f"(expected {DEMO_FRAMES} frames, at least {DEMO_MIN_DRAWN} "
+             f"drawing)")
+
+    ref = reference(conf)
+    same, drawn_same = 0, 0
+    for i, (t, want, path) in enumerate(zip(ticks, run["detections"],
+                                            run["paths"])):
+        ref.push(stream.events_between(t - step_us, t))
+        if i == 0:
+            reset_launches()
+        got = ref.detect(t)
+        if i == 0:
+            one = launch_counts()
+            print(f"  one eager detection of the reference: launches {one}")
+            check_counts("phase 13d (a detection of the reference)", one, 1,
+                         exp.Tm)
+        same += (got is None and want is None) or (
+            got is not None and want is not None and _same_outputs(got, want))
+        window = stream.events_between(t - window_us, t)
+        img = event_frame_to_image(micro_sum(window, 1, *GEN1_SENSOR)[0])
+        if want is not None:
+            img = vis_detections(img, want[:, :4], want[:, 4] * want[:, 5],
+                                 want[:, 6], conf=conf)
+        drawn_same += np.array_equal(read_png(path), img)
+    print(f"  detections bit-equal to the eager StreamingDetector's in "
+          f"{same} of {run['frames']} frames; PNGs read back equal to the "
+          f"frame drawn in memory: {drawn_same} of {run['frames']}",
+          flush=True)
+    if same != run["frames"] or drawn_same != run["frames"]:
+        fail("phase 13d: the demo's detections or PNGs differ")
+    del ref, dmodel
+
+    texp = get_exp("gen1_syolox_m")
+    tmodel = texp.get_model(device=DEV, seed=SEED + 17, train=False)
+    H, W = texp.test_size
+    B = len(ASSIGN_BOXES)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 17)
+    events = torch.poisson(torch.full((B, texp.Tl, texp.Tm, H, W,
+                                       texp.in_dim), 0.2, device=DEV),
+                           generator=gen)
+    labels = np.zeros((B, 50, 5), np.float32)
+    for b, boxes in enumerate(ASSIGN_BOXES):
+        labels[b, :len(boxes)] = boxes
+    prefix = os.path.join(root, "assign_")
+    reset_launches()
+    images = visualize_assignments(tmodel, events, labels,
+                                   save_prefix=prefix)
+    torch.cuda.synchronize()
+    res["assign_forward"] = launch_counts()
+    found, _ = assign(tmodel, events, labels)
+    fg, matched = found.fg_mask.cpu().numpy(), found.matched_gt.cpu().numpy()
+    per_box = [[int((matched[b][fg[b]] == g).sum()) for g in range(len(bx))]
+               for b, bx in enumerate(ASSIGN_BOXES)]
+    pngs = sum(np.array_equal(read_png(f"{prefix}{b}.png"), images[b])
+               for b in range(B))
+    print(f"  visualize_assignments at gen1_syolox_m ({H}x{W}, B={B}, "
+          f"train mode): launches {res['assign_forward']}; foreground "
+          f"anchors a planted box {per_box}; images "
+          f"{[im.shape for im in images]}, {pngs} PNGs read back equal",
+          flush=True)
+    want = {k: 0 for k in res["assign_forward"]}
+    want["plif_train_fwd"] = PER_STEP["plif_train_fwd"]
+    if res["assign_forward"] != want:
+        fail(f"phase 13d: visualize_assignments launched "
+             f"{res['assign_forward']}, expected {want}")
+    if (not all(n > 0 for row in per_box for n in row) or pngs != B
+            or any(im.shape != (H, W, 3) for im in images)):
+        fail("phase 13d: an assignment, an image or a PNG is missing")
+    return res
+
+
 def streaming_phases() -> int:
     """Phases 13a and 13b, run as a process of its own (the profiler
     records every launch of a fresh process, PERF.md §7): the eval kernels
@@ -3688,6 +3900,9 @@ def streaming_phases() -> int:
           f"forward) on that window: bit-equal {same_batch}", flush=True)
     if not same_batch:
         fail("phase 13b: streaming and batch outputs differ on one window")
+    del det_g, det_h
+    torch.cuda.empty_cache()
+    out.update(demo_phase(exp, model, dat, os.path.join(root, "demo")))
     shutil.rmtree(root, ignore_errors=True)
     print(json.dumps(out))
     return 1 if FAILURES else 0
@@ -4181,6 +4396,7 @@ def scale_dp_phases(workers: int) -> int:
     from eas_snn_tpu_torch.evaluators import event_evaluator
     from eas_snn_tpu_torch.models.blocks import BatchNorm
     from eas_snn_tpu_torch.tools import train_event
+    from eas_snn_tpu_torch.utils.png import read_png
     _build.NVCC_FLAGS = _build.NVCC_FLAGS + PTXAS_FLAGS  # phase 1's builds
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4298,6 +4514,16 @@ def scale_dp_phases(workers: int) -> int:
             and all(np.isfinite(r["total_loss"]) for r in train)):
         fail("phase 14b: the train CLI with the group did not train "
              "through a captured step and an evaluation with the gather")
+    img_dir = os.path.join(run, "pred_images")
+    names = sorted(os.listdir(img_dir)) if os.path.isdir(img_dir) else []
+    shapes = {read_png(os.path.join(img_dir, n)).shape for n in names}
+    print(f"  the evaluation's prediction images: {len(names)} PNGs "
+          f"({names[:1]}...), decoded shapes {shapes}")
+    if not names or not all(re.fullmatch(r"step\d{8}_\d+\.png", n)
+                            for n in names) \
+            or shapes != {tuple(exp.test_size) + (3,)}:
+        fail("phase 14b: the train CLI's evaluation wrote no prediction "
+             "image, or one that does not decode to the eval frame")
     parallel.shutdown()
     shutil.rmtree(root, ignore_errors=True)
     print(f"  phases 14b-14c took {time.perf_counter() - t_phase:.1f} s")
@@ -4445,6 +4671,11 @@ def main() -> int:
     # the eval CLI on a user's exp file
     paths["stream_detect"] = res13.get("stream_detect")
     paths["stream_cli_batch"] = res13.get("cli_batch")
+    # phase 13d: a detection of the demo CLI (its counts over its warm-up
+    # and capture, a third each), and the train-mode forward of
+    # visualize_assignments
+    paths["demo_detect"] = res13.get("demo_detect")
+    paths["assign_forward"] = res13.get("assign_forward")
     # phase 14: a step of ncaltech_syolox_m with remat (each site's forward
     # again in the recompute), of gen1_syolox_m with an NCCL group and with
     # the capturable SGD (the wrappers, from zeroed counts)
@@ -4483,6 +4714,8 @@ def main() -> int:
           "e_yolox_m through the train CLI and a batch through the eval CLI "
           "(by the wrappers, from zeroed counts), one streaming detection "
           "and a batch of the eval CLI on a user exp file (phase 13), a "
+          "detection of the demo CLI (a third of its warm-up and capture) "
+          "and the train-mode forward of visualize_assignments (13d), a "
           "remat step of ncaltech_syolox_m (phase 14a: 100 + 50), a step "
           "with an NCCL group and one with the capturable SGD (14b, 14c); "
           "neck_head: the sums over "

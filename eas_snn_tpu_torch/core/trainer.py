@@ -41,8 +41,11 @@ rows (``evaluators/event_evaluator.py:_allgather_rows``). Only rank 0
 makes the run directory, logs at INFO, writes the metrics and saves
 checkpoints (JAX ``core/trainer.py:65-77``).
 
-Not here yet: the prediction images of the first eval batch (JAX
-``_log_pred_images``, ROADMAP.md §1 item 7).
+After each evaluation rank 0 draws the eval model's detections on the
+first batch of the evaluator's loader into ``<run dir>/pred_images/``
+(``MetricsTracker.log_pred_images``; ``EAS_LOG_PRED_IMAGES=0`` turns it
+off), and with wandb and ``EAS_WANDB_ARTIFACTS=1`` a new best checkpoint
+becomes a wandb artifact (JAX ``core/trainer.py:405-456``).
 """
 
 from __future__ import annotations
@@ -65,6 +68,7 @@ from .. import parallel
 from ..data.loader import DevicePrefetcher
 from ..data.reps import bin_event_batch
 from ..evaluators.energy import conv_macs_per_frame
+from ..ops.boxes import postprocess
 from ..utils.logger import setup_logger
 from ..utils.metric import MeterBuffer
 from ..utils.tracking import MetricsTracker
@@ -377,6 +381,11 @@ class Trainer:
         path = self.ckpt.save(updates(self.optimizer), self.model,
                               self.optimizer, self.ema, self.best_ap,
                               is_best=is_best)
+        if (is_best and self.rank == 0
+                and os.environ.get("EAS_WANDB_ARTIFACTS", "0") == "1"):
+            # the reference's opt-in (WandbLogger's log_checkpoints)
+            self.tracker.log_artifact(self.ckpt.best_path, name="best_ckpt",
+                                      kind="model")
         self.logger.info("epoch %d done: checkpoint %s%s", self.epoch + 1,
                          path, " (best)" if is_best else "")
 
@@ -410,7 +419,36 @@ class Trainer:
                          self.epoch + 1, ap, ap50, self.best_ap, summary)
         self.tracker.log(updates(self.optimizer),
                          {"AP50_95": ap, "AP50": ap50}, split="val")
+        self._log_pred_images()
         return update_best
+
+    def _log_pred_images(self) -> None:
+        """The eval model's detections (``exp.test_conf``, ``nmsthre``) on
+        the first batch of the evaluator's loader, drawn by the tracker
+        with the dataset's class names (ids where it has none; the JAX
+        trainer asks its evaluator, which has none). Rank 0 only;
+        ``EAS_LOG_PRED_IMAGES=0`` turns it off. A failure is logged and
+        the run goes on: logging must never end a run (JAX
+        ``core/trainer.py:405-432``)."""
+        if self.rank != 0 or os.environ.get("EAS_LOG_PRED_IMAGES",
+                                            "1") == "0":
+            return
+        try:
+            loader = self.evaluator.dataloader
+            frames = next(iter(loader))[0]
+            with torch.inference_mode():
+                out = self.eval_model(frames.to(self.device))
+                out = out.float().cpu().numpy()
+            dets = postprocess(out, self.exp.num_classes,
+                               self.exp.test_conf, self.exp.nmsthre)
+            names = (getattr(loader.dataset, "class_names", None)
+                     or tuple(str(i) for i in range(self.exp.num_classes)))
+            self.tracker.log_pred_images(updates(self.optimizer),
+                                         frames.numpy(), dets,
+                                         class_names=names)
+        except Exception as e:  # logging must never end the run
+            self.logger.info("pred-image logging skipped: %r", e,
+                             exc_info=True)
 
     def after_train(self) -> None:
         if self.optimizer is not None:

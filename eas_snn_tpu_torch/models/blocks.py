@@ -35,7 +35,7 @@ from ..ops.surrogate import asgl_spike
 __all__ = [
     "Neuron", "BatchNorm", "PLIF", "BaseConv", "Bottleneck", "SPPBottleneck",
     "CSPLayer", "Focus", "spp_pools", "upsample2x", "remat",
-    "int8_saved_spikes", "is_spike_train",
+    "frozen_bn_stats", "int8_saved_spikes", "is_spike_train",
 ]
 
 Pieces = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
@@ -133,12 +133,16 @@ class _BatchStats(torch.autograd.Function):
         return dx.to(x.dtype)
 
 
-# True while torch.utils.checkpoint recomputes a block (``remat``)
+# True while no BN running statistic may move: a block's recompute under
+# ``remat``, or a forward under ``frozen_bn_stats``
 _RECOMPUTING = [False]
 
 
 @contextlib.contextmanager
-def _recomputing():
+def frozen_bn_stats():
+    """A train-mode forward under this context moves no BN running
+    statistic (``BatchNorm.terms``): ``remat``'s recompute, and a forward
+    whose ``batch_stats`` the JAX package would discard."""
     prev, _RECOMPUTING[0] = _RECOMPUTING[0], True
     try:
         yield
@@ -147,7 +151,7 @@ def _recomputing():
 
 
 def _contexts():
-    return contextlib.nullcontext(), _recomputing()
+    return contextlib.nullcontext(), frozen_bn_stats()
 
 
 def remat(module: nn.Module, *xs: torch.Tensor) -> torch.Tensor:

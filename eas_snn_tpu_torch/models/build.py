@@ -14,7 +14,8 @@ import torch.nn as nn
 
 from .yolox import EASYOLOX
 
-__all__ = ["MODEL_SPECS", "ZOO_CKPTS", "create_model", "load_weights"]
+__all__ = ["MODEL_SPECS", "ZOO_CKPTS", "create_model", "load_weights",
+           "zoo_path"]
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -72,6 +73,14 @@ def create_model(name: str, num_classes: Optional[int] = None,
     return model.to(dev).eval()
 
 
+def zoo_path(ckpt: str) -> str:
+    """The checkpoint file of zoo name ``ckpt`` ('_' and '-' alike), or
+    ``ckpt`` itself where it names none."""
+    if _key(ckpt) in ZOO_CKPTS:
+        return os.path.join(_REPO, ZOO_CKPTS[_key(ckpt)])
+    return ckpt
+
+
 def load_weights(model: nn.Module, ckpt: str, device="cuda"
                  ) -> Dict[str, int]:
     """Weights from ``ckpt`` into ``model``, then the model onto ``device``.
@@ -87,9 +96,7 @@ def load_weights(model: nn.Module, ckpt: str, device="cuda"
     from ..exp.event_exp import resolve_device
 
     dev = resolve_device(device)
-    if _key(ckpt) in ZOO_CKPTS:
-        ckpt = os.path.join(_REPO, ZOO_CKPTS[_key(ckpt)])
-    src = {k: v for k, v in eval_state_dict(ckpt).items()
+    src = {k: v for k, v in eval_state_dict(zoo_path(ckpt)).items()
            if not k.endswith("num_batches_tracked")}
     own = {k: v for k, v in model.state_dict().items()
            if not k.endswith("num_batches_tracked")}

@@ -46,9 +46,10 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "-c", "--ckpt", type=str, default=None,
         help="weights: a checkpoint of the port (ckpt_<step>.pth or "
-             "best.pth; its EMA where it has one) or a reference PyTorch "
-             ".pth state dict. The JAX CLI's Orbax checkpoint trees need "
-             "JAX to read and are not accepted; without -c the weights are "
+             "best.pth; its EMA where it has one), a reference PyTorch "
+             ".pth state dict or a zoo name (syolox-s-gen1). The JAX "
+             "CLI's Orbax checkpoint trees need JAX to read and are not "
+             "accepted; without -c the weights are "
              "the exp's seeded random draw")
     parser.add_argument("--eval_proh", action="store_true",
                         help="use the Prophesee +/-50 ms protocol")
@@ -130,6 +131,7 @@ def energy(exp, model, device) -> dict:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     from ..core.checkpoint import load_eval_weights
     from ..exp.event_exp import resolve_device
+    from ..models.build import zoo_path
     from ..utils.model_info import model_info
 
     exp, args = build(argv)
@@ -138,7 +140,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     device = resolve_device(args.device)
     model = exp.get_model(device=device, seed=exp.seed or 0)
     if args.ckpt:
-        load_eval_weights(model, args.ckpt)
+        load_eval_weights(model, zoo_path(args.ckpt))
         logger.info("loaded weights from %s", args.ckpt)
     h, w = exp.test_size
     n_params, gflops = model_info(model, (1, exp.Tl, exp.Tm, h, w,

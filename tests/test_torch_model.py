@@ -512,7 +512,7 @@ def test_entry_points_default_to_the_card():
 
 _NO_JAX_RUN = """
 import sys
-for name in ("jax", "flax", "optax", "orbax", "eas_snn_tpu", "cv2"):
+for name in ("jax", "flax", "optax", "orbax", "eas_snn_tpu", "cv2", "PIL"):
     sys.modules[name] = None
 import numpy as np
 import torch
@@ -576,8 +576,20 @@ assert load_weights(create_model("syolox-s-gen1", device="cpu"),
 assert get_model_info(m, torch.zeros(1, 1, 4, 32, 32, 2)).startswith("Params")
 fuse_conv_bn(m)
 assert hbm_usage_gb("cpu") == 0.0
+import os, tempfile
+import eas_snn_tpu_torch.tools.demo
+import eas_snn_tpu_torch.tools.play_events
+from eas_snn_tpu_torch.utils import vis_detections
+from eas_snn_tpu_torch.utils.assign_viz import visualize_assignments
+from eas_snn_tpu_torch.utils.png import read_png, write_png
+img = vis_detections(np.full((40, 60, 3), 127, np.uint8),
+                     np.array([[5.0, 20.0, 40.0, 35.0]]), np.array([0.9]),
+                     np.array([1]), class_names=("car", "pedestrian"))
+with tempfile.TemporaryDirectory() as d:
+    write_png(os.path.join(d, "a.png"), img)
+    assert (read_png(os.path.join(d, "a.png")) == img).all()
 assert not any(k.split(".")[0] in ("jax", "flax", "optax", "orbax",
-                                   "eas_snn_tpu", "cv2")
+                                   "eas_snn_tpu", "cv2", "PIL")
                for k in sys.modules if sys.modules[k] is not None)
 print("ok")
 """
@@ -593,7 +605,7 @@ def test_port_runs_with_jax_blocked():
 
 def test_no_jax_import_in_port_sources():
     pat = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|optax|orbax|eas_snn_tpu|cv2)"
+        r"^\s*(import|from)\s+(jax|flax|optax|orbax|eas_snn_tpu|cv2|PIL)"
         r"(\.|\s|$)", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, dirs, names in os.walk(os.path.join(REPO, "eas_snn_tpu_torch")):
@@ -616,10 +628,14 @@ def test_no_jax_import_in_port_sources():
                 ("exp", "base_exp.py"), ("exp", "build.py"),
                 ("models", "build.py"), ("utils", "model_info.py"),
                 ("utils", "model_surgery.py"), ("utils", "metric.py"),
-                ("tools", "bench_streaming.py"), ("parallel", "__init__.py")):
+                ("tools", "bench_streaming.py"), ("parallel", "__init__.py"),
+                ("tools", "demo.py"), ("tools", "play_events.py"),
+                ("utils", "png.py"), ("utils", "draw.py"),
+                ("utils", "visualize.py"), ("utils", "assign_viz.py")):
         assert any(f.endswith(os.path.join(*new)) for f in files), new
     hits = [f for f in files if pat.search(open(f).read())]
     assert not hits, hits
     assert not pat.search("import eas_snn_tpu_torch\n"
                           "from eas_snn_tpu_torch.ops import plif\n")
     assert pat.search("    import cv2\n")
+    assert pat.search("from PIL import Image\n")
