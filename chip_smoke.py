@@ -269,7 +269,28 @@ Phases, each of which fails the run (exit code 1, no result line):
    group on a Gen1 tree as phase 7 writes it, through captured steps and
    the evaluation's gather, whose first batch's prediction images
    (``<run dir>/pred_images/step*.png``) must decode with ``read_png``;
-15. when every check passed, one ``{"kernels": [...]}`` line, the
+15. the RGB family, in a process of its own (``rgb_phases``), which
+   launches no hand-written kernel (the wrappers' counts from zero on
+   every path): (15a) ``data/image.py:imread`` on every JPEG fixture of
+   ``tests/torch_fixtures/rgb`` bit-equal to the cv2 pixels stored
+   beside it, ms an image at 640x480, ``resize_linear_u8`` and
+   ``warp_affine_u8`` ms at the mosaic's sizes (a 1280x1280 canvas to
+   640x640); (15b) ``yolox_s`` at 640x640 on a synthetic COCO tree
+   (640x480 PNGs with filled boxes and the JPEG fixtures) through the
+   train CLI at B=16 (mosaic, mixup, SGD, EMA, the captured step):
+   images/s with the loader, the data-time share, the loader's samples/s
+   alone, TF32 off after the build; the eval CLI's evaluator with the
+   ground truth as predictions (AP 1.0) and the eval CLI's frames/s;
+   (15c) ``yolov3`` (Darknet-53 + YOLOFPN, 640x640) and ``yolox_nano``
+   (depthwise, 416x416): the captured step at B=16 (ms, peak) bit-equal
+   to the eager step under ``CapturedStep.cudnn_mode()``, the eval
+   forward at B=64 (frames/s, peak; every BN site calibrated), card
+   against CPU block by block at B=2 (ANALOG_TOL; DARKNET_TOL for
+   Darknet-53's long f32 reductions in cuDNN; the head's decode within
+   1e-3); (15d)
+   ``yolox_voc_s`` through the eval CLI on a VOC2007 tree of PNG bytes
+   under ``.jpg`` names and one JPEG: AP 1.0 with the ground truth;
+16. when every check passed, one ``{"kernels": [...]}`` line, the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 ``determinism_cost`` (not run by ``main``) times the captured step with
@@ -486,7 +507,7 @@ def calibrate_spiking_bn(model, events: torch.Tensor,
         x = torch.cat([p.float() for p in x], 1) \
             if isinstance(x, (tuple, list)) else x.float()
         y = F.conv2d(x, mod.weight.float(), stride=mod.stride,
-                     padding=(mod.ksize - 1) // 2)
+                     padding=(mod.ksize - 1) // 2, groups=mod.groups)
         mod.bn.running_mean.copy_(y.mean((0, 2, 3)))
         mod.bn.running_var.copy_(y.var((0, 2, 3), unbiased=False))
         mod.bn.weight.fill_(1.0)
@@ -2643,7 +2664,7 @@ def calibrated_checkpoint(exp, path: str, seed: int) -> None:
 
 
 def train_through_cli(argv: list, B: int, steps: int, workers: int,
-                      phase: str, per_step=PER_STEP) -> tuple:
+                      phase: str, per_step=PER_STEP, then=None) -> tuple:
     """``argv`` through the train CLI's parser, ``exp.get_data_loader``
     (``workers`` forked workers) and ``Trainer`` on the card: images/s
     with the loader in the loop over the last ``steps`` captured steps
@@ -2652,7 +2673,8 @@ def train_through_cli(argv: list, B: int, steps: int, workers: int,
     of the eager warm-up and the capture (the wrappers' counts:
     ``per_step``, 50 + 50 a step at the flagship, no eval kernel) and of 2
     profiled replays (by kernel name). Returns the profiled rows and the
-    wrappers' launches a step."""
+    wrappers' launches a step. ``then(tr)``, where given, runs on the
+    trainer before its ``after_train``."""
     from eas_snn_tpu_torch.core.train_state import CapturedStep
     from eas_snn_tpu_torch.tools.train_event import build
     drain = 2 * workers + 2
@@ -2719,6 +2741,8 @@ def train_through_cli(argv: list, B: int, steps: int, workers: int,
                 "plif_bwd": 2 * per_step.get("plif_train_bwd", 0)}:
         fail(f"phase {phase}: PLIF launches {plif} in 2 replays, expected "
              f"{per_step} a step")
+    if then is not None:
+        then(tr)
     tr.after_train()
     return rows, {k: v // (step.WARMUP + 1) for k, v in counts.items()}
 
@@ -4531,6 +4555,466 @@ def scale_dp_phases(workers: int) -> int:
     return 1 if FAILURES else 0
 
 
+RGB_B = 16              # the RGB train steps' batch (phases 15b, 15c)
+RGB_EVAL_B = 64         # the eval forwards' batch (phase 15c)
+RGB_STEPS = 8           # timed steps of the train CLI and of each step
+RGB_TRAIN_IMAGES = 64   # 640x480 PNGs of phase 15b's train split
+RGB_VAL_IMAGES = 32     # and of its val split (and 15d's VOC test split)
+RGB_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "torch_fixtures", "rgb")
+
+
+def rgb_fixtures() -> list:
+    """The checked-in JPEGs (cv2-written) with cv2's pixels beside them
+    as PNGs: [(jpg path, expected BGR)]."""
+    from eas_snn_tpu_torch.utils.png import read_png
+    out = []
+    for n in sorted(os.listdir(RGB_FIXTURES)):
+        if n.endswith(".jpg"):
+            want = read_png(os.path.join(RGB_FIXTURES, n[:-4] + ".png"))
+            if want.ndim == 2:
+                want = np.repeat(want[..., None], 3, 2)
+            out.append((os.path.join(RGB_FIXTURES, n), want))
+    return out
+
+
+def _rgb_image(rng, boxes, h: int = 480, w: int = 640) -> np.ndarray:
+    """A flat background with each (x, y, bw, bh) box filled in a colour
+    of its own."""
+    img = np.full((h, w, 3), rng.integers(60, 200, 3), np.uint8)
+    for x, y, bw, bh in boxes:
+        img[int(y):int(y + bh), int(x):int(x + bw)] = rng.integers(0, 256, 3)
+    return img
+
+
+def _rgb_boxes(rng, h: int, w: int, n: int) -> list:
+    out = []
+    for _ in range(n):
+        bw, bh = rng.uniform(0.1, 0.4) * w, rng.uniform(0.1, 0.4) * h
+        out.append([float(int(rng.uniform(0, w - bw))),
+                    float(int(rng.uniform(0, h - bh))), float(int(bw)),
+                    float(int(bh))])
+    return out
+
+
+def write_coco_tree(root: str, n_train: int, n_val: int, seed: int) -> str:
+    """COCO-format train2017 / val2017: 640x480 PNGs (``write_png``), 2-4
+    filled boxes each in 80 categories, plus the JPEG fixtures (one box
+    each), so that the loader decodes JPEGs too."""
+    import shutil
+
+    from eas_snn_tpu_torch.utils.png import write_png
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    cats = [{"id": i + 1, "name": f"class{i}"} for i in range(80)]
+    for split, n in (("train2017", n_train), ("val2017", n_val)):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        images, anns = [], []
+        for i in range(n):
+            boxes = _rgb_boxes(rng, 480, 640, int(rng.integers(2, 5)))
+            name = f"{i:012d}.png"
+            write_png(os.path.join(root, split, name), _rgb_image(rng, boxes))
+            images.append({"id": i + 1, "file_name": name, "width": 640,
+                           "height": 480})
+            anns += [{"id": len(anns), "image_id": i + 1, "bbox": b,
+                      "category_id": int(rng.integers(1, 81)), "iscrowd": 0}
+                     for b in boxes]
+        for jpg, img in rgb_fixtures():
+            h, w = img.shape[:2]
+            name = os.path.basename(jpg)
+            shutil.copy(jpg, os.path.join(root, split, name))
+            images.append({"id": len(images) + 1, "file_name": name,
+                           "width": w, "height": h})
+            anns.append({"id": len(anns), "image_id": len(images),
+                         "bbox": [w / 8, h / 8, w / 2, h / 2],
+                         "category_id": 1, "iscrowd": 0})
+        with open(os.path.join(root, "annotations",
+                               f"instances_{split}.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": cats}, f)
+    return root
+
+
+def write_voc_tree(root: str, n: int, seed: int) -> str:
+    """VOCdevkit/VOC2007 test: 640x480 PNG bytes under ``.jpg`` names (as
+    cv2 reads them) and one JPEG fixture, 2-4 boxes each in VOC classes."""
+    import shutil
+
+    from eas_snn_tpu_torch.data.coco import VOC_CLASSES
+    from eas_snn_tpu_torch.utils.png import write_png
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "VOC2007")
+    for d in ("ImageSets/Main", "Annotations", "JPEGImages"):
+        os.makedirs(os.path.join(base, d), exist_ok=True)
+    ids = []
+    jpg = os.path.join(RGB_FIXTURES, "scene_640x480.jpg")
+    for i in range(n + 1):
+        img_id = f"{i:06d}"
+        ids.append(img_id)
+        boxes = _rgb_boxes(rng, 480, 640, int(rng.integers(2, 5)))
+        path = os.path.join(base, "JPEGImages", f"{img_id}.jpg")
+        if i == n:
+            shutil.copy(jpg, path)
+        else:
+            write_png(path, _rgb_image(rng, boxes))
+        objs = "".join(
+            f"<object><name>{VOC_CLASSES[int(rng.integers(20))]}</name>"
+            f"<difficult>0</difficult><bndbox><xmin>{int(x) + 1}</xmin>"
+            f"<ymin>{int(y) + 1}</ymin><xmax>{int(x + bw)}</xmax>"
+            f"<ymax>{int(y + bh)}</ymax></bndbox></object>"
+            for x, y, bw, bh in boxes)
+        with open(os.path.join(base, "Annotations", f"{img_id}.xml"),
+                  "w") as f:
+            f.write(f"<annotation>{objs}</annotation>")
+    with open(os.path.join(base, "ImageSets", "Main", "test.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+    return root
+
+
+def rgb_truth_ap(pexp, B: int, what: str, phase: str) -> None:
+    """The exp's evaluator fed each image's ground truth as letterboxed
+    predictions (obj and class score 0.99): AP and AP50 must be 1.0."""
+    ev = pexp.get_evaluator(batch_size=B)
+    ds = ev.dataloader.dataset
+    H, W = pexp.test_size
+    order = iter(range(len(ds)))
+
+    def forward(frames):
+        n = frames.shape[0]
+        sids = [next(order) for _ in range(n)]
+        out = np.zeros((n, 8, 5 + pexp.num_classes), np.float32)
+        out[:, :, 2:4] = 1e-3
+        out[:, :, 4] = 1e-9
+        for b, i in enumerate(sids):
+            ih, iw = ds._read(i).shape[:2]
+            s = min(H / ih, W / iw)
+            for j, (x1, y1, x2, y2, c) in enumerate(ds.annotations[i]):
+                out[b, j, :5] = ((x1 + x2) / 2 * s, (y1 + y2) / 2 * s,
+                                 (x2 - x1) * s, (y2 - y1) * s, 0.99)
+                out[b, j, 5 + int(c)] = 0.99
+        return out
+
+    t0 = time.perf_counter()
+    ap, ap50, _ = ev.evaluate(forward)
+    print(f"  {what}: ground truth as predictions over {len(ds)} images, "
+          f"{pexp.num_classes} classes: AP {ap:.6f}, AP50 {ap50:.6f} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    if ap != 1.0 or ap50 != 1.0:
+        fail(f"phase {phase}: {what}: AP {ap} / AP50 {ap50} with the ground "
+             "truth as predictions, expected 1.0")
+
+
+def _no_launches(phase: str, what: str) -> dict:
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if counts:
+        fail(f"phase {phase}: {what} launched hand-written kernels {counts}")
+    return counts
+
+
+def rgb_host_cost(exp, png: str, n: int = 8) -> None:
+    """Host ms a train sample of ``exp``'s mosaic dataset, in this
+    process on one thread as in a loader worker, and ms an ``imread`` of
+    one of the tree's 640x480 PNGs."""
+    from eas_snn_tpu_torch.data import image
+    ds = exp.get_dataset(training=True)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    ds[0]
+    t0 = time.perf_counter()
+    for i in range(n):
+        ds[i]
+    ms = (time.perf_counter() - t0) / n * 1e3
+    torch.set_num_threads(threads)
+    print(f"  host cost a mosaic-and-mixup sample ({exp.exp_name}, one "
+          f"thread): {ms:.3f} ms; imread of a 640x480 PNG of the tree "
+          f"{host_ms(lambda: image.imread(png), 10):.3f} ms", flush=True)
+
+
+def rgb_step(phase: str, exp, B: int, steps: int) -> dict:
+    """``exp``'s train step at B as CUDA graphs on random 0-255 images:
+    launches (the wrappers' counts, none expected), ms a captured step
+    over ``steps`` replays and the peak; then from one snapshot a
+    captured step against an eager one under ``CapturedStep.cudnn_mode``
+    (bit-equal: the eager step's own difference is the tolerance)."""
+    from eas_snn_tpu_torch.core.train_state import CapturedStep
+    H, W = exp.input_size
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 15)
+    events = torch.randint(0, 256, (B, 1, 1, H, W, 3), generator=gen,
+                           device=DEV).float()
+    labels = random_labels(B, H, W, np.random.default_rng(SEED + 15)).to(DEV)
+    model = exp.get_model(device=DEV, seed=SEED + 1, train=True)
+    opt = exp.get_optimizer(model, B, iters_per_epoch=1000)
+    ema = init_ema(model) if exp.ema else None
+    step = CapturedStep(model, opt, ema)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for _ in range(step.WARMUP + 1):
+        step(events, labels)
+    torch.cuda.synchronize()
+    counts = _no_launches(phase, f"{exp.exp_name}'s step")
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses = step(events, labels)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    losses = {k: float(v) for k, v in losses.items()}
+    print(f"  {exp.exp_name} at {H}x{W}, B={B}: {ms:.3f} ms a captured step "
+          f"({steps} replays, host clock to a synchronize), "
+          f"{B / ms * 1e3:.2f} images/s, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; total loss "
+          f"{losses['total_loss']:.4f}; hand-kernel launches {counts or 0}",
+          flush=True)
+    if not all(np.isfinite(v) for v in losses.values()):
+        fail(f"phase {phase}: a loss is not finite: {losses}")
+    snap = snapshot(model, opt, ema)
+    # the lr of the step from the snapshot (past the warm-up's lr of 0)
+    lr = opt.lr_schedule(opt.param_groups[0]["updates"])
+    check_step_pair(f"phase {phase} {exp.exp_name} B={B}", step_pair(
+        step, model, opt, ema, snap, events, labels), lr)
+    del step, model, opt, ema
+    torch.cuda.empty_cache()
+    return counts
+
+
+@torch.no_grad()
+def rgb_eval_forward(phase: str, exp, B: int, n: int = 5) -> None:
+    """Frames/s and peak of the eval forward at B on random images, every
+    BN site calibrated on 4 of them (``calibrate_spiking_bn(...,
+    ann=True)``: at the init's identity BN Darknet-53's residual stacks
+    grow 0-255 pixels past f32's range)."""
+    H, W = exp.test_size
+    model = exp.get_model(device=DEV, seed=SEED)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 16)
+    x = torch.randint(0, 256, (B, 1, 1, H, W, 3), generator=gen,
+                      device=DEV).float()
+    calibrate_spiking_bn(model, x[:4], ann=True)
+    model(x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = model(x)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n
+    print(f"  {exp.exp_name} eval forward at {H}x{W}, B={B}: {dt * 1e3:.3f} "
+          f"ms ({B / dt:.2f} frames/s, {n} forwards, host clock), peak "
+          f"allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"outputs {tuple(out.shape)}", flush=True)
+    if not torch.isfinite(out).all():
+        fail(f"phase {phase}: {exp.exp_name}'s eval outputs are not finite")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _to(x, dev):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to(v, dev) for v in x)
+    return x.to(dev)
+
+
+def rgb_stages(model, names) -> list:
+    """``names`` with every ``nn.Sequential`` among them replaced by its
+    blocks (a ResLayer, a conv, a CSP layer: the stages whose f32
+    rounding the card and the CPU each add once)."""
+    mods = dict(model.named_modules())
+    out = []
+    for n in names:
+        m = mods[n]
+        out += ([f"{n}.{i}" for i in range(len(m))]
+                if isinstance(m, torch.nn.Sequential) else [n])
+    return out
+
+
+# card vs CPU of a Darknet-53 block, |card - cpu| / (1 + |cpu|): cuDNN's
+# f32 algorithms for its long reductions (4608 terms in a 3x3 over 512
+# inputs, 2048 in the SPP's 1x1) put a block up to 2.038e-5 from the CPU
+# on an H100 80GB HBM3 at 700 W (523 of 145,408,000 elements past 1e-5),
+# past ANALOG_TOL, which phase 4 set at the stem's 72-term sums
+DARKNET_TOL = 5e-5
+
+
+@torch.no_grad()
+def rgb_stages_card_vs_cpu(phase: str, exp, stages: list,
+                           tol: float = ANALOG_TOL) -> None:
+    """``exp``'s model in f32 at B=2 on random 0-255 images, card (cuDNN,
+    TF32 off) against CPU, stage by stage: each block of ``stages``
+    (``rgb_stages``) run on the CPU on the card's input to it (within
+    ``tol``), then the head's
+    prediction convs and the box decode on the card's tower outputs
+    (1e-3 relative). The weights' BN statistics are calibrated on the
+    images (``calibrate_spiking_bn(..., ann=True)``), so that the
+    activations stay O(1) to the head."""
+    H, W = exp.test_size
+    x = torch.from_numpy(np.random.default_rng(SEED + 17).integers(
+        0, 256, (2, 1, 1, H, W, 3)).astype(np.float32))
+    cpu_model = exp.get_model(device="cpu", seed=SEED)
+    calibrate_spiking_bn(cpu_model, x, ann=True)
+    gpu_model = exp.get_model(device=DEV, seed=SEED)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    stages = rgb_stages(cpu_model, stages)
+    seen, towers = {}, {}
+    mods = dict(gpu_model.named_modules())
+    hs = [mods[n].register_forward_hook(
+        lambda m, a, o, n=n: seen.update({n: (_to(a, "cpu"), o.cpu())}))
+        for n in stages]
+
+    def tower_mods(model):
+        return {(kind, k): getattr(model.head, f"{kind}_convs")[k]
+                for kind in ("cls", "reg") for k in range(3)}
+
+    hs += [m.register_forward_hook(
+        lambda m, a, o, n=n: towers.update({n: o.cpu()}))
+        for n, m in tower_mods(gpu_model).items()]
+    gpu = gpu_model(x.to(DEV)).cpu()
+    for h in hs:
+        h.remove()
+    cpu_mods = dict(cpu_model.named_modules())
+    worst, n_bad, n_all = 0.0, 0, 0
+    for n in stages:
+        args, card = seen[n]
+        rel = _rel_err(card, cpu_mods[n](*args))
+        worst = max(worst, float(rel.max()))
+        n_bad += int((rel > tol).sum())
+        n_all += rel.numel()
+    print(f"  {exp.exp_name}: {len(stages)} stages on the card's inputs: max "
+          f"|card - cpu| / (1 + |cpu|) {worst:.3e}, {n_bad} of {n_all} "
+          f"beyond {tol:.0e}")
+    if n_bad or len(seen) != len(stages):
+        fail(f"phase {phase}: {exp.exp_name}'s stages disagree between card "
+             "and CPU")
+    hs = [m.register_forward_hook(lambda m, a, o, n=n: towers[n])
+          for n, m in tower_mods(cpu_model).items()]
+    tail = cpu_model(x)
+    for h in hs:
+        h.remove()
+    rel = float(_rel_err(gpu, tail).max())
+    print(f"  {exp.exp_name}: head predictions and decode on the card's tower "
+          f"outputs: max |card - cpu| / (1 + |cpu|) {rel:.3e} (tolerance "
+          "1e-3)")
+    if not torch.isfinite(gpu).all() or rel > 1e-3:
+        fail(f"phase {phase}: {exp.exp_name}'s decoded outputs disagree on "
+             "the same tower outputs")
+
+
+YOLOX_STAGES = (["backbone.backbone." + s for s in
+                 ("stem", "dark2", "dark3", "dark4", "dark5")]
+                + ["backbone." + s for s in
+                   ("lateral_conv0", "C3_p4", "reduce_conv1", "C3_p3",
+                    "bu_conv2", "C3_n3", "bu_conv1", "C3_n4")]
+                + [f"head.stems.{k}" for k in range(3)])
+YOLOV3_STAGES = (["backbone.backbone." + s for s in
+                  ("stem", "dark2", "dark3", "dark4", "dark5")]
+                 + ["backbone." + s for s in
+                    ("out1_cbl", "out1", "out2_cbl", "out2")]
+                 + [f"head.stems.{k}" for k in range(3)])
+
+
+def rgb_phases(workers: int) -> int:
+    """Phase 15, the RGB family, as a process of its own: 15a the image IO
+    (the fixtures bit-equal, ms an image, the mosaic's resize and warp),
+    15b ``yolox_s`` through the train CLI (mosaic, mixup, SGD, EMA, the
+    captured step) and the eval CLI on a synthetic COCO tree, 15c
+    ``yolov3`` and ``yolox_nano`` (captured step bit-equal to the eager
+    one, eval forward, card vs CPU), 15d ``yolox_voc_s`` through the eval
+    CLI on a VOC tree. No hand-written kernel may launch. The last line
+    is a JSON object of each path's launches (the wrappers' counts)."""
+    import shutil
+
+    from eas_snn_tpu_torch.data import image
+    from eas_snn_tpu_torch.tools import eval_event
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    out = {}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "outputs", "chip_smoke_phase15")
+    shutil.rmtree(root, ignore_errors=True)
+
+    print(f"phase 15a: image IO without cv2 ({smi})", flush=True)
+    bad = [p for p, want in rgb_fixtures()
+           if not np.array_equal(image.imread(p), want)]
+    print(f"  {len(rgb_fixtures())} JPEG fixtures read by imread, "
+          f"{len(bad)} not bit-equal to cv2's pixels")
+    if bad or len(rgb_fixtures()) != 5:
+        fail(f"phase 15a: imread differs from cv2's pixels on {bad}")
+    scene = os.path.join(RGB_FIXTURES, "scene_640x480.jpg")
+    ms = host_ms(lambda: image.imread(scene), 20)
+    img = image.imread(scene)
+    canvas = np.random.default_rng(SEED).integers(0, 256, (1280, 1280, 3),
+                                                  np.uint8)
+    M = np.array([[0.9, 0.05, 300.0], [-0.04, 0.95, 310.0]])
+    r_ms = host_ms(lambda: image.resize_linear_u8(img, (640, 480)), 20)
+    j_ms = host_ms(lambda: image.resize_linear_u8(img, (832, 624)), 20)
+    w_ms = host_ms(lambda: image.warp_affine_u8(canvas, M, (640, 640)), 10)
+    print(f"  imread of the 640x480 JPEG (4:2:0): {ms:.3f} ms an image; "
+          f"resize_linear_u8 640x480 -> 640x480 (the mosaic's scale 1) "
+          f"{r_ms:.3f} ms, -> 832x624 (a mixup jitter of 1.3) {j_ms:.3f} ms; "
+          f"warp_affine_u8 of the 1280x1280 canvas to 640x640 {w_ms:.3f} ms "
+          f"(host, one thread, {smi})", flush=True)
+
+    print(f"phase 15b: yolox_s at 640x640 on a synthetic COCO tree "
+          f"({RGB_TRAIN_IMAGES} + 5 train images, PNG and JPEG; {smi})",
+          flush=True)
+    t0 = time.perf_counter()
+    coco = write_coco_tree(os.path.join(root, "coco"), RGB_TRAIN_IMAGES,
+                           RGB_VAL_IMAGES, SEED + 15)
+    print(f"  tree written in {time.perf_counter() - t0:.1f} s")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    _, out["rgb_step"] = train_through_cli(
+        ["-n", "yolox_s", "-b", str(RGB_B), "-l", "jsonl", "data_dir", coco,
+         "output_dir", os.path.join(root, "out"), "no_aug_epochs", "0"],
+        RGB_B, RGB_STEPS, workers, "15b", per_step={},
+        then=lambda tr: loader_alone(tr, RGB_B, "yolox_s, mosaic + mixup"))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    if any(tf32):
+        fail(f"phase 15b: the train CLI left TF32 {tf32} for an f32 preset")
+    hexp = get_exp("yolox_s")
+    hexp.data_dir = coco
+    rgb_host_cost(hexp, os.path.join(coco, "train2017", "000000000000.png"))
+    opts = ["data_dir", coco, "data_num_workers", str(workers)]
+    pexp, _ = eval_event.build(["-n", "yolox_s"] + opts)
+    rgb_truth_ap(pexp, RGB_B, "yolox_s COCO protocol", "15b")
+    _, out["rgb_eval_batch"] = eval_through_cli(
+        ["-n", "yolox_s", "-b", str(RGB_B), "--device", DEV], opts, RGB_B,
+        "15b", base={}, v2=False)
+    torch.cuda.empty_cache()
+
+    for name, stages, tol in (("yolov3", YOLOV3_STAGES, DARKNET_TOL),
+                              ("yolox_nano", YOLOX_STAGES, ANALOG_TOL)):
+        exp = get_exp(name)
+        exp.apply_precision()
+        print(f"phase 15c: {name} at {exp.input_size[0]}x"
+              f"{exp.input_size[1]} ({smi})", flush=True)
+        reset_launches()
+        out[f"{name.split('_')[-1]}_step"] = rgb_step("15c", exp, RGB_B,
+                                                      RGB_STEPS)
+        rgb_eval_forward("15c", exp, RGB_EVAL_B)
+        rgb_stages_card_vs_cpu("15c", exp, stages, tol)
+        _no_launches("15c", name)
+
+    print("phase 15d: yolox_voc_s through the eval CLI on a VOC2007 test "
+          f"tree (PNG bytes under .jpg names, one JPEG; {smi})", flush=True)
+    voc = write_voc_tree(os.path.join(root, "VOCdevkit"), RGB_VAL_IMAGES,
+                         SEED + 18)
+    opts = ["data_dir", voc, "data_num_workers", str(workers)]
+    pexp, _ = eval_event.build(["-n", "yolox_voc_s"] + opts)
+    rgb_truth_ap(pexp, RGB_B, "yolox_voc_s COCO protocol", "15d")
+    eval_through_cli(["-n", "yolox_voc_s", "-b", str(RGB_B), "--device",
+                      DEV], opts, RGB_B, "15d", base={}, v2=False)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({k: v for k, v in out.items()}))
+    return 1 if FAILURES else 0
+
+
+def phase_rgb(workers: int) -> dict:
+    """Phase 15 in a process of its own (``rgb_phases``)."""
+    return _child(f"rgb_phases({workers})", "phase 15", 500)
+
+
 def _child(fn: str, what: str, timeout: int) -> dict:
     """``chip_smoke.<fn>`` in a process of its own: its output, then its
     JSON result (empty, and a failure, if it gave none or exited non-zero).
@@ -4654,9 +5138,12 @@ def main() -> int:
     res13 = phase_streaming(args.workers)
     torch.cuda.empty_cache()
     res14 = phase_scale(args.workers)
+    torch.cuda.empty_cache()
+    res15 = phase_rgb(args.workers)
     if FAILURES:
         print(smi)
-        print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed:\n" + "\n".join(
+            f"  {m}" for m in FAILURES), file=sys.stderr)
         return 1
 
     # each path of this run, its launches read from zeroed counts just
@@ -4681,6 +5168,11 @@ def main() -> int:
     # the capturable SGD (the wrappers, from zeroed counts)
     for p in ("remat_step", "dp_step", "sgd_step"):
         paths[p] = res14.get(p)
+    # phase 15: the RGB family, which launches no hand-written kernel: a
+    # step of yolox_s through the train CLI and a batch of the eval CLI
+    # (15b), a captured step of yolov3 and of yolox_nano (15c)
+    for p in ("rgb_step", "rgb_eval_batch", "yolov3_step", "nano_step"):
+        paths[p] = res15.get(p)
     neck_head = dict(res11.get("eval_sites", {}),
                      **res11.get("train_sites", {}))
     b1 = res13.get("b1_kernels", {})
@@ -4717,7 +5209,10 @@ def main() -> int:
           "detection of the demo CLI (a third of its warm-up and capture) "
           "and the train-mode forward of visualize_assignments (13d), a "
           "remat step of ncaltech_syolox_m (phase 14a: 100 + 50), a step "
-          "with an NCCL group and one with the capturable SGD (14b, 14c); "
+          "with an NCCL group and one with the capturable SGD (14b, 14c), "
+          "a step of yolox_s through the train CLI and a batch of its eval "
+          "CLI (15b), a captured step of yolov3 and of yolox_nano (15c), "
+          "all 0: the RGB family is analog; "
           "neck_head: the sums over "
           "the neck and head sites of the full_spike_v2 forward (rows 1-3) "
           "and step (rows 7, 8), phase 11a; b1: the sums over the sites of "

@@ -5,8 +5,10 @@ yolox/data/* and yolox/utils/psee_loader/io/*).
 Datasets: Gen1 (``gen1.py``), raw 1Mpx and RVT-preprocessed 1Mpx
 (``gen4.py``; the RVT reader needs ``h5py``), N-Caltech101
 (``ncaltech.py``) and their unions (``concat.py``), every aggregation of
-``reps.py`` and the frame prestore cache (``cache.py``). Not here: the RGB
-path's ``mosaic.py`` and ``coco.py`` (ROADMAP.md §1 item 11).
+``reps.py`` and the frame prestore cache (``cache.py``). The RGB family:
+COCO and VOC (``coco.py``), mosaic and mixup (``mosaic.py``) and the
+image IO they read through (``image.py``: JPEG and PNG, cv2's resize and
+warp, without cv2).
 """
 
 import os
@@ -14,12 +16,15 @@ import os
 from .augment import (TrainTransform, ValTransform, letterbox,
                       random_resize_place_flip, resize_frames)
 from .cache import SampleCache
+from .coco import VOC_CLASSES, COCODataset, VOCDataset
 from .concat import ConcatDataset, MixConcatDataset
 from .event_dataset import EventDetDataset
 from .gen1 import GEN1_CLASSES, Gen1Dataset, group_boxes_by_time
 from .gen4 import GEN4_CLASSES, Gen4Dataset, RVTGen4Dataset
+from .image import imread
 from .loader import (DevicePrefetcher, EventDataLoader, InfiniteSampler,
                      SequentialSampler, collate_event_batch)
+from .mosaic import MosaicDataset
 from .ncaltech import (NCaltechDataset, encode_atis, read_atis_events,
                        read_ncaltech_annotation)
 from .psee_io import (BBOX_DTYPE, EVENT_DTYPE, EventStream, load_bboxes,
@@ -40,7 +45,8 @@ __all__ = [
     "read_atis_events", "read_ncaltech_annotation", "encode_atis",
     "polarity_histogram", "micro_sum", "voxel_grid", "voxel_cube",
     "timesurface", "timesurface_measure", "slice_time_windows",
-    "pad_events", "bin_event_batch", "bin_events_device",
+    "pad_events", "bin_event_batch", "bin_events_device", "COCODataset",
+    "VOCDataset", "VOC_CLASSES", "MosaicDataset", "imread",
 ]
 
 

@@ -50,10 +50,11 @@ def _site_ops(mod: BaseConv, x) -> np.ndarray:
     ones = torch.ones((1, 1, k, k), dtype=torch.float32, device=acc.device)
     coverage = F.conv2d(acc, ones, stride=s, padding=(k - 1) // 2)
     c_in = sum(p.shape[1] for p in pieces)
-    c_out = mod.weight.shape[0]
+    c_out, g = mod.weight.shape[0], mod.groups
     out_hw = coverage.shape[0] * coverage.shape[2] * coverage.shape[3]
-    sops = float(coverage.double().sum()) * c_out
-    macs = float(out_hw) * k * k * c_in * c_out
+    # a grouped conv's input reaches c_out / g outputs (1 for depthwise)
+    sops = float(coverage.double().sum()) * (c_out // g)
+    macs = float(out_hw) * k * k * (c_in // g) * c_out
     return np.array([sops, macs, float(mod.neuron.spiking)], np.float64)
 
 

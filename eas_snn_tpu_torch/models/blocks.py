@@ -33,7 +33,8 @@ from ..ops.plif import bn_eval, decay_multiplier, plif_forward, plif_train
 from ..ops.surrogate import asgl_spike
 
 __all__ = [
-    "Neuron", "BatchNorm", "PLIF", "BaseConv", "Bottleneck", "SPPBottleneck",
+    "Neuron", "BatchNorm", "PLIF", "BaseConv", "DWConv", "Bottleneck",
+    "SPPBottleneck",
     "CSPLayer", "Focus", "spp_pools", "upsample2x", "remat",
     "frozen_bn_stats", "int8_saved_spikes", "is_spike_train",
 ]
@@ -388,16 +389,20 @@ class BaseConv(nn.Module):
     activation, where a spiking site's BN runs inside the PLIF kernel (its
     batch statistics' terms in training). The input may be a tuple of
     tensors: a channel concat, materialized only on the unfused path.
+    ``groups`` splits the conv's channels as ``nn.Conv2d``'s (the depthwise
+    half of :class:`DWConv`); a grouped site is never fused.
     """
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int,
                  stride: int = 1, act: str = "silu",
-                 neuron: Neuron = Neuron(), dtype=torch.float32):
+                 neuron: Neuron = Neuron(), dtype=torch.float32,
+                 groups: int = 1):
         super().__init__()
         self.ksize, self.stride, self.neuron, self.dtype = (
             ksize, stride, neuron, dtype)
+        self.groups = groups
         conv = nn.Conv2d(in_channels, out_channels, ksize, stride,
-                         padding=(ksize - 1) // 2, bias=False)
+                         padding=(ksize - 1) // 2, groups=groups, bias=False)
         self.conv = nn.Sequential(conv) if neuron.spiking else conv
         self.bn = BatchNorm(out_channels)
         self.act = (PLIF(neuron.T, neuron.spike_fn, neuron.thresh,
@@ -413,7 +418,7 @@ class BaseConv(nn.Module):
         """Does this site run as a whole-site conv+BN+PLIF kernel? Never in
         training."""
         n = self.neuron
-        if not n.spiking or self.training:
+        if not n.spiking or self.training or self.groups != 1:
             return False
         if (self.ksize, self.stride) not in ((1, 1), (3, 1), (3, 2)):
             return False
@@ -441,24 +446,45 @@ class BaseConv(nn.Module):
         if len(pieces) > 1 and all(map(is_spike_train, pieces)):
             _mark_spikes(x)
         y = F.conv2d(x, self.weight.to(self.dtype), stride=self.stride,
-                     padding=(self.ksize - 1) // 2)
+                     padding=(self.ksize - 1) // 2, groups=self.groups)
         if self.neuron.spiking:
             return self.act(y, bn=self.bn.terms(y))
         return self.act(self.bn(y, self.dtype))
 
 
+class DWConv(nn.Module):
+    """A depthwise k x k conv, then a pointwise 1x1 (reference
+    network_blocks.py:59-78; JAX ``models/blocks.py:DWConv``), each a
+    :class:`BaseConv` with its BN and activation: ``dconv`` and ``pconv``,
+    the reference's names. Takes BaseConv's arguments."""
+
+    def __init__(self, in_channels: int, out_channels: int, ksize: int,
+                 stride: int = 1, act: str = "silu",
+                 neuron: Neuron = Neuron(), dtype=torch.float32):
+        super().__init__()
+        self.dconv = BaseConv(in_channels, in_channels, ksize, stride, act,
+                              neuron, dtype, groups=in_channels)
+        self.pconv = BaseConv(in_channels, out_channels, 1, 1, act, neuron,
+                              dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pconv(self.dconv(x))
+
+
 class Bottleneck(nn.Module):
-    """1x1 reduce -> 3x3 conv, additive shortcut (reference
-    network_blocks.py:81-104). Spiking: spikes + spikes."""
+    """1x1 reduce -> 3x3 conv (depthwise-separable with ``depthwise``),
+    additive shortcut (reference network_blocks.py:81-104). Spiking:
+    spikes + spikes."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  shortcut: bool = True, expansion: float = 0.5,
                  act: str = "silu", neuron: Neuron = Neuron(),
-                 dtype=torch.float32):
+                 dtype=torch.float32, depthwise: bool = False):
         super().__init__()
         hidden = int(out_channels * expansion)
+        conv = DWConv if depthwise else BaseConv
         self.conv1 = BaseConv(in_channels, hidden, 1, 1, act, neuron, dtype)
-        self.conv2 = BaseConv(hidden, out_channels, 3, 1, act, neuron, dtype)
+        self.conv2 = conv(hidden, out_channels, 3, 1, act, neuron, dtype)
         self.use_add = shortcut and in_channels == out_channels
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -520,7 +546,7 @@ class CSPLayer(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, n: int = 1,
                  shortcut: bool = True, expansion: float = 0.5,
                  act: str = "silu", neuron: Neuron = Neuron(),
-                 dtype=torch.float32):
+                 dtype=torch.float32, depthwise: bool = False):
         super().__init__()
         hidden = int(out_channels * expansion)
         self.conv1 = BaseConv(in_channels, hidden, 1, 1, act, neuron, dtype)
@@ -528,7 +554,8 @@ class CSPLayer(nn.Module):
         self.conv3 = BaseConv(2 * hidden, out_channels, 1, 1, act, neuron,
                               dtype)
         self.m = nn.Sequential(*[
-            Bottleneck(hidden, hidden, shortcut, 1.0, act, neuron, dtype)
+            Bottleneck(hidden, hidden, shortcut, 1.0, act, neuron, dtype,
+                       depthwise)
             for _ in range(n)
         ])
 

@@ -3,7 +3,9 @@ reference yolox/models/darknet.py:97-180), NCHW.
 
 The Focus stem is always analog: the reference's convert_to_spiking wraps
 it whole in a SeqToANNContainer (hence ``stem.0``) without converting its
-activation. dark2..dark5 are spiking when the neuron config says so.
+activation. dark2..dark5 are spiking when the neuron config says so. ``in_channels``
+is the stem's input (2 event polarities, 3 for RGB); ``depthwise`` makes
+every stage conv and CSP bottleneck depthwise-separable (YOLOX-Nano).
 
 With ``remat`` (JAX ``CSPDarknet.remat``, ``models/darknet.py:29-46``)
 every block of every stage, the Focus stem, each stage conv, CSP layer
@@ -19,7 +21,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn as nn
 
-from .blocks import BaseConv, CSPLayer, Focus, Neuron, SPPBottleneck, remat
+from .blocks import (BaseConv, CSPLayer, DWConv, Focus, Neuron,
+                     SPPBottleneck, remat)
 
 __all__ = ["CSPDarknet"]
 
@@ -28,28 +31,31 @@ class CSPDarknet(nn.Module):
     def __init__(self, dep_mul: float, wid_mul: float, in_channels: int = 2,
                  out_features: Tuple[str, ...] = ("dark3", "dark4", "dark5"),
                  act: str = "silu", neuron: Neuron = Neuron(),
-                 dtype=torch.float32, remat: bool = False):
+                 dtype=torch.float32, remat: bool = False,
+                 depthwise: bool = False):
         super().__init__()
         self.out_features = out_features
         self.remat = remat
         base = int(wid_mul * 64)
         depth = max(round(dep_mul * 3), 1)
         kw = dict(act=act, neuron=neuron, dtype=dtype)
+        csp = dict(depthwise=depthwise, **kw)
+        conv = DWConv if depthwise else BaseConv
         self.stem = nn.Sequential(
             Focus(in_channels, base, 3, act=act, dtype=dtype))
         self.dark2 = nn.Sequential(
-            BaseConv(base, base * 2, 3, 2, **kw),
-            CSPLayer(base * 2, base * 2, n=depth, **kw))
+            conv(base, base * 2, 3, 2, **kw),
+            CSPLayer(base * 2, base * 2, n=depth, **csp))
         self.dark3 = nn.Sequential(
-            BaseConv(base * 2, base * 4, 3, 2, **kw),
-            CSPLayer(base * 4, base * 4, n=depth * 3, **kw))
+            conv(base * 2, base * 4, 3, 2, **kw),
+            CSPLayer(base * 4, base * 4, n=depth * 3, **csp))
         self.dark4 = nn.Sequential(
-            BaseConv(base * 4, base * 8, 3, 2, **kw),
-            CSPLayer(base * 8, base * 8, n=depth * 3, **kw))
+            conv(base * 4, base * 8, 3, 2, **kw),
+            CSPLayer(base * 8, base * 8, n=depth * 3, **csp))
         self.dark5 = nn.Sequential(
-            BaseConv(base * 8, base * 16, 3, 2, **kw),
+            conv(base * 8, base * 16, 3, 2, **kw),
             SPPBottleneck(base * 16, base * 16, **kw),
-            CSPLayer(base * 16, base * 16, n=depth, shortcut=False, **kw))
+            CSPLayer(base * 16, base * 16, n=depth, shortcut=False, **csp))
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         outputs = {}

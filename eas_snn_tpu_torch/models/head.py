@@ -16,6 +16,9 @@ grid (gx the column, gy the row). At eval obj and cls are sigmoided and
 the decoded (B, A, 5 + C) tensor comes out; in training obj and cls stay
 logits and a :class:`HeadOutput` also carries the raw reg outputs (for
 the L1 loss), the grid and the stride of every anchor.
+
+With ``depthwise`` the towers' 3x3 convs are depthwise-separable
+(YOLOX-Nano; JAX ``models/head.py:65``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import BaseConv, Neuron
+from .blocks import BaseConv, DWConv, Neuron
 from .pafpn import rate_decode
 
 __all__ = ["YOLOXHead", "HeadOutput"]
@@ -51,17 +54,19 @@ class YOLOXHead(nn.Module):
                  in_channels: Tuple[int, ...] = (256, 512, 1024),
                  act: str = "silu", dtype=torch.float32,
                  prior_prob: float = 1e-2, neuron: Neuron = Neuron(),
-                 decode_input: bool = False, T: int = 1):
+                 decode_input: bool = False, T: int = 1,
+                 depthwise: bool = False):
         super().__init__()
         self.num_classes, self.strides, self.dtype = num_classes, strides, dtype
         self.neuron, self.decode_input, self.T = neuron, decode_input, T
         self.prior_bias = -log((1 - prior_prob) / prior_prob)
         hidden = int(256 * width)
         kw = dict(act=act, neuron=neuron, dtype=dtype)
+        conv = DWConv if depthwise else BaseConv
 
         def tower():
-            return nn.Sequential(BaseConv(hidden, hidden, 3, 1, **kw),
-                                 BaseConv(hidden, hidden, 3, 1, **kw))
+            return nn.Sequential(conv(hidden, hidden, 3, 1, **kw),
+                                 conv(hidden, hidden, 3, 1, **kw))
 
         self.stems = nn.ModuleList(
             BaseConv(int(c * width), hidden, 1, 1, **kw) for c in in_channels)

@@ -9,6 +9,11 @@ the (T*B, ...) spike trains themselves (int8 at eval). The merges hand
 their CSP layer a tuple (a channel concat that only the unfused path
 materializes), so a fused 1x1 site reads the pieces directly.
 
+``image_channels`` is the backbone stem's input (2 event polarities, 3
+for RGB); ``depthwise`` makes the bottom-up convs and every CSP
+bottleneck depthwise-separable, as in the backbone (YOLOX-Nano; JAX
+``models/pafpn.py:66, 73``).
+
 ``remat`` goes to the backbone and makes every conv and CSP layer of the
 neck recompute its inner activations in the backward (JAX
 ``models/pafpn.py:39-41, 68-71``; ``blocks.remat``).
@@ -21,7 +26,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn as nn
 
-from .blocks import BaseConv, CSPLayer, Neuron, remat, upsample2x
+from .blocks import BaseConv, CSPLayer, DWConv, Neuron, remat, upsample2x
 from .darknet import CSPDarknet
 
 __all__ = ["YOLOPAFPN", "rate_decode"]
@@ -38,24 +43,27 @@ class YOLOPAFPN(nn.Module):
                  in_channels: Tuple[int, int, int] = (256, 512, 1024),
                  act: str = "silu", backbone_neuron: Neuron = Neuron(),
                  neck_neuron: Neuron = Neuron(), dtype=torch.float32,
-                 remat: bool = False):
+                 remat: bool = False, depthwise: bool = False,
+                 image_channels: int = 2):
         super().__init__()
         self.in_features = in_features
         self.backbone_neuron, self.neck_neuron = backbone_neuron, neck_neuron
-        self.backbone = CSPDarknet(depth, width, out_features=in_features,
-                                   act=act, neuron=backbone_neuron,
-                                   dtype=dtype, remat=remat)
+        self.backbone = CSPDarknet(depth, width, in_channels=image_channels,
+                                   out_features=in_features, act=act,
+                                   neuron=backbone_neuron, dtype=dtype,
+                                   remat=remat, depthwise=depthwise)
         c0, c1, c2 = (int(c * width) for c in in_channels)
         n = round(3 * depth)
         kw = dict(act=act, neuron=neck_neuron, dtype=dtype)
-        csp = dict(n=n, shortcut=False, **kw)
+        csp = dict(n=n, shortcut=False, depthwise=depthwise, **kw)
+        conv = DWConv if depthwise else BaseConv
         self.lateral_conv0 = BaseConv(c2, c1, 1, 1, **kw)
         self.C3_p4 = CSPLayer(2 * c1, c1, **csp)
         self.reduce_conv1 = BaseConv(c1, c0, 1, 1, **kw)
         self.C3_p3 = CSPLayer(2 * c0, c0, **csp)
-        self.bu_conv2 = BaseConv(c0, c0, 3, 2, **kw)
+        self.bu_conv2 = conv(c0, c0, 3, 2, **kw)
         self.C3_n3 = CSPLayer(2 * c0, c1, **csp)
-        self.bu_conv1 = BaseConv(c1, c1, 3, 2, **kw)
+        self.bu_conv1 = conv(c1, c1, 3, 2, **kw)
         self.C3_n4 = CSPLayer(2 * c1, c2, **csp)
 
     def forward(self, x: torch.Tensor, return_features: bool = False):

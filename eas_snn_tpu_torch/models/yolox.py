@@ -29,6 +29,11 @@ JAX package's PLIF ``train_store``) holds the spike trains that a train
 step saves for its backward as int8 (``blocks.int8_saved_spikes``);
 'float' keeps them in the compute dtype. Neither changes a bit of the
 step.
+
+``in_channels`` is the C of the events (2 polarities; 3 for the RGB
+family, whose images go in as (B, 1, 1, H, W, 3) through the count
+embedding into an analog YOLOX); ``depthwise`` makes the backbone's,
+the neck's and the head's 3x3 convs depthwise-separable (YOLOX-Nano).
 """
 
 from __future__ import annotations
@@ -47,13 +52,29 @@ from .head import YOLOXHead
 from .pafpn import YOLOPAFPN
 from .simota import yolox_losses
 
-__all__ = ["EASYOLOX", "USE_SPIKE_MODES"]
+__all__ = ["EASYOLOX", "USE_SPIKE_MODES", "init_convs"]
 
 # std of a unit normal truncated to [-2, 2] (flax's lecun_normal divides by
 # it so that the truncated draw keeps variance 1/fan_in)
 _TRUNC_STD = 0.87962566103423978
 
 USE_SPIKE_MODES = ("none", "backbone", "full", "full_v2")
+
+
+@torch.no_grad()
+def init_convs(model: nn.Module, generator: torch.Generator) -> None:
+    """Every conv of ``model`` lecun-normal (normal truncated at 2 std,
+    variance 1 / fan_in, the fan-in ``weight[0].numel()``: k * k for a
+    depthwise conv, as flax's) with a zero bias, every BN the identity."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            std = m.weight[0].numel() ** -0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
 
 
 class EASYOLOX(nn.Module):
@@ -72,7 +93,8 @@ class EASYOLOX(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  embedding_state_dtype: Optional[torch.dtype] = None,
                  fuse: str = "auto", fused_sampler: str = "never",
-                 remat: bool = False, train_store: str = "int8"):
+                 remat: bool = False, train_store: str = "int8",
+                 in_channels: int = 2, depthwise: bool = False):
         super().__init__()
         if use_spike not in USE_SPIKE_MODES:
             raise ValueError(f"use_spike '{use_spike}' not in "
@@ -103,12 +125,13 @@ class EASYOLOX(nn.Module):
             depth, width, act=act,
             backbone_neuron=ann if use_spike == "none" else snn,
             neck_neuron=snn if use_spike in ("full", "full_v2") else ann,
-            dtype=compute_dtype, remat=remat)
+            dtype=compute_dtype, remat=remat, depthwise=depthwise,
+            image_channels=in_channels)
         # the head takes (T*B) spike trains when the neck spikes
         self.head = YOLOXHead(
             num_classes, width, act=act, dtype=compute_dtype,
             neuron=snn if use_spike == "full_v2" else ann,
-            decode_input=use_spike == "full", T=T)
+            decode_input=use_spike == "full", T=T, depthwise=depthwise)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -118,15 +141,7 @@ class EASYOLOX(nn.Module):
         cls/obj biases at the prior and the sampler's convs as the sampler
         sets them. At this init dark3-dark5 of the flagship barely fire on
         Poisson(0.2) events."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                std = m.weight[0].numel() ** -0.5 / _TRUNC_STD
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
+        init_convs(self, generator)
         for m in self.modules():
             if isinstance(m, BaseConv) and m.neuron.spiking:
                 m.act.w.fill_(PLIF_W_INIT)

@@ -9,7 +9,10 @@ overrides.
     python -m eas_snn_tpu_torch.tools.train_event -f my_exp.py ...
 
 ``-f`` loads a Python file whose ``Exp`` class subclasses
-``eas_snn_tpu_torch.exp.EventExp``; ``-n`` names a preset of the port.
+``eas_snn_tpu_torch.exp.EventExp`` or, for the RGB family,
+``eas_snn_tpu_torch.exp.YOLOXExp``; ``-n`` names a preset of the port
+(the event presets and the RGB ones: ``yolox_nano`` ... ``yolox_x``,
+``yolov3``, ``yolox_voc_s``).
 
 Runs on the card (``--device cuda``, the default) with the step captured
 as CUDA graphs, or on the CPU with ``--device cpu``.
@@ -39,15 +42,16 @@ def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         "eas_snn_tpu_torch train",
         epilog="-f loads a Python file whose Exp class subclasses "
-               "eas_snn_tpu_torch.exp.EventExp (a file that imports the JAX "
-               "package is refused); -n names a preset of the port.")
+               "eas_snn_tpu_torch.exp.EventExp or YOLOXExp (a file that "
+               "imports the JAX package is refused); -n names a preset of "
+               "the port.")
     parser.add_argument("-expn", "--experiment-name", type=str, default=None)
     parser.add_argument("-n", "--name", type=str, default=None,
                         help="exp name (a preset of the port)")
     parser.add_argument("-f", "--exp_file", type=str, default=None,
                         help="exp file: a Python file whose Exp class "
-                             "subclasses eas_snn_tpu_torch.exp.EventExp "
-                             "(taken before -n)")
+                             "subclasses eas_snn_tpu_torch.exp.EventExp or "
+                             "YOLOXExp (taken before -n)")
     parser.add_argument(
         "-b", "--batch-size", type=int, default=64,
         help="the global batch of a step: with --num_processes N each "

@@ -35,6 +35,20 @@ _HEAD = (
     (re.compile(r"(cls|reg|obj)_pred(\d+)$"),
      lambda m: (f"{m[1]}_preds", m[2])),
 )
+# Darknet (models/yolo_fpn.py) module names -> reference tokens; the SPP
+# tail continues dark5's indices after its n5 ResLayers
+_DARKNET = (
+    (re.compile(r"stem_conv$"), lambda m, n5: ("stem", "0")),
+    (re.compile(r"stem_res_down$"), lambda m, n5: ("stem", "1")),
+    (re.compile(r"stem_res_res(\d+)$"),
+     lambda m, n5: ("stem", str(2 + int(m[1])))),
+    (re.compile(r"(dark\d)_down$"), lambda m, n5: (m[1], "0")),
+    (re.compile(r"(dark\d)_res(\d+)$"),
+     lambda m, n5: (m[1], str(1 + int(m[2])))),
+    (re.compile(r"dark5_spp(\d)$"),
+     lambda m, n5: ("dark5", str(1 + n5 + int(m[1])))),
+    (re.compile(r"(out[12])_(\d)$"), lambda m, n5: (m[1], m[2])),
+)
 # embedding leaves: (input|gate)_conv_agg of split, the conv stacks of the
 # arsnn / rsnn samplers and of the snn embedding (as the reference's
 # tdLayer, embedding_conv.layer)
@@ -55,11 +69,15 @@ def _leaves(tree: Mapping, path: Tuple[str, ...] = ()
             yield path + (k,), v
 
 
-def _module_tokens(path: Tuple[str, ...]) -> list:
-    """JAX module path -> reference torch module tokens."""
+def _module_tokens(path: Tuple[str, ...], n5: int = -1) -> list:
+    """JAX module path -> reference torch module tokens; ``n5`` is the
+    ResLayer count of a Darknet's dark5 (-1: no Darknet)."""
     out = []
     for i, p in enumerate(path):
-        if p in _DARK:
+        if n5 >= 0 and any(pat.match(p) for pat, _ in _DARKNET):
+            pat, fn = next((pat, fn) for pat, fn in _DARKNET if pat.match(p))
+            out += fn(pat.match(p), n5)
+        elif p in _DARK:
             out += _DARK[p]
         elif p == "stem" and path[:i] == ("backbone", "backbone"):
             out += ["stem", "0"]  # the whole-Focus SeqToANNContainer
@@ -81,9 +99,19 @@ def _module_tokens(path: Tuple[str, ...]) -> list:
 def state_dict_from_jax(variables: Mapping[str, Any]
                         ) -> Dict[str, torch.Tensor]:
     """The JAX package's EASYOLOX variables (``{"params", "batch_stats"}``
-    of numpy arrays) as the port's state dict. Conv kernels go HWIO ->
-    OIHW; every BN gains ``num_batches_tracked`` = 0."""
+    of numpy arrays), or those of its YOLOv3 (YOLOFPN over Darknet), as
+    the port's state dict. Conv kernels go HWIO -> OIHW (a depthwise
+    kernel (k, k, 1, C) to (C, 1, k, k)); every BN gains
+    ``num_batches_tracked`` = 0."""
     params = variables["params"]
+    n5 = -1  # dark5's ResLayers where the tree holds a Darknet
+    for path, _ in _leaves(params):
+        if "stem_conv" in path:
+            darknet = params
+            for p in path[:path.index("stem_conv")]:
+                darknet = darknet[p]
+            n5 = sum(k.startswith("dark5_res") for k in darknet)
+            break
     spiking = set()  # JAX paths of BaseConvs that hold a PLIF
     for path, _ in _leaves(params):
         if "PLIF_0" in path:
@@ -106,7 +134,7 @@ def state_dict_from_jax(variables: Mapping[str, Any]
                     "weight" if m[2] == "kernel" else "bias")
                 sd[name] = _to_torch(value, m[2] == "kernel")
                 continue
-        tokens = _module_tokens(mod)
+        tokens = _module_tokens(mod, n5)
         if mod[-1:] == ("bn",) or mod == ("emb_bn",):
             tokens.append(_BN[leaf])
         elif leaf == "alpha" and mod[-1:] == ("PLIF_0",):
@@ -122,7 +150,7 @@ def state_dict_from_jax(variables: Mapping[str, Any]
             tokens.append(leaf)
         sd[".".join(tokens)] = _to_torch(value, leaf == "kernel")
     for path, value in _leaves(variables.get("batch_stats", {})):
-        tokens = _module_tokens(path[:-1])
+        tokens = _module_tokens(path[:-1], n5)
         sd[".".join(tokens + [_BN[path[-1]]])] = _to_torch(np.asarray(value))
         if path[-1] == "mean":
             sd[".".join(tokens + ["num_batches_tracked"])] = torch.tensor(0)
