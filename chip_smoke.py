@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``eas_snn_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--batch 128] [--forwards 5] [--train-batch 64]
-                          [--train-steps 8] [--workers 7]
+                          [--train-steps 4] [--workers 7]
 
 Phases, each of which fails the run (exit code 1, no result line):
 
@@ -155,7 +155,7 @@ Phases, each of which fails the run (exit code 1, no result line):
    (9a, 9b) phases 2 and 2b at the deploy forward's site geometries at
    B=32 (no site is in the TPU's fusion table at 640x640: all 50 take the
    PLIF kernel; the wgmma kernels are called directly at every 1x1 / 3x3
-   site, refusals listed), then kernel 5 at (Tm 4, N 32, 640x640); (9c)
+   site, refusals listed), then kernel 5 at (Tm 4, N 16, 640x640); (9c)
    phase 5's check at every train-step site geometry at B=32 with the
    preset's alpha 1.5 on both sides (9a-9c run in a process of their
    own: in the process that ran phases 2-8 the profiler recorded no
@@ -218,9 +218,9 @@ Phases, each of which fails the run (exit code 1, no result line):
    refusals listed) and kernel 5 against its plain version at N=1;
    (13b) ``inference.StreamingDetector`` with calibrated weights on a
    synthetic Gen1 stream (the ap_drift writer, 240x304, 500k events/s):
-   a detection every 100 ms over a 200 ms window, 100 ticks, captured, at
+   a detection every 100 ms over a 200 ms window, 50 ticks, captured, at
    ``max_events`` 65,536 and 262,144 (host ms, end-to-end ms p50 / p99,
-   detections a second, peak memory, 100 replays of one graph); one
+   detections a second, peak memory, 50 replays of one graph); one
    eager detection's launches (35 / 8 / 6 / 1 + Tm) and a replay's by
    kernel name; eager and captured detection in turns, their outputs
    bit-equal and their ms; the re-read baseline
@@ -235,9 +235,9 @@ Phases, each of which fails the run (exit code 1, no result line):
    batch); (13d, in 13b's process) the demo CLI
    (``tools/demo.py:main --fp16 -c``, weights with their BN calibrated on
    8 of the demo's own windows, saved as a ``.pth``) over 13b's stream at
-   10 detections a second of stream time, 50 frames, with ``--conf`` the
+   10 detections a second of stream time, 30 frames, with ``--conf`` the
    least over the frames of each frame's top score, so that every frame
-   draws a box (the phase fails under 40 of 50):
+   draws a box (the phase fails under 24 of 30):
    each frame's detections bit-equal to an eager ``StreamingDetector``'s
    of the same weights over the same ticks (the demo's own launches 3 x
    35 / 8 / 6 / 1 + Tm: two warm-up runs and the capture; the reference's
@@ -258,7 +258,7 @@ Phases, each of which fails the run (exit code 1, no result line):
    the train PLIF launches 50 + 50 a plain step and 100 + 50 a remat step
    (the wrappers; by kernel name in a replay); ``e_yolox_m`` (f32) at
    B=32 with remat off and on, bit-equal; then the largest batch of 32,
-   48, 64, 96, 128 that fits with remat and int8 (the first that does
+   64, 96, 128 that fits with remat and int8 (the first that does
    not ends the sweep); (14c, ``scale_dp_phases``) the capturable SGD's
    captured step bit-equal to its eager one at ``gen1_syolox_m`` B=64;
    (14b) an NCCL group of one process: the captured step with the group
@@ -271,9 +271,11 @@ Phases, each of which fails the run (exit code 1, no result line):
    (``<run dir>/pred_images/step*.png``) must decode with ``read_png``;
 15. the RGB family, in a process of its own (``rgb_phases``), which
    launches no hand-written kernel (the wrappers' counts from zero on
-   every path): (15a) ``data/image.py:imread`` on every JPEG fixture of
-   ``tests/torch_fixtures/rgb`` bit-equal to the cv2 pixels stored
-   beside it, ms an image at 640x480, ``resize_linear_u8`` and
+   every path): (15a) ``data/image.py:imread`` on every image fixture
+   of ``tests/torch_fixtures/rgb`` (baseline and progressive JPEGs and a
+   filtered PNG by cv2, a CMYK JPEG by PIL) bit-equal to the cv2 pixels
+   stored beside it, ms an image at 640x480 and of the progressive, CMYK
+   and PNG fixtures, ``resize_linear_u8`` and
    ``warp_affine_u8`` ms at the mosaic's sizes (a 1280x1280 canvas to
    640x640); (15b) ``yolox_s`` at 640x640 on a synthetic COCO tree
    (640x480 PNGs with filled boxes and the JPEG fixtures) through the
@@ -290,7 +292,27 @@ Phases, each of which fails the run (exit code 1, no result line):
    1e-3); (15d)
    ``yolox_voc_s`` through the eval CLI on a VOC2007 tree of PNG bytes
    under ``.jpg`` names and one JPEG: AP 1.0 with the ground truth;
-16. when every check passed, one ``{"kernels": [...]}`` line, the
+16. export and the packed sampler, in a process of its own
+   (``export_phases``): (16a) ``gen1_syolox_m`` under ``deploy()`` (full
+   width, 256x320, calibrated BN) exported at B=16 by
+   ``tools/export.py:export_program`` (its graph must hold 35 / 8 / 6 /
+   1 + 1 kernel op nodes, the state dict every parameter), saved, then
+   loaded in a fresh process that imports ``eas_snn_tpu_torch`` alone:
+   trace, save and load s, the ``.pt2`` size, 35 / 8 / 6 / 1 + 4 launches
+   a forward there, its outputs bit-equal to the eager deploy forward's,
+   its frames/s against the eager model's in that process in turns, and
+   one forward of each profiled (window, device busy, kernel launches,
+   aten calls, eval-constant ops); (16b) the export CLI with verify on
+   ``gen1_syolox_s`` and ``yolox_nano`` (twice the program's op nodes in
+   the verify's launches; none for the RGB preset); (16c) the packed
+   sampler route (``ops/pack.py``) held to the plain route in f32 (the
+   share of slots beyond ANALOG_TOL and of slots one route writes and
+   the other does not, each within PACK_TOL), each sampler route's ms at
+   deploy precision at B=128 (plain, v1, v2, packed), and the captured
+   ``gen1_syolox_m`` step at B=64 with ``packed_embedding`` 'never' and
+   'auto' in turns (50 + 50 launches a step), the packed step captured
+   bit-equal to eager;
+17. when every check passed, one ``{"kernels": [...]}`` line, the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 ``determinism_cost`` (not run by ``main``) times the captured step with
@@ -1077,9 +1099,15 @@ def check_v2(what, ev, iw, gw, kw, timed=False):
     """Kernel 5 against its plain version: slots bit-equal. At least
     MIN_WRITTEN slot values must be non-zero (the comparison must see
     written slots), unless a hard reset zeroes the 'last' readout of every
-    spiking element (then only residuals are)."""
+    spiking element (then only residuals are). With ``timed``, the plain
+    version's ms is that one call's (CUDA events): it takes seconds at
+    the flagship, where a warm-up would add nothing but time."""
     got = af.arsnn_fused_v2(ev, iw, gw, **kw)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     want = af.arsnn_fused_v2_plain(ev, iw, gw, **kw)
+    end.record()
     torch.cuda.synchronize()
     res = dict(mismatch=_mismatch(got, want), n=got.numel(),
                max_abs_err=float((got - want).abs().max()),
@@ -1098,8 +1126,7 @@ def check_v2(what, ev, iw, gw, kw, timed=False):
         res["kernel_ms"], _, _ = kernel_ms(
             lambda: af.arsnn_fused_v2(ev, iw, gw, **kw), "arsnn_v2_kernel", 3,
             launches=ev.shape[0])
-        res["plain_ms"] = cuda_ms(
-            lambda: af.arsnn_fused_v2_plain(ev, iw, gw, **kw), 1, warmup=1)
+        res["plain_ms"] = start.elapsed_time(end)
         nw = sum(w.numel() + b.numel() for w, b in iw + gw)
         geo = (ev, kw["Ts"], len(iw), iw[0][0].shape[-1], nw)
         res["bound_ms"], res["bound_by"] = v2_bound(*geo)
@@ -3502,7 +3529,7 @@ def determinism_cost(steps: int = 6) -> int:
 # ---------------------------------------------------------------- phase 13
 
 GEN1_SENSOR = (240, 304)
-STREAM_TICKS = 100           # detections, one every STREAM_TICK_US
+STREAM_TICKS = 50            # detections, one every STREAM_TICK_US
 STREAM_TICK_US = 100_000
 STREAM_WINDOW_US = 200_000
 # the JAX tool's event budget (tools/bench_streaming.py) and the default
@@ -3551,8 +3578,8 @@ def _same_outputs(a: np.ndarray, b: np.ndarray) -> bool:
 
 
 DEMO_FPS = 10         # detections a second of stream time (13b's tick)
-DEMO_FRAMES = 50
-DEMO_MIN_DRAWN = 40   # frames of the DEMO_FRAMES that must draw a box
+DEMO_FRAMES = 30
+DEMO_MIN_DRAWN = 24   # frames of the DEMO_FRAMES that must draw a box
 DEMO_CALIB = 8        # the demo's windows its weights' BN is calibrated on
 ASSIGN_BOXES = (      # planted [cls, cx, cy, w, h] a sample, 256x320
     ((0, 80, 100, 60, 40), (1, 200, 150, 30, 70), (0, 280, 40, 24, 24)),
@@ -4207,8 +4234,8 @@ def nan_sweep() -> int:
 # ---------------------------------------------------------------- phase 14
 
 SCALE_B = 32                         # the reference's N-Caltech batch
-SCALE_SWEEP = (32, 48, 64, 96, 128)  # batches tried with remat + int8
-SCALE_REPLAYS = 3                    # timed replays a configuration
+SCALE_SWEEP = (32, 64, 96, 128)  # batches tried with remat + int8
+SCALE_REPLAYS = 2                    # timed replays a configuration
 # remat recomputes each site's train PLIF forward once: 2 x 50 + 50
 PER_STEP_REMAT = {"plif_train_fwd": 100, "plif_train_bwd": 50}
 DP_B = FULL_TRAIN_B                  # phase 6's gen1_syolox_m batch
@@ -4557,21 +4584,23 @@ def scale_dp_phases(workers: int) -> int:
 
 RGB_B = 16              # the RGB train steps' batch (phases 15b, 15c)
 RGB_EVAL_B = 64         # the eval forwards' batch (phase 15c)
-RGB_STEPS = 8           # timed steps of the train CLI and of each step
-RGB_TRAIN_IMAGES = 64   # 640x480 PNGs of phase 15b's train split
-RGB_VAL_IMAGES = 32     # and of its val split (and 15d's VOC test split)
+RGB_STEPS = 4           # timed steps of the train CLI and of each step
+RGB_TRAIN_IMAGES = 32   # 640x480 PNGs of phase 15b's train split
+RGB_VAL_IMAGES = 16     # and of its val split (and 15d's VOC test split)
 RGB_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "tests", "torch_fixtures", "rgb")
 
 
 def rgb_fixtures() -> list:
-    """The checked-in JPEGs (cv2-written) with cv2's pixels beside them
-    as PNGs: [(jpg path, expected BGR)]."""
+    """The checked-in images (baseline and progressive JPEGs and a
+    filtered PNG by cv2, a CMYK JPEG by PIL) with cv2's pixels beside
+    them as PNGs (the image's stem + .png): [(path, expected BGR)]."""
     from eas_snn_tpu_torch.utils.png import read_png
     out = []
     for n in sorted(os.listdir(RGB_FIXTURES)):
-        if n.endswith(".jpg"):
-            want = read_png(os.path.join(RGB_FIXTURES, n[:-4] + ".png"))
+        if n.endswith(".jpg") or n.endswith(".cv2.png"):
+            want = read_png(os.path.join(RGB_FIXTURES,
+                                         n.split(".")[0] + ".png"))
             if want.ndim == 2:
                 want = np.repeat(want[..., None], 3, 2)
             out.append((os.path.join(RGB_FIXTURES, n), want))
@@ -4599,8 +4628,9 @@ def _rgb_boxes(rng, h: int, w: int, n: int) -> list:
 
 def write_coco_tree(root: str, n_train: int, n_val: int, seed: int) -> str:
     """COCO-format train2017 / val2017: 640x480 PNGs (``write_png``), 2-4
-    filled boxes each in 80 categories, plus the JPEG fixtures (one box
-    each), so that the loader decodes JPEGs too."""
+    filled boxes each in 80 categories, plus the image fixtures (one box
+    each), so that the loader decodes JPEGs (progressive and CMYK among
+    them) and filtered PNGs too."""
     import shutil
 
     from eas_snn_tpu_torch.utils.png import write_png
@@ -4932,12 +4962,20 @@ def rgb_phases(workers: int) -> int:
     shutil.rmtree(root, ignore_errors=True)
 
     print(f"phase 15a: image IO without cv2 ({smi})", flush=True)
-    bad = [p for p, want in rgb_fixtures()
+    fixtures = rgb_fixtures()
+    bad = [p for p, want in fixtures
            if not np.array_equal(image.imread(p), want)]
-    print(f"  {len(rgb_fixtures())} JPEG fixtures read by imread, "
-          f"{len(bad)} not bit-equal to cv2's pixels")
-    if bad or len(rgb_fixtures()) != 5:
+    print(f"  {len(fixtures)} image fixtures read by imread (a progressive "
+          f"and a CMYK JPEG and a cv2-written PNG among them: "
+          f"{[os.path.basename(p) for p, _ in fixtures]}), {len(bad)} not "
+          "bit-equal to cv2's pixels")
+    if bad or len(fixtures) != 8:
         fail(f"phase 15a: imread differs from cv2's pixels on {bad}")
+    for n in ("prog_420_75x53.jpg", "cmyk_48x40.jpg",
+              "filtered_83x61.cv2.png"):
+        p = os.path.join(RGB_FIXTURES, n)
+        print(f"  imread of {n}: {host_ms(lambda: image.imread(p), 20):.3f} "
+              f"ms (host, one thread)")
     scene = os.path.join(RGB_FIXTURES, "scene_640x480.jpg")
     ms = host_ms(lambda: image.imread(scene), 20)
     img = image.imread(scene)
@@ -4954,8 +4992,8 @@ def rgb_phases(workers: int) -> int:
           f"(host, one thread, {smi})", flush=True)
 
     print(f"phase 15b: yolox_s at 640x640 on a synthetic COCO tree "
-          f"({RGB_TRAIN_IMAGES} + 5 train images, PNG and JPEG; {smi})",
-          flush=True)
+          f"({RGB_TRAIN_IMAGES} + {len(fixtures)} train images, PNG and "
+          f"JPEG; {smi})", flush=True)
     t0 = time.perf_counter()
     coco = write_coco_tree(os.path.join(root, "coco"), RGB_TRAIN_IMAGES,
                            RGB_VAL_IMAGES, SEED + 15)
@@ -5048,12 +5086,395 @@ def phase_scale(workers: int) -> dict:
     return res
 
 
+# --------------------------------------------------------------- phase 16
+
+EXPORT_EXP = "gen1_syolox_m"  # the exported deploy model (16a) ...
+EXPORT_OPTS = []               # ... and its exp options
+EXPORT_B = 16          # the exported deploy program's static batch (16a)
+EXPORT_FORWARDS = 5    # timed forwards of the program and of eager (16a)
+PACK_B = FULL_B        # the sampler routes' batch (16c, phase 3's)
+PACK_CHECK_B = 16      # the packed-vs-plain comparison's batch, f32 (16c)
+PACK_STEPS = 3         # timed captured steps a run (16c)
+# packed vs plain sampler (f32, TF32 off): the share of slot values
+# beyond ANALOG_TOL relative, and of slots written by one route and not
+# the other (a sampler spike flipped by the convs' summation order)
+PACK_TOL = 1e-3
+EXPORT_PATH = {"plif_fwd": 35, "conv1x1_plif": 8, "conv3x3_plif": 6,
+               "conv3x3s2_plif": 1, "arsnn_v2": 1}  # op nodes a program
+
+# run in a fresh process: the saved program needs the package imported
+# (its ops registered) and nothing else of the repo. Beside the program
+# it builds the eager deploy model from the package with the parent's
+# weights, and times and profiles the two in turns (program, eager,
+# eager, program): what the program costs a forward, and where
+_RELOAD = """
+import json, sys, time
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+import eas_snn_tpu_torch
+from eas_snn_tpu_torch.exp import get_exp
+from eas_snn_tpu_torch.ops import _build, launch_counts, reset_launches
+_build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-Xptxas=-v",)  # phase 1's build
+path, io_path, n, dev = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4]
+sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+CONSTANT_OPS = ("aten::rsqrt", "aten::sigmoid", "aten::rsub")
+
+
+def device_us(e):
+    us = getattr(e, "self_device_time_total", None)
+    return getattr(e, "self_cuda_time_total", 0) if us is None else us
+
+
+def forward_profile(fn):
+    # one forward under torch.profiler: its host-clock window, the
+    # device's busy time, kernel launches, aten operator calls (all
+    # levels) and the calls that make the eval constants
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        window = (time.perf_counter() - t0) * 1e3
+    rows = prof.key_averages()
+    dev_rows = [e for e in rows if e.device_type == DeviceType.CUDA]
+    cpu_rows = [e for e in rows if e.device_type == DeviceType.CPU]
+    return {"window_ms": window,
+            "busy_ms": sum(device_us(e) for e in dev_rows) / 1e3,
+            "kernels": sum(e.count for e in dev_rows if device_us(e) > 0),
+            "aten_calls": sum(e.count for e in cpu_rows
+                              if e.key.startswith("aten::")),
+            "constant_ops": {k: sum(e.count for e in cpu_rows if e.key == k)
+                             for k in CONSTANT_OPS}}
+
+
+def fps(fn, batch):
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    sync()
+    return n * batch / (time.perf_counter() - t0)
+
+
+t0 = time.perf_counter()
+program = torch.export.load(path)
+load_s = time.perf_counter() - t0
+fwd = program.module()
+data = torch.load(io_path)
+ev, want = data["events"].to(dev), data["want"].to(dev)
+with torch.no_grad():
+    fwd(ev)
+    sync()
+    reset_launches()
+    out = fwd(ev)
+    sync()
+    counts = launch_counts()
+    model = get_exp(data["exp"]).deploy().merge(data["opts"]).get_model(
+        device=dev, seed=0)
+    model.load_state_dict(data["state"])
+    model.eval()
+    eager_out = model(ev)
+    turns = [("program", fwd), ("eager", model), ("eager", model),
+             ("program", fwd)]
+    rates = {"program": [], "eager": []}
+    for what, f in turns:
+        rates[what].append(fps(lambda: f(ev), ev.shape[0]))
+    prof = {what: forward_profile(lambda: f(ev)) for what, f in turns[:2]}
+print(json.dumps({"load_s": load_s, "launches": counts,
+                  "bit_equal": bool(torch.equal(out, want)),
+                  "max_abs": float((out.float() - want.float()).abs().max()),
+                  "finite": bool(torch.isfinite(out).all()),
+                  "eager_bit_equal": bool(torch.equal(eager_out, want)),
+                  "fps": rates, "profile": prof,
+                  "modules": sorted(k for k in sys.modules
+                                    if k.split(".")[0] in ("chip_smoke",
+                                                           "eas_snn_tpu"))}))
+"""
+
+
+def export_deploy(root: str, smi: str) -> dict:
+    """16a: ``gen1_syolox_m`` under ``deploy()`` (full width, 256x320,
+    calibrated BN) exported at B=EXPORT_B, saved, and loaded in a fresh
+    process that imports ``eas_snn_tpu_torch`` alone: the reloaded
+    program's launches a forward, its outputs against the eager deploy
+    forward's (bit-equal: the same kernels run in the same order), and,
+    in that process, its frames/s against the eager model's in turns and
+    one profiled forward of each. Returns the reloaded program's launches
+    a forward."""
+    from eas_snn_tpu_torch.tools import export as texport
+    exp = get_exp(EXPORT_EXP).deploy().merge(EXPORT_OPTS)
+    model = exp.get_model(device=DEV, seed=SEED)
+    H, W = exp.test_size
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 16)
+    ev = torch.poisson(torch.full((EXPORT_B, exp.Tl, exp.Tm, H, W,
+                                   exp.in_dim), 0.2, device=DEV),
+                       generator=gen)
+    print(f"phase 16a: export of gen1_syolox_m under deploy() at B="
+          f"{EXPORT_B} ({H}x{W}, calibrated BN; {smi})", flush=True)
+    with torch.no_grad():
+        calibrate_spiking_bn(model, ev[:8])
+    model.eval()
+    t0 = time.perf_counter()
+    program = texport.export_program(model, ev)
+    trace_s = time.perf_counter() - t0
+    ops = texport.kernel_ops(program)
+    path = os.path.join(root, "gen1_syolox_m_deploy.pt2")
+    t0 = time.perf_counter()
+    torch.export.save(program, path)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    print(f"  traced in {trace_s:.2f} s, saved in {save_s:.2f} s: "
+          f"{size / 1e6:.2f} MB, {len(program.state_dict)} tensors in its "
+          f"state dict; kernel op nodes {ops}")
+    if ops != EXPORT_PATH:
+        fail(f"phase 16a: the program's kernel ops {ops}, expected "
+             f"{EXPORT_PATH}")
+    if not set(dict(model.named_parameters())) <= set(program.state_dict):
+        fail("phase 16a: the program's state dict lacks parameters")
+    with torch.no_grad():
+        want = model(ev)
+        reset_launches()
+        model(ev)
+        torch.cuda.synchronize()
+        eager_counts = launch_counts()
+    io_path = os.path.join(root, "io.pt")
+    torch.save({"events": ev.cpu(), "want": want.cpu(), "exp": EXPORT_EXP,
+                "opts": EXPORT_OPTS, "state": {
+                    k: v.cpu() for k, v in model.state_dict().items()}},
+               io_path)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _RELOAD, path, io_path,
+                        str(EXPORT_FORWARDS), DEV], cwd=here,
+                       capture_output=True, text=True, timeout=300)
+    child_s = time.perf_counter() - t0
+    try:
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        fail(f"phase 16a: the reload process exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+        return {}
+    want_counts = per_forward(exp.Tm)
+    print(f"  a fresh process (import eas_snn_tpu_torch, then "
+          f"torch.export.load; {child_s:.1f} s in all) loaded it in "
+          f"{res['load_s']:.2f} s; modules of the repo it imported beside "
+          f"the package: {res['modules']}; launches of one forward "
+          f"{res['launches']} (eager {eager_counts})")
+    print(f"  outputs {tuple(want.shape)} against the eager deploy forward: "
+          f"bit-equal {res['bit_equal']}, max |diff| {res['max_abs']:.3e}, "
+          f"finite {res['finite']}")
+    fps = res["fps"]
+    ratio = sum(fps["program"]) / sum(fps["eager"])
+    print(f"  frames/s at B={EXPORT_B} over {EXPORT_FORWARDS} forwards in "
+          f"that process, in turns (program, eager, eager, program; host "
+          f"clock): reloaded program {fps['program'][0]:.2f} / "
+          f"{fps['program'][1]:.2f}, eager {fps['eager'][0]:.2f} / "
+          f"{fps['eager'][1]:.2f} (ratio {ratio:.3f}; {smi}); the eager "
+          f"model built there from the package with these weights gives "
+          f"the parent's bits: {res['eager_bit_equal']}")
+    for what, p in res["profile"].items():
+        print(f"  profile of one forward, {what}: host-clock window "
+              f"{p['window_ms']:.3f} ms, device busy {p['busy_ms']:.3f} ms "
+              f"(idle share {1 - p['busy_ms'] / p['window_ms']:.3f}, "
+              f"profiler on), {p['kernels']} kernel launches, "
+              f"{p['aten_calls']} aten operator calls (all levels); "
+              f"eval-constant ops {p['constant_ops']}", flush=True)
+    if res["launches"] != want_counts or eager_counts != want_counts:
+        fail(f"phase 16a: launches a forward {res['launches']} (reloaded), "
+             f"{eager_counts} (eager), expected {want_counts}")
+    if not (res["bit_equal"] and res["finite"]) or res["modules"]:
+        fail(f"phase 16a: the reloaded program's outputs are not the eager "
+             f"forward's bits (max |diff| {res['max_abs']:.3e}) or it "
+             f"needed {res['modules']}")
+    return res["launches"]
+
+
+def export_cli(root: str, smi: str) -> None:
+    """16b: the export CLI with verify on ``gen1_syolox_s`` (f32, its
+    default routes) and ``yolox_nano`` (no kernel op): the program's
+    launches in the verify (the reloaded program's forward and the eager
+    one: twice its op nodes, Tm for the whole-scan sampler's)."""
+    from eas_snn_tpu_torch.tools import export as texport
+    for name in ("gen1_syolox_s", "yolox_nano"):
+        print(f"phase 16b: python -m eas_snn_tpu_torch.tools.export -n "
+              f"{name} -b 1 ({smi})", flush=True)
+        reset_launches()
+        try:
+            res = texport.main(["-n", name, "-b", "1", "--device", DEV,
+                                "-o", os.path.join(root, name)])
+        except SystemExit as e:
+            fail(f"phase 16b: {name}: {e}")
+            continue
+        counts = launch_counts()
+        exp = get_exp(name)
+        want = {k: 0 for k in counts}
+        for k, n in res["kernel_ops"].items():
+            want[k] = 2 * n * (exp.Tm if k == "arsnn_v2" else 1)
+        print(f"  {res['bytes'] / 1e6:.2f} MB, {res['weights']} tensors; "
+              f"trace {res['trace_s']:.2f} s, save {res['save_s']:.2f} s, "
+              f"load {res['load_s']:.2f} s; kernel op nodes "
+              f"{res['kernel_ops']}; launches in the verify {counts}")
+        if counts != want or not res["bit_equal"]:
+            fail(f"phase 16b: {name}: launches {counts} (expected {want}), "
+                 f"bit-equal {res['bit_equal']}")
+        if name == "yolox_nano" and any(counts.values()):
+            fail("phase 16b: yolox_nano launched a hand-written kernel")
+
+
+def _routed(emb, route: str, events):
+    """The embedding's forward with its route forced to ``route``."""
+    emb.route = lambda ev: route
+    try:
+        return emb(events)
+    finally:
+        del emb.route
+
+
+def packed_sampler(smi: str) -> dict:
+    """16c: the packed sampler route (``ops/pack.py``): held to the plain
+    route in f32 (TF32 off) at B=PACK_CHECK_B by its slots and by the
+    sampler spikes flipped; each route's ms a sampler forward at deploy
+    precision at B=PACK_B (plain, v1, fused v2, packed); then the captured
+    ``gen1_syolox_m`` step at B=64 with ``packed_embedding`` 'never' and
+    'auto' in turns, and the packed step captured against eager from one
+    snapshot. Returns the packed step's launches."""
+    from eas_snn_tpu_torch.core.train_state import CapturedStep
+    print(f"phase 16c: the packed sampler route (4x4 space-to-depth, cuDNN "
+          f"3x3 convs of the packed weights; {smi})", flush=True)
+    exp = get_exp("gen1_syolox_m")
+    exp.compute_dtype = "float32"
+    emb = exp.get_model(device=DEV, seed=SEED).embedding
+    H, W = exp.test_size
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 17)
+    shape = (PACK_CHECK_B, exp.Tl, exp.Tm, H, W, exp.in_dim)
+    ev = torch.poisson(torch.full(shape, 0.2, device=DEV), generator=gen)
+    with torch.no_grad():
+        plain = _routed(emb, "plain", ev)
+        packed = _routed(emb, "packed", ev)
+    flips = int(((plain != 0) != (packed != 0)).sum())
+    share = float((_rel_err(packed, plain) > ANALOG_TOL).float().mean())
+    n = plain.numel()
+    written = float((plain != 0).float().mean())
+    print(f"  f32 at B={PACK_CHECK_B}: {flips} of {n} slots written by one "
+          f"route only ({flips / n:.2e}), share of slot values beyond "
+          f"{ANALOG_TOL:.0e} relative {share:.2e} (tolerance {PACK_TOL:.0e} "
+          f"each), max |diff| {float((packed - plain).abs().max()):.3e}; "
+          f"{written:.4f} of the slots written")
+    if flips / n > PACK_TOL or share > PACK_TOL or written < 0.01 or \
+            not torch.isfinite(packed).all():
+        fail("phase 16c: the packed route's slots disagree with the plain "
+             "route's")
+    del emb, plain, packed, ev
+
+    dexp = get_exp("gen1_syolox_m").deploy()
+    emb = dexp.get_model(device=DEV, seed=SEED).embedding
+    shape = (PACK_B,) + shape[1:]
+    ev = torch.poisson(torch.full(shape, 0.2, device=DEV), generator=gen)
+    route_ms = {}
+    with torch.no_grad():
+        for route in ("plain", "v1", "v2", "packed"):
+            reset_launches()
+            _routed(emb, route, ev)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            route_ms[route] = cuda_ms(lambda: _routed(emb, route, ev), 5)
+            print(f"  deploy precision at B={PACK_B}: route '{route}' "
+                  f"{route_ms[route]:.4f} ms a sampler forward (CUDA events); "
+                  f"launches {counts}", flush=True)
+            want = {"v1": {"arsnn_step": dexp.Tm},
+                    "v2": {"arsnn_v2": dexp.Tm}}.get(route, {})
+            if counts != want:
+                fail(f"phase 16c: route '{route}' launched {counts}, "
+                     f"expected {want}")
+    del emb, ev
+    torch.cuda.empty_cache()
+
+    texp = get_exp("gen1_syolox_m")
+    B = FULL_TRAIN_B
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    events = torch.poisson(torch.full((B, texp.Tl, texp.Tm, H, W,
+                                       texp.in_dim), 0.2, device=DEV),
+                           generator=gen)
+    labels = random_labels(B, H, W, np.random.default_rng(SEED)).to(DEV)
+    steps, step_counts = {}, {}
+    for mode in ("never", "auto"):
+        texp.packed_embedding = mode
+        model = texp.get_model(device=DEV, seed=SEED + 1, train=True)
+        opt = texp.get_optimizer(model, B, iters_per_epoch=1000)
+        ema = init_ema(model) if texp.ema else None
+        step = CapturedStep(model, opt, ema)
+        reset_launches()
+        for _ in range(step.WARMUP + 1):
+            step(events, labels)
+        torch.cuda.synchronize()
+        step_counts[mode] = counts = launch_counts()
+        want = {k: (step.WARMUP + 1) * PER_STEP.get(k, 0) for k in counts}
+        if counts != want:
+            fail(f"phase 16c: packed_embedding '{mode}': launches {counts}, "
+                 f"expected {want}")
+        steps[mode] = (step, model, opt, ema)
+    for mode in ("never", "auto", "auto", "never"):
+        ms, ips, peak, losses = timed_steps(steps[mode][0], events, labels,
+                                            PACK_STEPS)
+        print(f"  captured step at B={B}, packed_embedding '{mode}': "
+              f"{ms:.3f} ms/step, {ips:.2f} images/s ({PACK_STEPS} replays, "
+              f"host clock), peak allocated {peak:.3f} GiB; total loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+        if not all(np.isfinite(losses)):
+            fail(f"phase 16c: packed_embedding '{mode}': a loss is not "
+                 "finite")
+    step, model, opt, ema = steps["auto"]
+    snap = snapshot(model, opt, ema)
+    check_step_pair(f"phase 16c packed B={B}", step_pair(
+        step, model, opt, ema, snap, events, labels), opt.lr_schedule(0))
+    return {k: v // (step.WARMUP + 1)
+            for k, v in step_counts["auto"].items()}
+
+
+def export_phases() -> int:
+    """Phase 16, export and the packed sampler, as a process of its own:
+    16a the deploy program exported, saved and reloaded in a fresh
+    process, 16b the export CLI, 16c the packed route. The last line is
+    a JSON object of the paths' launches."""
+    import shutil
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "outputs", "chip_smoke_phase16")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + PTXAS_FLAGS  # phase 1's build
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"export_forward": export_deploy(root, smi)}
+    torch.cuda.empty_cache()
+    export_cli(root, smi)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    out["packed_step"] = packed_sampler(smi)
+    print(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    print(json.dumps(out))
+    return 1 if FAILURES else 0
+
+
+def phase_export(workers: int) -> dict:
+    """Phase 16 in a process of its own (``export_phases``)."""
+    del workers
+    return _child("export_phases()", "phase 16", 500)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--forwards", type=int, default=5)
     ap.add_argument("--train-batch", type=int, default=64)
-    ap.add_argument("--train-steps", type=int, default=8)
+    ap.add_argument("--train-steps", type=int, default=4)
     ap.add_argument("--workers", type=int, default=7,
                     help="the loader worker processes of phases 7-13")
     args = ap.parse_args()
@@ -5140,6 +5561,8 @@ def main() -> int:
     res14 = phase_scale(args.workers)
     torch.cuda.empty_cache()
     res15 = phase_rgb(args.workers)
+    torch.cuda.empty_cache()
+    res16 = phase_export(args.workers)
     if FAILURES:
         print(smi)
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:\n" + "\n".join(
@@ -5173,6 +5596,11 @@ def main() -> int:
     # (15b), a captured step of yolov3 and of yolox_nano (15c)
     for p in ("rgb_step", "rgb_eval_batch", "yolov3_step", "nano_step"):
         paths[p] = res15.get(p)
+    # phase 16: one forward of the deploy program exported, saved and
+    # reloaded in a fresh process (its wrappers' counts there), and a step
+    # with the packed sampler route (16c)
+    paths["export_forward"] = res16.get("export_forward")
+    paths["packed_step"] = res16.get("packed_step")
     neck_head = dict(res11.get("eval_sites", {}),
                      **res11.get("train_sites", {}))
     b1 = res13.get("b1_kernels", {})
@@ -5212,7 +5640,9 @@ def main() -> int:
           "with an NCCL group and one with the capturable SGD (14b, 14c), "
           "a step of yolox_s through the train CLI and a batch of its eval "
           "CLI (15b), a captured step of yolov3 and of yolox_nano (15c), "
-          "all 0: the RGB family is analog; "
+          "all 0: the RGB family is analog; a forward of the exported "
+          "deploy program reloaded in a fresh process (16a) and a captured "
+          "step with the packed sampler route (16c); "
           "neck_head: the sums over "
           "the neck and head sites of the full_spike_v2 forward (rows 1-3) "
           "and step (rows 7, 8), phase 11a; b1: the sums over the sites of "

@@ -6,16 +6,18 @@ package's ``data/coco.py`` and ``data/mosaic.py`` call).
 ``imread(path)`` reads a JPEG or a PNG by its signature, not its name
 (cv2 does the same: a VOC tree's ``.jpg`` may hold PNG bytes), and
 returns cv2's (H, W, 3) uint8 BGR. JPEGs go through the host C++ core
-``imgcore/imgcore.cpp``: baseline and extended-sequential Huffman, 8-bit,
-one or three components, sampling factors 1 and 2 (4:4:4, 4:2:2, 4:4:0,
-4:2:0; other integral ratios as boxes), restart intervals, EXIF
-orientation; the pixels are libjpeg-turbo's (islow IDCT, fancy
-upsampling, its YCbCr tables), as ``cv2.imread`` gives them. A
-progressive, arithmetic-coded, lossless, hierarchical, 12-bit or CMYK /
-YCCK JPEG, a truncated or corrupt one and any other format raise
-``ValueError`` naming the file and the mode. PNGs go through
-``utils/png.py:read_png``; a grey image comes back as three equal
-channels.
+``imgcore/imgcore.cpp``: baseline, extended-sequential and progressive
+Huffman (spectral selection and successive approximation, the scans'
+coefficients gathered over the whole image before one IDCT), 8-bit,
+one, three or four components (CMYK and YCCK, turned into BGR as cv2
+turns them), sampling factors 1 and 2 (4:4:4, 4:2:2, 4:4:0, 4:2:0;
+other integral ratios as boxes), restart intervals, EXIF orientation;
+the pixels are libjpeg-turbo's (islow IDCT, fancy upsampling, its YCbCr
+tables), as ``cv2.imread`` gives them. An arithmetic-coded, lossless,
+hierarchical or 12-bit JPEG, a truncated or corrupt one and any other
+format raise ``ValueError`` naming the file and the mode. PNGs go
+through ``utils/png.py:read_png``; a grey image comes back as three
+equal channels.
 
 ``resize_linear_u8`` and ``warp_affine_u8`` run in the same core and
 equal OpenCV's uint8 INTER_LINEAR results bit for bit; their numpy
@@ -59,6 +61,7 @@ def load_native() -> ctypes.CDLL:
         "jpeg_decode": (i, [u8, ll, u8, i32, s, i]),
         "resize_linear_u8": (None, [u8, i, i, i, u8, i, i]),
         "warp_affine_u8": (None, [u8, i, i, i, u8, i, i, f64, i]),
+        "png_unfilter": (i, [u8, i, ll, i, u8]),
     })
 
 

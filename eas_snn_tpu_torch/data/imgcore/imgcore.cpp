@@ -1,5 +1,6 @@
-// Host image core of the port: a baseline / extended-sequential Huffman
-// JPEG decoder with libjpeg-turbo's default decompression arithmetic (the
+// Host image core of the port: a baseline / extended-sequential /
+// progressive Huffman JPEG decoder (one, three or four components) with
+// libjpeg-turbo's default decompression arithmetic (the
 // islow integer IDCT of jidctint.c, the "fancy" upsamplers of jdsample.c,
 // the fixed-point YCbCr->BGR tables of jdcolor.c), and OpenCV's uint8
 // INTER_LINEAR resize and warpAffine rules, so that the results equal
@@ -10,6 +11,7 @@
 // non-zero code and a message.
 
 #include <cmath>
+#include <cstdlib>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -60,6 +62,8 @@ struct Decoder {
     int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
     int restart = 0, orientation = 1;
     bool saw_jfif = false, saw_adobe = false, have_frame = false;
+    bool progressive = false;
+    int eobrun = 0;  // blocks left in a progressive AC scan's end-of-band run
     int adobe_transform = -1;
     uint16_t qt[4][64];
     bool qt_defined[4] = {false, false, false, false};
@@ -93,8 +97,9 @@ struct Decoder {
             "arithmetic-coded differential progressive",
             "arithmetic-coded differential lossless"};
         int kind = marker - 0xC0;
-        if (kind != 0 && kind != 1)
+        if (kind != 0 && kind != 1 && kind != 2)
             fail(1, std::string(modes[kind]) + " JPEG is not supported");
+        progressive = kind == 2;
         if (have_frame) fail(3, "corrupt: two frame headers");
         size_t end = pos + u16();
         int precision = u8();
@@ -104,9 +109,7 @@ struct Decoder {
         if (precision != 8)
             fail(1, std::to_string(precision) +
                         "-bit JPEG is not supported (8-bit only)");
-        if (ncomp == 4)
-            fail(1, "4-component (CMYK/YCCK) JPEG is not supported");
-        if (ncomp != 1 && ncomp != 3)
+        if (ncomp != 1 && ncomp != 3 && ncomp != 4)
             fail(1, std::to_string(ncomp) +
                         "-component JPEG is not supported");
         if (height == 0)
@@ -317,6 +320,97 @@ struct Decoder {
         }
     }
 
+    // ---- progressive scans (jdphuff.c): each adds bits to the whole
+    // image's coefficients, which the IDCT reads after the last scan
+    static inline int16_t shl(int v, int al) {
+        return (int16_t)(int)((unsigned)v << al);
+    }
+    void dc_first(Component& c, const Huff& dct, int16_t* blk, int al) {
+        int s = decode(dct);
+        if (s) {
+            if (s > 16) fail(3, "corrupt: bad DC code");
+            c.dc_pred += extend(bits(s), s);
+        }
+        blk[0] = shl(c.dc_pred, al);
+    }
+    void dc_refine(int16_t* blk, int al) {
+        if (bits(1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+    }
+    void ac_first(const Huff& act, int16_t* blk, int ss, int se, int al) {
+        if (eobrun > 0) {
+            eobrun--;
+            return;
+        }
+        for (int k = ss; k <= se; k++) {
+            int rs = decode(act);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+                k += r;
+                blk[kZigzag[k]] = shl(extend(bits(s), s), al);
+            } else if (r == 15) {
+                k += 15;
+            } else {
+                eobrun = 1 << r;
+                if (r) eobrun += bits(r);
+                eobrun--;
+                break;
+            }
+        }
+    }
+    // one refinement bit of every coefficient already non-zero that the
+    // scan passes (which does not yet carry bit al)
+    inline void refine(int16_t* coef, int p1, int m1) {
+        if (bits(1) && (*coef & p1) == 0)
+            *coef = (int16_t)(*coef + (*coef >= 0 ? p1 : m1));
+    }
+    void ac_refine(const Huff& act, int16_t* blk, int ss, int se, int al) {
+        const int p1 = 1 << al, m1 = -p1;
+        int k = ss;
+        if (eobrun == 0) {
+            for (; k <= se; k++) {
+                int rs = decode(act);
+                int r = rs >> 4, s = rs & 15;
+                if (s) {
+                    // libjpeg warns where s != 1 and reads on
+                    s = bits(1) ? p1 : m1;
+                } else if (r != 15) {
+                    eobrun = 1 << r;
+                    if (r) eobrun += bits(r);
+                    break;
+                }
+                do {
+                    int16_t* coef = &blk[kZigzag[k]];
+                    if (*coef != 0) {
+                        refine(coef, p1, m1);
+                    } else if (--r < 0) {
+                        break;  // the zero coefficient that takes s
+                    }
+                    k++;
+                } while (k <= se);
+                if (s) blk[kZigzag[k]] = (int16_t)s;
+            }
+        }
+        if (eobrun > 0) {
+            for (; k <= se; k++) {
+                int16_t* coef = &blk[kZigzag[k]];
+                if (*coef != 0) refine(coef, p1, m1);
+            }
+            eobrun--;
+        }
+    }
+
+    // one block of the scan (ss, se, ah, al) in component c
+    void scan_block(Component& c, int tdc, int tac, int ss, int se, int ah,
+                    int al, int16_t* blk) {
+        if (!progressive)
+            decode_block(c, dc[tdc], ac[tac], blk);
+        else if (ss == 0)
+            ah ? dc_refine(blk, al) : dc_first(c, dc[tdc], blk, al);
+        else
+            ah ? ac_refine(ac[tac], blk, ss, se, al)
+               : ac_first(ac[tac], blk, ss, se, al);
+    }
+
     void parse_sos() {
         if (!have_frame) fail(3, "corrupt: scan before the frame header");
         size_t end = pos + u16();
@@ -332,13 +426,25 @@ struct Decoder {
             if (idx[i] < 0) fail(3, "corrupt: unknown component in a scan");
             td[i] = t >> 4;
             ta[i] = t & 15;
-            if (td[i] > 3 || ta[i] > 3 || !dc[td[i]].defined ||
-                !ac[ta[i]].defined)
-                fail(3, "corrupt: a scan uses an undefined Huffman table");
+            if (td[i] > 3 || ta[i] > 3)
+                fail(3, "corrupt: bad Huffman table id in a scan");
         }
         int ss = u8(), se = u8(), ahal = u8();
-        if (ss != 0 || se != 63 || ahal != 0)
+        int ah = ahal >> 4, al = ahal & 15;
+        if (!progressive && (ss != 0 || se != 63 || ahal != 0))
             fail(3, "corrupt: bad spectral selection for a sequential JPEG");
+        if (progressive &&
+            ((ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1)) ||
+             al > 13 || (ah != 0 && ah != al + 1)))
+            fail(3, "corrupt: bad progressive scan parameters");
+        // the tables this scan decodes with: sequential both, a DC first
+        // scan DC, a DC refinement none, an AC scan AC
+        bool need_dc = !progressive || (ss == 0 && ah == 0);
+        bool need_ac = !progressive || ss != 0;
+        for (int i = 0; i < ns; i++)
+            if ((need_dc && !dc[td[i]].defined) ||
+                (need_ac && !ac[ta[i]].defined))
+                fail(3, "corrupt: a scan uses an undefined Huffman table");
         if (pos != end) fail(3, "corrupt: bad scan header length");
         for (int i = 0; i < ns; i++) {
             Component& c = comp[idx[i]];
@@ -351,6 +457,7 @@ struct Decoder {
             }
         }
         reset_bits();
+        eobrun = 0;
         int mcux, mcuy;
         if (ns == 1) {
             Component& c = comp[idx[0]];
@@ -377,11 +484,12 @@ struct Decoder {
                     pos += 2;
                     next_rst = (next_rst + 1) & 7;
                     for (int i = 0; i < ns; i++) comp[idx[i]].dc_pred = 0;
+                    eobrun = 0;
                 }
                 if (ns == 1) {
                     Component& c = comp[idx[0]];
                     int16_t* blk = &c.coef[((size_t)my * c.bw + mx) * 64];
-                    decode_block(c, dc[td[0]], ac[ta[0]], blk);
+                    scan_block(c, td[0], ta[0], ss, se, ah, al, blk);
                 } else {
                     for (int i = 0; i < ns; i++) {
                         Component& c = comp[idx[i]];
@@ -389,8 +497,8 @@ struct Decoder {
                             for (int bx = 0; bx < c.h; bx++) {
                                 size_t row = (size_t)my * c.v + by;
                                 size_t col = (size_t)mx * c.h + bx;
-                                decode_block(c, dc[td[i]], ac[ta[i]],
-                                             &c.coef[(row * c.bw + col) * 64]);
+                                scan_block(c, td[i], ta[i], ss, se, ah, al,
+                                           &c.coef[(row * c.bw + col) * 64]);
                             }
                     }
                 }
@@ -651,6 +759,57 @@ void upsample(const uint8_t* p, int ps, int dw, int dh, int rh, int rv,
     }
 }
 
+// ---- colour conversion (jdcolor.c) -------------------------------------------
+inline uint8_t lim(int v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+// build_ycc_rgb_table: the fixed-point YCbCr -> RGB terms
+struct YCC {
+    static const int SB = 16;
+    int cr_r[256], cb_b[256];
+    long long cr_g[256], cb_g[256];
+    YCC() {
+        const long long HALF = 1LL << (SB - 1);
+        auto FIX = [](double x) { return (long long)(x * (1L << 16) + 0.5); };
+        for (int i = 0; i < 256; i++) {
+            long long x = i - 128;
+            cr_r[i] = (int)((FIX(1.40200) * x + HALF) >> SB);
+            cb_b[i] = (int)((FIX(1.77200) * x + HALF) >> SB);
+            cr_g[i] = -FIX(0.71414) * x;
+            cb_g[i] = -FIX(0.34414) * x + HALF;
+        }
+    }
+    int g(int cb, int cr) const { return (int)((cb_g[cb] + cr_g[cr]) >> SB); }
+};
+
+const YCC& ycc_tables() {
+    static const YCC t;
+    return t;
+}
+
+// A 4-component JPEG as cv2.imread gives it: libjpeg decodes CMYK as
+// stored (Adobe transform 0, or no Adobe marker) or converts YCCK
+// (transform 2; any other is taken for YCCK, as libjpeg does) to CMYK
+// (ycck_cmyk_convert), and OpenCV turns the inverted (Adobe) CMYK into
+// BGR with channel = k - ((255 - c) * k >> 8).
+void cmyk_to_bgr(const std::vector<uint8_t>* planes, bool ycck, size_t n,
+                 uint8_t* out) {
+    const uint8_t *p0 = planes[0].data(), *p1 = planes[1].data(),
+                  *p2 = planes[2].data(), *p3 = planes[3].data();
+    const YCC& t = ycc_tables();
+    for (size_t i = 0; i < n; i++) {
+        int c = p0[i], m = p1[i], y = p2[i], k = p3[i];
+        if (ycck) {
+            int yy = c, cb = m, cr = y;
+            c = lim(255 - (yy + t.cr_r[cr]));
+            m = lim(255 - (yy + t.g(cb, cr)));
+            y = lim(255 - (yy + t.cb_b[cb]));
+        }
+        out[3 * i + 2] = (uint8_t)(k - ((255 - c) * k >> 8));
+        out[3 * i + 1] = (uint8_t)(k - ((255 - m) * k >> 8));
+        out[3 * i] = (uint8_t)(k - ((255 - y) * k >> 8));
+    }
+}
+
 int decode_impl(const uint8_t* data, size_t n, uint8_t* out, int* info,
                 char* err, int errlen, bool pixels) {
     try {
@@ -663,7 +822,7 @@ int decode_impl(const uint8_t* data, size_t n, uint8_t* out, int* info,
         if (!pixels) return 0;
         d.run();
         const int W = d.width, H = d.height;
-        std::vector<uint8_t> planes[3];
+        std::vector<uint8_t> planes[4];
         for (int ci = 0; ci < d.ncomp; ci++) {
             Component& c = d.comp[ci];
             int nbx = (c.dw + 7) / 8, nby = (c.dh + 7) / 8;
@@ -683,6 +842,11 @@ int decode_impl(const uint8_t* data, size_t n, uint8_t* out, int* info,
                 out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = g[i];
             return 0;
         }
+        if (d.ncomp == 4) {
+            cmyk_to_bgr(planes, d.saw_adobe && d.adobe_transform != 0,
+                        (size_t)W * H, out);
+            return 0;
+        }
         bool rgb;
         if (d.saw_jfif) rgb = false;
         else if (d.saw_adobe) rgb = d.adobe_transform == 0;
@@ -697,25 +861,12 @@ int decode_impl(const uint8_t* data, size_t n, uint8_t* out, int* info,
             }
             return 0;
         }
-        // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert
-        const int SB = 16;
-        const long long HALF = 1LL << (SB - 1);
-        auto FIX = [](double x) { return (long long)(x * (1L << 16) + 0.5); };
-        int cr_r[256], cb_b[256];
-        long long cr_g[256], cb_g[256];
-        for (int i = 0; i < 256; i++) {
-            long long x = i - 128;
-            cr_r[i] = (int)((FIX(1.40200) * x + HALF) >> SB);
-            cb_b[i] = (int)((FIX(1.77200) * x + HALF) >> SB);
-            cr_g[i] = -FIX(0.71414) * x;
-            cb_g[i] = -FIX(0.34414) * x + HALF;
-        }
-        auto lim = [](int v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); };
+        const YCC& t = ycc_tables();
         for (size_t i = 0; i < (size_t)W * H; i++) {
             int y = p0[i], cb = p1[i], cr = p2[i];
-            out[3 * i + 2] = lim(y + cr_r[cr]);
-            out[3 * i + 1] = lim(y + (int)((cb_g[cb] + cr_g[cr]) >> SB));
-            out[3 * i] = lim(y + cb_b[cb]);
+            out[3 * i + 2] = lim(y + t.cr_r[cr]);
+            out[3 * i + 1] = lim(y + t.g(cb, cr));
+            out[3 * i] = lim(y + t.cb_b[cb]);
         }
         return 0;
     } catch (const Error& e) {
@@ -890,6 +1041,54 @@ void warp_affine_u8(const uint8_t* src, int ih, int iw, int cn,
             }
         }
     }
+}
+
+// PNG's row filters undone: raw holds h rows of a filter-type byte and
+// stride bytes, bpp bytes a pixel (1 for depths below 8); the rows go to
+// out (h x stride). Returns 0, or the first filter type past 4 (nothing
+// read from that row on).
+int png_unfilter(const uint8_t* raw, int h, long long stride, int bpp,
+                 uint8_t* out) {
+    for (int y = 0; y < h; y++) {
+        const uint8_t* in = raw + (size_t)y * (stride + 1);
+        int type = in[0];
+        in++;
+        uint8_t* o = out + (size_t)y * stride;
+        const uint8_t* up = y ? o - stride : nullptr;
+        switch (type) {
+            case 0:
+                std::memcpy(o, in, stride);
+                break;
+            case 1:  // Sub
+                for (long long i = 0; i < stride; i++)
+                    o[i] = (uint8_t)(in[i] + (i >= bpp ? o[i - bpp] : 0));
+                break;
+            case 2:  // Up
+                for (long long i = 0; i < stride; i++)
+                    o[i] = (uint8_t)(in[i] + (up ? up[i] : 0));
+                break;
+            case 3:  // Average
+                for (long long i = 0; i < stride; i++) {
+                    int a = i >= bpp ? o[i - bpp] : 0, b = up ? up[i] : 0;
+                    o[i] = (uint8_t)(in[i] + ((a + b) >> 1));
+                }
+                break;
+            case 4:  // Paeth
+                for (long long i = 0; i < stride; i++) {
+                    int a = i >= bpp ? o[i - bpp] : 0, b = up ? up[i] : 0;
+                    int c = (i >= bpp && up) ? up[i - bpp] : 0;
+                    int p = a + b - c;
+                    int pa = std::abs(p - a), pb = std::abs(p - b),
+                        pc = std::abs(p - c);
+                    int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+                    o[i] = (uint8_t)(in[i] + pred);
+                }
+                break;
+            default:
+                return type;
+        }
+    }
+    return 0;
 }
 
 }  // extern "C"

@@ -99,6 +99,11 @@ class EventExp(BaseExp):
         # 'never' | 'auto' | 'always': the fused sampler kernels (the JAX
         # use_pallas; models/embedding.py)
         self.fused_sampler = "never"
+        # 'never' | 'auto': the sampler's scan in the space-to-depth layout
+        # (ops/pack.py, JAX packed_embedding; 4x4 blocks where the frame
+        # packs), cuDNN 3x3 convs of the packed weights; trains too.
+        # deploy() keeps the whole-scan kernel, measured fastest at eval
+        self.packed_embedding = "never"
         # recompute the backbone's and the neck's blocks (and the sampler
         # scan's steps) in the backward: train memory for compute
         self.remat = False
@@ -187,7 +192,7 @@ class EventExp(BaseExp):
             compute_dtype=_DTYPES[self.compute_dtype],
             embedding_state_dtype=None if state_dt is None else _DTYPES[state_dt],
             fuse=self.conv_plif_fuse, fused_sampler=self.fused_sampler,
-            remat=self.remat,
+            remat=self.remat, packed_embedding=self.packed_embedding,
         )
         model.reset_parameters(torch.Generator().manual_seed(seed))
         # a 'neuron' patan alpha takes its shape from the input size

@@ -70,11 +70,16 @@ class _KeptConstant:
     source's storage address and version counter: every in-place write
     bumps the counter (optimizer steps, an EMA's ``copy_``,
     ``load_state_dict``). ``train()`` and a module's move (``_apply``: a
-    moved tensor may land on storage the move freed) drop it."""
+    moved tensor may land on storage the move freed) drop it. Under
+    ``torch.export`` (whose fake tensors have neither address nor
+    version) the value is computed in the traced graph, by the same
+    operations, so the exported program computes it from its weights."""
 
     _kept_value = None  # (key, value)
 
     def _kept(self, srcs: Tuple[torch.Tensor, ...], make):
+        if torch.compiler.is_exporting():
+            return make()
         key = tuple((t.data_ptr(), t._version) for t in srcs)
         if self._kept_value is None or self._kept_value[0] != key:
             with torch.no_grad():

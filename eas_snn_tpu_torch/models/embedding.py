@@ -23,6 +23,14 @@ carries its surrogate gradient (``ops/arsnn.py``), and with no state dtype
 set (the flagship trains without ``deploy()``) the state keeps the
 input's dtype, f32.
 
+``packed`` ('never' | 'auto', the JAX ``packed``) runs the whole scan in
+the space-to-depth layout of ``ops/pack.py`` where 'auto' and the frame
+packs into ``packed_block`` x ``packed_block`` blocks: each k x k stencil
+conv becomes a cuDNN 3 x 3 conv of the packed weights (a differentiable
+gather of the module's own), so the route trains; the scan's arithmetic
+is the plain route's, its convs summed in another order. It comes first,
+as in ``eas_snn_tpu/models/embedding.py:329-344``.
+
 ``fused_sampler`` (the JAX ``use_pallas``) routes the eval forward through
 the fused sampler kernels (``ops/arsnn_fused.py``), as
 ``eas_snn_tpu/models/embedding.py:345-369`` does: the whole-scan kernel
@@ -46,15 +54,19 @@ import torch.nn.functional as F
 from ..ops.arsnn import arsnn_scan
 from ..ops.arsnn_fused import arsnn_fused_v2, arsnn_scan_fused, v2_supported
 from ..ops.lif import gated_lif_update, lif_scan
+from ..ops.pack import (depth_to_space, pack_bias, pack_conv_kernel,
+                        packable, space_to_depth)
 from ..ops.surrogate import get_spike_fn
 
 __all__ = ["ARSNNEmbedding", "LIFEmbedding", "RSNNEmbedding",
            "SpikeCountEmbedding", "build_embedding", "fold_time",
-           "logit_decay", "FUSED_SAMPLER_MODES", "EMBEDDINGS"]
+           "logit_decay", "apply_packed_stack", "FUSED_SAMPLER_MODES",
+           "PACKED_MODES", "EMBEDDINGS"]
 
 EMBEDDINGS = ("count", "snn", "rsnn", "arsnn")
 
 FUSED_SAMPLER_MODES = ("never", "auto", "always")
+PACKED_MODES = ("never", "auto")
 
 
 def fold_time(events: torch.Tensor) -> torch.Tensor:
@@ -119,6 +131,30 @@ def apply_stack(stack: nn.Sequential, dtype: Optional[torch.dtype] = None):
             else:
                 x = F.conv2d(x, m.weight.to(cdt), padding=m.padding) + \
                     m.bias.to(cdt)[None, :, None, None]
+        return x.to(out_dtype)
+
+    return apply
+
+
+def apply_packed_stack(stack: nn.Sequential, block: int,
+                       dtype: Optional[torch.dtype] = None):
+    """:func:`apply_stack` of ``stack`` in the space-to-depth layout: each
+    conv a 3 x 3 conv (pad 1) of its packed weights over ``block`` x
+    ``block`` packed inputs (JAX ``_packed_conv_apply``). The weights are
+    packed once, when the closure is made."""
+    packed = [(pack_conv_kernel(m.weight, block), pack_bias(m.bias, block))
+              if isinstance(m, nn.Conv2d) else None for m in stack]
+
+    def apply(x: torch.Tensor) -> torch.Tensor:
+        out_dtype = x.dtype
+        cdt = dtype or out_dtype
+        x = x.to(cdt)
+        for wb in packed:
+            if wb is None:
+                x = torch.relu(x)
+            else:
+                x = F.conv2d(x, wb[0].to(cdt), padding=1) + \
+                    wb[1].to(cdt)[None, :, None, None]
         return x.to(out_dtype)
 
     return apply
@@ -238,12 +274,16 @@ class ARSNNEmbedding(nn.Module):
                  thresh: float = 1.0, vreset: Optional[float] = 0.0,
                  dtype: Optional[torch.dtype] = None,
                  state_dtype: Optional[torch.dtype] = None,
-                 fused_sampler: str = "never", remat: bool = False):
+                 fused_sampler: str = "never", remat: bool = False,
+                 packed: str = "never", packed_block: int = 4):
         super().__init__()
         self.remat = remat
         if fused_sampler not in FUSED_SAMPLER_MODES:
             raise ValueError(f"fused_sampler '{fused_sampler}' not in "
                              f"{FUSED_SAMPLER_MODES}")
+        if packed not in PACKED_MODES:
+            raise ValueError(f"packed '{packed}' not in {PACKED_MODES}")
+        self.packed, self.packed_block = packed, packed_block
         C = out_channels
         self.ksize, self.depth = ksize, depth
         self.fused_sampler = fused_sampler
@@ -287,8 +327,11 @@ class ARSNNEmbedding(nn.Module):
                     write_zero=self.write_zero, use_abs=self.use_abs)
 
     def route(self, ev: torch.Tensor) -> str:
-        """'v2', 'v1' or 'plain': the sampler path for the time-major
-        (Tm, N, Cin, H, W) events ``ev``."""
+        """'packed', 'v2', 'v1' or 'plain': the sampler path for the
+        time-major (Tm, N, Cin, H, W) events ``ev``."""
+        if self.packed == "auto" and packable(ev.shape[3], ev.shape[4],
+                                              self.ksize, self.packed_block):
+            return "packed"
         if self.fused_sampler == "never":
             return "plain"
         Tm, N, Cin = ev.shape[:3]
@@ -306,6 +349,15 @@ class ARSNNEmbedding(nn.Module):
             ev = ev.to(self.state_dtype)
         kw = self.scan_kwargs()
         route = self.route(ev)
+        if route == "packed":
+            blk = self.packed_block
+            agg = arsnn_scan(
+                space_to_depth(ev, blk),
+                apply_packed_stack(self.input_conv, blk, self.dtype),
+                apply_packed_stack(self.gate_conv, blk, self.dtype),
+                spike_fn=self.spike_fn, remat=self.remat, **kw)
+            return depth_to_space(agg, blk,
+                                  self.gate_conv[0].in_channels).to(in_dtype)
         convs = (apply_stack(self.input_conv, self.dtype),
                  apply_stack(self.gate_conv, self.dtype))
         if route == "v2":
@@ -326,12 +378,14 @@ def build_embedding(name: str, *, dtype: Optional[torch.dtype] = None,
                     vreset: Optional[float] = 0.0, decay: float = 0.5,
                     state_dtype: Optional[torch.dtype] = None,
                     fused_sampler: str = "never",
-                    remat: bool = False) -> nn.Module:
+                    remat: bool = False, packed: str = "never",
+                    packed_block: int = 4) -> nn.Module:
     """The embedding ``name`` (JAX ``build_embedding``; reference
     embedding_dict, event_yolox_base.py:166-177). ``dtype``, the state
     dtype and the fused sampler concern the arsnn sampler only, as in the
     JAX package; so does ``remat``, the per-step rematerialization of the
-    sampler's plain scan (JAX ``models/embedding.py:278, 319``)."""
+    sampler's plain scan (JAX ``models/embedding.py:278, 319``), and
+    ``packed``, its space-to-depth route (``packed_block``)."""
     if name == "count":
         return SpikeCountEmbedding()
     if name == "snn":
@@ -346,5 +400,6 @@ def build_embedding(name: str, *, dtype: Optional[torch.dtype] = None,
             spike_attach=spike_attach, write_zero=write_zero,
             use_abs=use_abs, split=split, thresh=thresh, vreset=vreset,
             dtype=dtype, state_dtype=state_dtype,
-            fused_sampler=fused_sampler, remat=remat)
+            fused_sampler=fused_sampler, remat=remat, packed=packed,
+            packed_block=packed_block)
     raise KeyError(f"unknown embedding '{name}'; one of {EMBEDDINGS}")

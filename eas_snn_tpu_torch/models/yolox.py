@@ -28,7 +28,10 @@ arsnn sampler's plain scan. ``train_store`` 'int8' (the default, as the
 JAX package's PLIF ``train_store``) holds the spike trains that a train
 step saves for its backward as int8 (``blocks.int8_saved_spikes``);
 'float' keeps them in the compute dtype. Neither changes a bit of the
-step.
+step. ``packed_embedding`` ('never' | 'auto', JAX
+``EASYOLOX.packed_embedding``) runs the arsnn sampler's scan in the
+space-to-depth layout of ``ops/pack.py`` where the frame packs
+(``models/embedding.py``).
 
 ``in_channels`` is the C of the events (2 polarities; 3 for the RGB
 family, whose images go in as (B, 1, 1, H, W, 3) through the count
@@ -94,7 +97,8 @@ class EASYOLOX(nn.Module):
                  embedding_state_dtype: Optional[torch.dtype] = None,
                  fuse: str = "auto", fused_sampler: str = "never",
                  remat: bool = False, train_store: str = "int8",
-                 in_channels: int = 2, depthwise: bool = False):
+                 in_channels: int = 2, depthwise: bool = False,
+                 packed_embedding: str = "never"):
         super().__init__()
         if use_spike not in USE_SPIKE_MODES:
             raise ValueError(f"use_spike '{use_spike}' not in "
@@ -113,7 +117,7 @@ class EASYOLOX(nn.Module):
             thresh=thresh, vreset=vreset, decay=decay,
             dtype=compute_dtype if compute_dtype == torch.bfloat16 else None,
             state_dtype=embedding_state_dtype, fused_sampler=fused_sampler,
-            remat=remat,
+            remat=remat, packed=packed_embedding,
         )
         # BatchNorm2d(2) after the embedding (reference
         # event_yolox_base.py:188-192), eps 1e-3, momentum 0.03

@@ -2,8 +2,10 @@
 ``eas_snn_tpu/ops/arsnn_pallas.py``): forward only, for eval.
 
 Two kernels, each with a plain PyTorch version beside it that repeats its
-arithmetic operation for operation (the wrappers run the plain version on
-CPU tensors; on a CUDA tensor they launch the kernel or raise):
+arithmetic operation for operation. Each is a registered op of the
+``eas_snn`` namespace (``ops/library.py``) that the wrappers here call on
+either device: the plain version on CPU tensors; on a CUDA tensor the
+kernel, or a raise.
 
 * **v1**, ``fused_step`` (``csrc/arsnn_step.cu``): one micro-step's
   elementwise chain (gated LIF, reset, no-reset integral, slot write) with
@@ -39,6 +41,8 @@ from . import _build
 
 __all__ = ["fused_step", "fused_step_plain", "arsnn_scan_fused",
            "arsnn_fused_v2", "arsnn_fused_v2_plain", "v2_supported",
+           "arsnn_step_cpu", "arsnn_step_cuda", "arsnn_v2_cpu",
+           "arsnn_v2_cuda",
            "sigmoid", "fma_f32", "READOUTS"]
 
 READOUTS = ("sum", "last", "avg")
@@ -157,9 +161,10 @@ def fused_step(t: int, g_in, g_rec, c_in, c_rec, vmem, vavg, seg, tlast,
                readout: str = "sum", spike_attach: bool = False):
     """One micro-step that updates vmem, vavg, seg, tlast and agg in place
     (the JAX kernel's input_output_aliases) and returns (vmem, vavg,
-    spike, seg, tlast, agg), spike a new tensor. Launches
-    ``csrc/arsnn_step.cu`` on CUDA tensors; on CPU tensors runs
-    ``fused_step_plain`` and copies its results into the state.
+    spike, seg, tlast, agg), spike a new tensor. Calls the registered op
+    ``eas_snn::arsnn_step``, which launches ``csrc/arsnn_step.cu`` on CUDA
+    tensors and on CPU tensors runs ``fused_step_plain`` and copies its
+    results into the state.
 
     The kernel reads the four gate/current planes with 16-byte vectors:
     each must have the NCHW strides (sN, H*W, W, 1), the four the same sN
@@ -168,14 +173,36 @@ def fused_step(t: int, g_in, g_rec, c_in, c_rec, vmem, vavg, seg, tlast,
     are contiguous."""
     ins = (g_in, g_rec, c_in, c_rec)
     _check_step(t, ins, vmem, vavg, seg, tlast, agg, Ts, readout)
+    spike = torch.ops.eas_snn.arsnn_step(
+        int(t), *ins, vmem, vavg, seg, tlast, agg, int(Ts), float(thresh),
+        None if vreset is None else float(vreset), readout,
+        bool(spike_attach))
+    return vmem, vavg, spike, seg, tlast, agg
+
+
+def arsnn_step_cpu(t: int, g_in, g_rec, c_in, c_rec, vmem, vavg, seg, tlast,
+                   agg, Ts: int, thresh: float, vreset: Optional[float],
+                   readout: str, spike_attach: bool) -> torch.Tensor:
+    """The CPU implementation of ``eas_snn::arsnn_step``: the plain step,
+    its state copied into the five state tensors; returns the spike."""
     state = (vmem, vavg, seg, tlast, agg)
-    if vmem.device.type == "cpu":
-        out = fused_step_plain(t, *ins, *state, Ts=Ts, thresh=thresh,
-                               vreset=vreset, readout=readout,
-                               spike_attach=spike_attach)
-        for dst, src in zip(state, out[:2] + out[3:]):
-            dst.copy_(src)
-        return vmem, vavg, out[2], seg, tlast, agg
+    out = fused_step_plain(t, g_in, g_rec, c_in, c_rec, *state, Ts=Ts,
+                           thresh=thresh, vreset=vreset, readout=readout,
+                           spike_attach=spike_attach)
+    for dst, src in zip(state, out[:2] + out[3:]):
+        dst.copy_(src)
+    return out[2]
+
+
+def arsnn_step_cuda(t: int, g_in, g_rec, c_in, c_rec, vmem, vavg, seg,
+                    tlast, agg, Ts: int, thresh: float,
+                    vreset: Optional[float], readout: str,
+                    spike_attach: bool) -> torch.Tensor:
+    """The device implementation of ``eas_snn::arsnn_step``: the layout
+    checks and one launch of ``csrc/arsnn_step.cu``, counted in
+    ``fused_step.launches``."""
+    ins = (g_in, g_rec, c_in, c_rec)
+    state = (vmem, vavg, seg, tlast, agg)
     for x in state:
         _build.require_cuda(x, "fused_step")
     N, C, H, W = vmem.shape
@@ -205,7 +232,7 @@ def fused_step(t: int, g_in, g_rec, c_in, c_rec, vmem, vavg, seg, tlast,
         _build.stream_ptr(vmem.device))
     _build.check(err, "arsnn_step")
     fused_step.launches += 1
-    return vmem, vavg, spike, seg, tlast, agg
+    return spike
 
 
 fused_step.launches = 0
@@ -404,19 +431,48 @@ def arsnn_fused_v2(events: torch.Tensor, input_weights: Weights,
     f32 or bf16 (read as is and widened to f32), already time-reversed;
     ``input_weights`` / ``gate_weights``: [(weight OIHW, bias), ...] per
     layer of each depth-stacked conv stack (used in f32). Returns (Ts, N,
-    2, H, W) f32. Launches ``csrc/arsnn_v2.cu`` Tm times on CUDA events
-    (one launch a micro-step); runs ``arsnn_fused_v2_plain`` on CPU
-    events."""
-    ksize = _check_v2(events, input_weights, gate_weights, Ts, readout)
-    kw = dict(Ts=Ts, thresh=thresh, vreset=vreset, readout=readout,
-              spike_attach=spike_attach, write_zero=write_zero,
-              use_abs=use_abs)
-    if events.device.type == "cpu":
-        return arsnn_fused_v2_plain(events, input_weights, gate_weights, **kw)
-    _build.require_cuda(events, "arsnn_fused_v2")
-    if events.dtype not in _DTYPE_CODE:
+    2, H, W) f32. Calls the registered op ``eas_snn::arsnn_v2`` on the
+    layers' weights as one list (the input stack's, then the gate
+    stack's, weight and bias a layer): on CUDA events it launches
+    ``csrc/arsnn_v2.cu`` Tm times (one launch a micro-step); on CPU events
+    it runs ``arsnn_fused_v2_plain``. ``spike_attach`` changes nothing
+    (the spike is exactly 1 wherever a slot is written)."""
+    _check_v2(events, input_weights, gate_weights, Ts, readout)
+    if events.device.type != "cpu" and events.dtype not in _DTYPE_CODE:
         raise ValueError(f"arsnn_fused_v2: events must be f32 or bf16, got "
                          f"{events.dtype}")
+    flat = [p for w, b in list(input_weights) + list(gate_weights)
+            for p in (w, b)]
+    return torch.ops.eas_snn.arsnn_v2(
+        events, flat, len(input_weights), int(Ts), float(thresh),
+        None if vreset is None else float(vreset), readout, bool(write_zero),
+        bool(use_abs))
+
+
+def _pairs(weights: Sequence[torch.Tensor], depth: int):
+    """The op's flat weight list -> (input stack, gate stack) of
+    (weight, bias) pairs."""
+    pairs = [(weights[i], weights[i + 1]) for i in range(0, len(weights), 2)]
+    return pairs[:depth], pairs[depth:]
+
+
+def arsnn_v2_cpu(events, weights, depth: int, Ts: int, thresh: float,
+                 vreset: Optional[float], readout: str, write_zero: bool,
+                 use_abs: bool) -> torch.Tensor:
+    """The CPU implementation of ``eas_snn::arsnn_v2``: the plain scan."""
+    return arsnn_fused_v2_plain(
+        events, *_pairs(weights, depth), Ts=Ts, thresh=thresh, vreset=vreset,
+        readout=readout, write_zero=write_zero, use_abs=use_abs)
+
+
+def arsnn_v2_cuda(events, weights, depth: int, Ts: int, thresh: float,
+                  vreset: Optional[float], readout: str, write_zero: bool,
+                  use_abs: bool) -> torch.Tensor:
+    """The device implementation of ``eas_snn::arsnn_v2``: Tm launches of
+    ``csrc/arsnn_v2.cu``, counted in ``arsnn_fused_v2.launches``."""
+    _build.require_cuda(events, "arsnn_fused_v2")
+    input_weights, gate_weights = _pairs(weights, depth)
+    ksize = input_weights[0][0].shape[-1]
     Tm, N, _, H, W = events.shape
     dev = events.device
     iw, ib = (p.to(dev) for p in _flat_weights(input_weights))
@@ -441,7 +497,7 @@ def arsnn_fused_v2(events: torch.Tensor, input_weights: Weights,
             gb.data_ptr(), out.data_ptr(), vmem.data_ptr(), vavg.data_ptr(),
             seg.data_ptr(), tlast.data_ptr(), spikes[t % 2].data_ptr(),
             spikes[(t + 1) % 2].data_ptr(), N, H, W, Tm, Ts, t,
-            len(input_weights), ksize, float(thresh),
+            depth, ksize, float(thresh),
             0.0 if vreset is None else float(vreset),
             int(vreset is not None), READOUTS.index(readout),
             int(write_zero), int(use_abs), _DTYPE_CODE[events.dtype], stream)

@@ -8,7 +8,9 @@ acc = bias_f + sum(bf16 w_f * bf16 x) in f32 and runs the PLIF recurrence
 on acc, so the preactivation never reaches device memory.
 
 Three ops, each a CUDA kernel on CUDA tensors and its plain PyTorch
-version on CPU tensors:
+version on CPU tensors (each registered as a ``torch.library`` op of the
+``eas_snn`` namespace, ``ops/library.py``; the wrappers here check their
+arguments and call the op on either device):
 
 * ``conv1x1_plif``: 1x1 conv over a virtual channel concat of up to 4
   pieces (``csrc/conv_wgmma.cu``, wgmma);
@@ -41,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .plif import decay_multiplier, plif_forward_plain
+from .plif import decay_multiplier, plif_forward_plain, plif_spikes_plain
 from .surrogate import spike_ge
 
 __all__ = [
@@ -284,7 +286,9 @@ def conv1x1_plif(x: Pieces, w_oc: torch.Tensor, bias: torch.Tensor, T: int,
                  kind: str = "atan") -> torch.Tensor:
     """Fused 1x1 conv + folded BN + PLIF over a virtual concat of pieces
     (T*B, C_j, H, W); ``w_oc`` (Cout, sum C_j) from :func:`fold_conv1x1`.
-    Returns (T*B, Cout, H, W) int8 spikes."""
+    Returns (T*B, Cout, H, W) int8 spikes. Calls the registered op
+    ``eas_snn::conv1x1_plif``: the kernel on CUDA tensors, the plain
+    version on CPU ones."""
     xs = _pieces(x)
     TB, _, H, W = xs[0].shape
     cin = sum(p.shape[1] for p in xs)
@@ -294,8 +298,26 @@ def conv1x1_plif(x: Pieces, w_oc: torch.Tensor, bias: torch.Tensor, T: int,
                          f"{tuple(bias.shape)} do not fit Cin={cin}")
     if TB % T:
         raise ValueError(f"leading dim {TB} is not a multiple of T={T}")
-    if xs[0].device.type == "cpu":
-        return conv1x1_plif_plain(xs, w_oc, bias, T, w_plif, thresh, kind)
+    return torch.ops.eas_snn.conv1x1_plif(list(xs), w_oc, bias, w_plif, T,
+                                          float(thresh), spike_ge(kind))
+
+
+def conv1x1_plif_cpu(xs, w_oc, bias, w_plif, T: int, thresh: float,
+                     ge: bool):
+    """The CPU implementation of ``eas_snn::conv1x1_plif``: the plain
+    version."""
+    return plif_spikes_plain(conv1x1_preact_plain(xs, w_oc, bias), T,
+                             decay_multiplier(w_plif), None, thresh, ge)
+
+
+def conv1x1_plif_cuda(xs, w_oc, bias, w_plif, T: int, thresh: float,
+                      ge: bool):
+    """The device implementation of ``eas_snn::conv1x1_plif``: the
+    layout checks, the plan, the kernel's operands (:func:`_operands`)
+    and one launch of ``csrc/conv_wgmma.cu``, counted in
+    ``conv1x1_plif.launches``."""
+    TB, _, H, W = xs[0].shape
+    cout = w_oc.shape[0]
     for p in xs:
         _build.require_cuda(p, "conv1x1_plif")
     _check_layout(xs, H * W, 16, "conv1x1_plif")
@@ -310,7 +332,7 @@ def conv1x1_plif(x: Pieces, w_oc: torch.Tensor, bias: torch.Tensor, T: int,
     err = _build.get_lib("conv_wgmma").conv1x1_plif(
         ptrs, cins, n, w16.data_ptr(), b32.data_ptr(), a.data_ptr(),
         out.data_ptr(), TB // T, T, cout, H, W, plan.width, plan.chunk,
-        plan.n_chunks, plan.grid_x, float(thresh), int(spike_ge(kind)),
+        plan.n_chunks, plan.grid_x, float(thresh), int(ge),
         _DTYPE_CODE[xs[0].dtype], _build.stream_ptr(dev),
     )
     _build.check(err, "conv1x1_plif")
@@ -329,9 +351,28 @@ def _conv3x3(x, w3, bias, T, w_plif, thresh, kind, stride, wrapper):
                          f"Cin={cin}")
     if TB % T:
         raise ValueError(f"leading dim {TB} is not a multiple of T={T}")
-    if x.device.type == "cpu":
-        return conv3x3_plif_plain(x, w3, bias, T, w_plif, stride, thresh,
-                                  kind)
+    return getattr(torch.ops.eas_snn, what)(x, w3, bias, w_plif, T,
+                                            float(thresh), spike_ge(kind))
+
+
+def conv3x3_plif_cpu(x, w3, bias, w_plif, T: int, thresh: float, ge: bool,
+                     stride: int = 1):
+    """The CPU implementation of ``eas_snn::conv3x3_plif`` (``stride`` 1)
+    and ``eas_snn::conv3x3s2_plif`` (2): the plain version."""
+    return plif_spikes_plain(conv3x3_preact_plain(x, w3, bias, stride), T,
+                             decay_multiplier(w_plif), None, thresh, ge)
+
+
+def conv3x3_plif_cuda(x, w3, bias, w_plif, T: int, thresh: float, ge: bool,
+                      stride: int = 1):
+    """The device implementation of ``eas_snn::conv3x3_plif`` and
+    ``eas_snn::conv3x3s2_plif``: the layout checks, the plan, the
+    kernel's operands and one launch of ``csrc/conv_wgmma.cu``, counted in
+    the wrapper's ``launches``."""
+    wrapper = conv3x3_plif if stride == 1 else conv3x3s2_plif
+    what = wrapper.__name__
+    TB, cin, H, W = x.shape
+    cout = w3.shape[1]
     _build.require_cuda(x, what)
     dev = x.device
     _check_layout((x,), W, 4, what)
@@ -343,7 +384,7 @@ def _conv3x3(x, w3, bias, T, w_plif, thresh, kind, stride, wrapper):
     err = getattr(_build.get_lib("conv_wgmma"), what)(
         x.data_ptr(), w16.data_ptr(), b32.data_ptr(), a.data_ptr(),
         out.data_ptr(), TB // T, T, cin, cout, H, W, plan.width, plan.chunk,
-        plan.n_chunks, plan.grid_x, float(thresh), int(spike_ge(kind)),
+        plan.n_chunks, plan.grid_x, float(thresh), int(ge),
         _DTYPE_CODE[x.dtype], _build.stream_ptr(dev))
     _build.check(err, what)
     wrapper.launches += 1
@@ -354,7 +395,8 @@ def conv3x3_plif(x: torch.Tensor, w3: torch.Tensor, bias: torch.Tensor,
                  T: int, w_plif: torch.Tensor, thresh: float = 1.0,
                  kind: str = "atan") -> torch.Tensor:
     """Fused 3x3/stride-1 conv + folded BN + PLIF; ``w3`` (3, Cout, 3*Cin)
-    from :func:`fold_conv3x3`. Returns (T*B, Cout, H, W) int8 spikes."""
+    from :func:`fold_conv3x3`. Returns (T*B, Cout, H, W) int8 spikes
+    (the registered op ``eas_snn::conv3x3_plif``)."""
     return _conv3x3(x, w3, bias, T, w_plif, thresh, kind, 1, conv3x3_plif)
 
 
@@ -362,7 +404,8 @@ def conv3x3s2_plif(x: torch.Tensor, w3: torch.Tensor, bias: torch.Tensor,
                    T: int, w_plif: torch.Tensor, thresh: float = 1.0,
                    kind: str = "atan") -> torch.Tensor:
     """Fused 3x3/stride-2 conv + folded BN + PLIF. Returns
-    (T*B, Cout, ceil(H/2), ceil(W/2)) int8 spikes."""
+    (T*B, Cout, ceil(H/2), ceil(W/2)) int8 spikes (the registered op
+    ``eas_snn::conv3x3s2_plif``)."""
     return _conv3x3(x, w3, bias, T, w_plif, thresh, kind, 2, conv3x3s2_plif)
 
 

@@ -57,7 +57,8 @@ import torch
 from . import _build
 from .surrogate import spike_ge, surrogate_deriv, train_alpha
 
-__all__ = ["plif_forward", "plif_forward_plain", "decay_multiplier",
+__all__ = ["plif_forward", "plif_forward_plain", "plif_spikes_plain",
+           "plif_fwd_cuda", "decay_multiplier",
            "bn_eval", "plif_train", "plif_train_forward",
            "plif_train_forward_plain", "plif_train_backward",
            "plif_train_backward_plain", "plif_fwd_plan", "plif_bwd_plan"]
@@ -171,10 +172,19 @@ def plif_forward_plain(x_tb: torch.Tensor, T: int, w: torch.Tensor,
                        a: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch PLIF forward: (T*B, ...) bf16/f32 -> int8 spikes;
     ``a`` is ``decay_multiplier(w)`` where the caller keeps it."""
+    a = decay_multiplier(w) if a is None else a
+    return plif_spikes_plain(x_tb, T, a, bn, thresh, spike_ge(kind))
+
+
+def plif_spikes_plain(x_tb: torch.Tensor, T: int, a: torch.Tensor,
+                      bn: Optional[BN], thresh: float, ge: bool
+                      ) -> torch.Tensor:
+    """:func:`plif_forward_plain` on the decay multiplier ``a`` and the
+    comparison (``ge``: >=, else >): the CPU implementation of the
+    registered op ``eas_snn::plif_fwd`` (``ops/library.py``)."""
     if bn is not None:
         x_tb = bn_eval(x_tb, *bn, x_tb.dtype)
-    ge = spike_ge(kind)
-    a = (decay_multiplier(w) if a is None else a).to(x_tb.device)
+    a = a.to(x_tb.device)
     xs = x_tb.reshape((T, -1) + tuple(x_tb.shape[1:])).float()
     v = torch.zeros_like(xs[0])
     outs = []
@@ -189,7 +199,7 @@ def plif_forward_plain(x_tb: torch.Tensor, T: int, w: torch.Tensor,
 
 def _fwd_launch(entry: str, x: torch.Tensor, out: torch.Tensor,
                 a: torch.Tensor, bn: BN, T: int, thresh: float,
-                kind: str) -> None:
+                ge: bool) -> None:
     """Launch ``entry`` of csrc/plif.cu on x (checked: CUDA, contiguous,
     (T*B, C, H, W), bf16/f32) with the f32 ``a`` and BN terms on its
     device."""
@@ -202,7 +212,7 @@ def _fwd_launch(entry: str, x: torch.Tensor, out: torch.Tensor,
                          aligned=x.data_ptr() % 16 == 0)
     err = getattr(_build.get_lib("plif"), entry)(
         x.data_ptr(), out.data_ptr(), a.data_ptr(), n, T, float(thresh),
-        int(spike_ge(kind)), _DTYPE_CODE[x.dtype],
+        int(ge), _DTYPE_CODE[x.dtype],
         *(p.data_ptr() for p in bn), C, HW, plan.E, plan.grid,
         _build.stream_ptr(x.device),
     )
@@ -218,7 +228,9 @@ def plif_forward(x_tb: torch.Tensor, T: int, w: torch.Tensor,
     ``bn`` the preactivation is ``bn_eval(x_tb, *bn, x_tb.dtype)``. ``a``
     is ``decay_multiplier(w)`` where the caller keeps it (f32, on x's
     device); the BN terms cost nothing more a call when they are f32 and
-    contiguous on x's device."""
+    contiguous on x's device. Calls the registered op
+    ``eas_snn::plif_fwd``: the kernel on a CUDA tensor, the plain version
+    on a CPU one."""
     if out_dtype != torch.int8:
         raise ValueError("plif_forward stores spikes as int8 only")
     if x_tb.shape[0] % T:
@@ -227,21 +239,34 @@ def plif_forward(x_tb: torch.Tensor, T: int, w: torch.Tensor,
     if bn is not None and (x_tb.dim() != 4 or any(
             p.shape != (x_tb.shape[1],) for p in bn)):
         raise ValueError("bn needs an NCHW x and (C,) mean, mul and bias")
-    if x_tb.device.type == "cpu":
-        return plif_forward_plain(x_tb, T, w, thresh, kind, bn, a)
-    _build.require_cuda(x_tb, "plif_forward")
-    if x_tb.dtype not in _DTYPE_CODE:
-        raise ValueError(f"plif_forward: unsupported dtype {x_tb.dtype}")
-    if x_tb.dim() != 4:
-        raise ValueError("plif_forward: the kernel takes (T*B, C, H, W)")
-    C = x_tb.shape[1]
+    if x_tb.device.type != "cpu":
+        if x_tb.dtype not in _DTYPE_CODE:
+            raise ValueError(f"plif_forward: unsupported dtype {x_tb.dtype}")
+        if x_tb.dim() != 4:
+            raise ValueError("plif_forward: the kernel takes (T*B, C, H, W)")
     a = decay_multiplier(w) if a is None else a
-    if bn is None:
-        bn = (torch.zeros(C), torch.ones(C), torch.zeros(C))
-    a, *bn = (p.to(device=x_tb.device, dtype=torch.float32).contiguous()
-              for p in (a, *bn))
+    a, *bn = (None if p is None else p.to(device=x_tb.device,
+                                          dtype=torch.float32).contiguous()
+              for p in (a, *(bn or (None,) * 3)))
+    return torch.ops.eas_snn.plif_fwd(x_tb, T, a, *bn, float(thresh),
+                                      spike_ge(kind))
+
+
+def plif_fwd_cuda(x_tb: torch.Tensor, T: int, a: torch.Tensor,
+                  mean: Optional[torch.Tensor], mul: Optional[torch.Tensor],
+                  bias: Optional[torch.Tensor], thresh: float, ge: bool
+                  ) -> torch.Tensor:
+    """The device implementation of ``eas_snn::plif_fwd``: one launch of
+    ``csrc/plif.cu``, counted in ``plif_forward.launches``. Without BN
+    terms it passes the identity (0, 1, 0)."""
+    _build.require_cuda(x_tb, "plif_forward")
+    C = x_tb.shape[1]
+    bn = (mean, mul, bias)
+    if mean is None:
+        bn = tuple(p.to(x_tb.device) for p in (
+            torch.zeros(C), torch.ones(C), torch.zeros(C)))
     out = torch.empty(x_tb.shape, dtype=torch.int8, device=x_tb.device)
-    _fwd_launch("plif_fwd", x_tb, out, a, bn, T, thresh, kind)
+    _fwd_launch("plif_fwd", x_tb, out, a, bn, T, thresh, ge)
     plif_forward.launches += 1
     return out
 
@@ -343,7 +368,7 @@ def plif_train_forward(x, a, mean, mul, bias, T: int, thresh: float = 1.0,
     a, bn = _train_operands(x, a, (mean, mul, bias), T,
                             "plif_train_forward")
     out = torch.empty_like(x)
-    _fwd_launch("plif_train_fwd", x, out, a, bn, T, thresh, kind)
+    _fwd_launch("plif_train_fwd", x, out, a, bn, T, thresh, spike_ge(kind))
     plif_train_forward.launches += 1
     return out
 

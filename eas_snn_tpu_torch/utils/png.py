@@ -1,15 +1,25 @@
 """PNG files from and to uint8 numpy images, on the standard library's
-``zlib`` and ``struct`` alone (the port's stand-in for the JAX package's
+``zlib`` and ``struct`` (the port's stand-in for the JAX package's
 ``cv2.imwrite`` / ``cv2.imread`` of PNGs).
 
 ``write_png`` writes an (H, W, 3) BGR image (the channel order the
 drawing functions carry, as OpenCV's) as 8-bit RGB, and an (H, W) image
 as 8-bit grey: non-interlaced, every row under filter 0 (none), one IDAT
 chunk compressed at zlib's level 1 (OpenCV's default for PNGs, zlib's
-fastest). ``read_png`` reads what ``write_png`` writes and returns
-(H, W, 3) BGR or (H, W) grey; anything else raises ``ValueError``: a
-chunk whose CRC is wrong, a truncated file, another bit depth or colour
-type, interlacing, a row filter other than 0.
+fastest).
+
+``read_png`` reads non-interlaced 8-bit grey, RGB, grey + alpha and RGBA
+and 1-, 2-, 4- or 8-bit palette PNGs, under any of PNG's row filters
+(None, Sub, Up, Average, Paeth; cv2 and most tools write filtered rows)
+and over any number of IDAT chunks, and returns what ``cv2.imread`` with
+``IMREAD_COLOR`` gives before its grey-to-BGR step: (H, W, 3) BGR, or
+(H, W) for grey, the alpha dropped as cv2 drops it. Rows under filters
+1-4 are undone by the port's host core (``data/imgcore``, built by g++
+at first use); a file of unfiltered rows needs no build. Anything else
+raises ``ValueError`` naming the file and the mode: a chunk whose CRC
+is wrong, a truncated file, another bit depth or colour type (16-bit,
+grey below 8 bits), interlacing, a filter type past 4, a palette index
+past the palette.
 """
 
 from __future__ import annotations
@@ -22,7 +32,9 @@ import numpy as np
 __all__ = ["write_png", "read_png"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_GREY, _RGB = 0, 2  # PNG colour types
+_GREY, _RGB, _PALETTE, _GREY_ALPHA, _RGBA = 0, 2, 3, 4, 6  # colour types
+# samples a pixel of each colour type
+_CHANNELS = {_GREY: 1, _RGB: 3, _PALETTE: 1, _GREY_ALPHA: 2, _RGBA: 4}
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -56,13 +68,14 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 def read_png(path: str) -> np.ndarray:
-    """The uint8 image in ``path``: (H, W, 3) BGR for RGB, (H, W) for grey.
-    Raises ``ValueError`` on a file this module does not read."""
+    """The uint8 image in ``path``: (H, W, 3) BGR for RGB(A) and palette
+    images, (H, W) for grey (with or without alpha). Raises
+    ``ValueError`` on a file this module does not read."""
     with open(path, "rb") as f:
         buf = f.read()
     if not buf.startswith(_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
-    pos, header, idat, ended = len(_SIGNATURE), None, [], False
+    pos, header, idat, ended, plte = len(_SIGNATURE), None, [], False, None
     while pos < len(buf):
         if pos + 8 > len(buf):
             raise ValueError(f"{path}: truncated chunk header")
@@ -79,6 +92,8 @@ def read_png(path: str) -> np.ndarray:
             header = struct.unpack(">IIBBBBB", data)
         elif kind == b"IDAT":
             idat.append(data)
+        elif kind == b"PLTE":
+            plte = data
         elif kind == b"IEND":
             ended = True
             break
@@ -87,28 +102,57 @@ def read_png(path: str) -> np.ndarray:
     if header is None or not idat or not ended:
         raise ValueError(f"{path}: IHDR, IDAT or IEND missing")
     w, h, depth, kind, compression, filt, interlace = header
-    if depth != 8 or kind not in (_GREY, _RGB):
+    if (kind not in _CHANNELS or (kind == _PALETTE and depth not in (1, 2, 4, 8))
+            or (kind != _PALETTE and depth != 8)):
         raise ValueError(f"{path}: bit depth {depth}, colour type {kind}: "
-                         "only 8-bit grey and RGB are read")
+                         "only 8-bit grey, RGB, grey + alpha and RGBA and "
+                         "1- to 8-bit palette images are read")
     if compression or filt or interlace:
         raise ValueError(f"{path}: compression {compression}, filter "
                          f"method {filt}, interlace {interlace}: only 0, 0, "
                          "0 (non-interlaced) are read")
-    channels = 3 if kind == _RGB else 1
+    channels = _CHANNELS[kind]
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"{path}: corrupt image data ({e})") from None
-    stride = w * channels
+    stride = -(-w * channels * depth // 8)
     if len(raw) != h * (stride + 1):
         raise ValueError(f"{path}: {len(raw)} bytes of image data, "
                          f"expected {h * (stride + 1)}")
     rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
     filters = np.unique(rows[:, 0])
+    if filters.max() > 4:
+        raise ValueError(f"{path}: row filters {filters.tolist()}: PNG's "
+                         "filter types are 0-4")
     if filters.any():
-        raise ValueError(f"{path}: row filters {filters.tolist()}: only "
-                         "filter 0 (none) is read")
-    img = rows[:, 1:]
-    if channels == 1:
-        return img.copy()
-    return img.reshape(h, w, 3)[..., ::-1].copy()
+        from ..data.image import load_native
+
+        img = np.empty((h, stride), np.uint8)
+        load_native().png_unfilter(np.ascontiguousarray(rows), h, stride,
+                                   max(1, channels * depth // 8), img)
+    else:
+        img = rows[:, 1:]
+    if kind == _PALETTE:
+        return _palette_bgr(img, w, depth, plte, path)
+    img = img.reshape(h, w, channels)
+    if kind in (_GREY, _GREY_ALPHA):
+        return img[..., 0].copy()
+    return img[..., 2::-1].copy()
+
+
+def _palette_bgr(idx: np.ndarray, w: int, depth: int, plte, path: str
+                 ) -> np.ndarray:
+    """(H, stride) packed palette indices -> (H, W, 3) BGR."""
+    if plte is None or len(plte) % 3 or not plte:
+        raise ValueError(f"{path}: a palette image without a valid PLTE "
+                         "chunk")
+    if depth < 8:
+        bits = np.unpackbits(idx, axis=1).reshape(idx.shape[0], -1, depth)
+        idx = bits @ (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    idx = idx[:, :w]
+    pal = np.frombuffer(plte, np.uint8).reshape(-1, 3)
+    if idx.max() >= len(pal):
+        raise ValueError(f"{path}: palette index {int(idx.max())} past the "
+                         f"{len(pal)} entries of PLTE")
+    return pal[idx][..., ::-1].copy()

@@ -38,6 +38,7 @@ from eas_snn_tpu_torch.models import ARSNNEmbedding, BaseConv, EASYOLOX, Neuron
 from eas_snn_tpu_torch.models import blocks as pblocks
 from eas_snn_tpu_torch.utils import (load_reference_state_dict,
                                      state_dict_from_jax)
+from torch_meta import MetaAsCuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = 3
@@ -300,8 +301,9 @@ def test_flagship_sites_pass_the_kernel_wrappers_checks(monkeypatch, compute):
     """The kernels take only layouts that split into whole aligned copies,
     and their wrappers raise otherwise. Every flagship site (deploy's bf16
     and the f32 of the card-vs-CPU check) must pass those checks: the real
-    wrappers run on meta tensors, as on the card, with the library's entry
-    points replaced by stubs that launch nothing."""
+    wrappers run on meta tensors, as on the card (``tests/torch_meta.py``),
+    with the library's entry points replaced by stubs that launch
+    nothing."""
     from eas_snn_tpu_torch.ops import _build, launch_counts, reset_launches
 
     class Lib:
@@ -315,7 +317,8 @@ def test_flagship_sites_pass_the_kernel_wrappers_checks(monkeypatch, compute):
     exp.compute_dtype = compute
     model = exp.get_model(device="cpu").to("meta")
     reset_launches()
-    out = model(torch.empty((1, 1, 4, 256, 320, 2), device="meta"))
+    with MetaAsCuda():
+        out = model(torch.empty((1, 1, 4, 256, 320, 2), device="meta"))
     counts = launch_counts()
     reset_launches()
     assert out.shape == (1, 1680, 7)
@@ -536,6 +539,11 @@ lab = torch.zeros(1, 50, 5)
 lab[0, 0] = torch.tensor([1.0, 16.0, 16.0, 12.0, 10.0])
 out = train_step(m, opt, init_ema(m), ev, lab, to_host=True)
 assert all(v == v for v in out.values()) and out["total_loss"] > 0
+from eas_snn_tpu_torch.ops.pack import pack_conv_kernel
+from eas_snn_tpu_torch.tools.export import export_program, kernel_ops
+assert pack_conv_kernel(torch.ones(4, 2, 5, 5), 4).shape == (64, 32, 3, 3)
+m = exp.get_model(device="cpu")
+assert kernel_ops(export_program(m, ev[:, :, :, :32, :32]))["plif_fwd"] > 0
 ev = np.zeros(100, [("t", "<u4"), ("x", "<u2"), ("y", "<u2"), ("p", "u1")])
 ev["t"] = np.arange(100)
 assert micro_sum(ev, 4, 8, 8).sum() == 96  # t 96-99 past 4 windows of 24
@@ -631,7 +639,9 @@ def test_no_jax_import_in_port_sources():
                 ("tools", "bench_streaming.py"), ("parallel", "__init__.py"),
                 ("tools", "demo.py"), ("tools", "play_events.py"),
                 ("utils", "png.py"), ("utils", "draw.py"),
-                ("utils", "visualize.py"), ("utils", "assign_viz.py")):
+                ("utils", "visualize.py"), ("utils", "assign_viz.py"),
+                ("ops", "library.py"), ("ops", "pack.py"),
+                ("tools", "export.py")):
         assert any(f.endswith(os.path.join(*new)) for f in files), new
     hits = [f for f in files if pat.search(open(f).read())]
     assert not hits, hits

@@ -33,6 +33,7 @@ from eas_snn_tpu_torch.ops.plif import (plif_forward, plif_forward_plain,
                                         plif_train_backward,
                                         plif_train_forward)
 from eas_snn_tpu_torch.ops.surrogate import get_spike_fn, spike_ge
+from torch_meta import MetaAsCuda
 
 T = 3
 
@@ -151,15 +152,16 @@ def test_plif_with_bn_matches_jax_bn_then_kernel():
 
 def test_plif_rejects_other_devices_and_dtypes():
     """A wrapper runs the plain version only on CPU tensors: any other
-    device must launch the kernel or raise, never fall back."""
+    device must launch the kernel or raise, never fall back (meta tensors
+    stand in for CUDA ones, ``tests/torch_meta.py``)."""
     w = torch.tensor(0.0)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError), MetaAsCuda():
         plif_forward(torch.empty(6, 2, 2, 2, device="meta"), T, w)
     with pytest.raises(ValueError):
         plif_forward(torch.zeros(6, 2, 2, 2), T, w, out_dtype=torch.float32)
     with pytest.raises(ValueError):
         plif_forward(torch.zeros(5, 2, 2, 2), T, w)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError), MetaAsCuda():
         pcp.conv1x1_plif(torch.empty(6, 4, 2, 2, device="meta"),
                          torch.zeros(3, 4), torch.zeros(3), T, w)
 
@@ -171,7 +173,8 @@ def test_plif_rejects_other_devices_and_dtypes():
 def test_wrappers_refuse_layouts_the_kernels_cannot_copy(monkeypatch, case):
     """On a non-CPU tensor a wrapper raises for a layout that does not
     split into the kernel's whole aligned copies (meta tensors stand in
-    for CUDA ones; the library is never reached)."""
+    for CUDA ones, ``tests/torch_meta.py``; the library is never
+    reached)."""
     from eas_snn_tpu_torch.ops import _build
     monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
     monkeypatch.setattr(_build, "get_lib", lambda name: pytest.fail(name))
@@ -228,7 +231,7 @@ def test_wrappers_refuse_layouts_the_kernels_cannot_copy(monkeypatch, case):
             meta(9, 8, 4, 2, dtype=torch.bfloat16), z(1), z(8), z(8), z(8),
             9),
     }
-    with pytest.raises(ValueError, match="kernel"):
+    with pytest.raises(ValueError, match="kernel"), MetaAsCuda():
         calls[case]()
 
 
@@ -375,8 +378,8 @@ def test_eval_terms_stay_differentiable_where_a_gradient_is_wanted():
 @pytest.mark.parametrize("case", ["fwd", "fwd_ragged", "train_fwd",
                                   "bwd", "bwd_ragged"])
 def test_plif_wrappers_launch_with_their_plans(monkeypatch, case):
-    """On a non-CPU tensor (meta tensors stand in for CUDA ones) the PLIF
-    wrappers hand the kernels their plans' item width and grid, any H*W
+    """On a non-CPU tensor (meta tensors stand in for CUDA ones,
+    ``tests/torch_meta.py``) the PLIF wrappers hand the kernels their plans' item width and grid, any H*W
     included, and the backward its plan, the kept scratch buffer and one
     f32 buffer whose views are da, dm, ds and db."""
     from eas_snn_tpu_torch.ops import _build
@@ -395,7 +398,8 @@ def test_plif_wrappers_launch_with_their_plans(monkeypatch, case):
     z = torch.zeros(C, device="meta")
     a = torch.zeros(1, device="meta")
     if case.startswith("fwd"):
-        out = plif_forward(x, T, torch.tensor(0.0, device="meta"))
+        with MetaAsCuda():
+            out = plif_forward(x, T, torch.tensor(0.0, device="meta"))
     elif case == "train_fwd":
         out = plif_train_forward(x, a, z, z, z, T)
     else:
@@ -690,7 +694,7 @@ def test_conv3x3s2_wrapper_launches_the_wgmma_kernel_with_its_plan(
     ``conv3x3s2_plif`` once with the stride-2 plan (width, chunk, chunks,
     grid), the geometry of the input and an int8 (T*B, Cout, ceil(H/2),
     ceil(W/2)) output, and counts the launch (meta tensors stand in for
-    CUDA ones)."""
+    CUDA ones, ``tests/torch_meta.py``)."""
     from eas_snn_tpu_torch.ops import _build
     calls = []
 
@@ -707,8 +711,9 @@ def test_conv3x3s2_wrapper_launches_the_wgmma_kernel_with_its_plan(
     x = torch.empty((6, 48, 9, 12), dtype=torch.bfloat16, device="meta")
     w3 = torch.zeros((3, 96, 144), device="meta")
     before = pcp.conv3x3s2_plif.launches
-    out = pcp.conv3x3s2_plif(x, w3, torch.zeros(96, device="meta"), T,
-                             torch.zeros((), device="meta"))
+    with MetaAsCuda():
+        out = pcp.conv3x3s2_plif(x, w3, torch.zeros(96, device="meta"), T,
+                                 torch.zeros((), device="meta"))
     assert out.shape == (6, 96, 5, 6) and out.dtype == torch.int8
     assert pcp.conv3x3s2_plif.launches == before + 1
     assert calls[0] == ("lib", "conv_wgmma")

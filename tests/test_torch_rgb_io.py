@@ -2,18 +2,22 @@
 and its host core ``data/imgcore/imgcore.cpp``) against cv2, bit for
 bit: ``imread`` on JPEGs that ``cv2.imwrite`` writes here (qualities 50,
 75 and 95; sampling 4:4:4, 4:2:2, 4:4:0 and 4:2:0; odd sizes; grey;
-restart intervals; optimized Huffman tables), on PIL JPEGs with EXIF
-orientations and on PNG bytes under a ``.jpg`` name; the refusals
-(progressive, truncated, not an image); ``resize_linear_u8``,
+restart intervals; optimized Huffman tables; progressive), on PIL JPEGs
+with EXIF orientations, PIL CMYK JPEGs (baseline and progressive, and the
+same files marked YCCK), on PNG bytes under a ``.jpg`` name and on PNGs
+that ``cv2.imwrite`` writes (every compression level and row filter,
+RGBA, grey) and PIL writes (grey + alpha, 1- to 8-bit palettes); the
+refusals (a truncated progressive file, truncated, not an image);
+``resize_linear_u8``,
 ``warp_affine_u8`` (both the core and the numpy plain versions) and
 ``rotation_matrix_2d`` at the mosaic's and mixup's sizes with matrices
 drawn by the JAX package's ``_affine_matrix``; the core's build and its
 raise; the checked-in fixtures that ``chip_smoke.py`` phase 15a reads
-on the card, regenerated here with cv2 and found unchanged.
+on the card, regenerated here with cv2 (and PIL) and found unchanged.
 
 ``python tests/test_torch_rgb_io.py --write-fixtures`` rewrites the
-fixtures (JPEGs by cv2, cv2's decoded pixels as PNGs by the port's
-lossless writer).
+fixtures (JPEGs and a PNG by cv2, a CMYK JPEG by PIL, cv2's decoded
+pixels as PNGs by the port's lossless writer).
 """
 
 import os
@@ -138,11 +142,16 @@ def test_imread_png_under_a_jpg_name(tmp_path):
 
 
 def test_imread_refusals_name_the_file_and_mode(tmp_path):
+    """A progressive file cut short (cv2 fills the missing scans and
+    warns), a baseline one cut short, a BMP under a .jpg name."""
     img = _scene(40, 56, 2)
     prog = _write(str(tmp_path / "prog.jpg"), img,
                   [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    data = open(prog, "rb").read()
+    with open(prog, "wb") as f:
+        f.write(data[: len(data) * 9 // 10])
     assert cv2.imread(prog) is not None
-    with pytest.raises(ValueError, match=r"prog\.jpg.*progressive"):
+    with pytest.raises(ValueError, match=r"prog\.jpg.*truncated"):
         image.imread(prog)
     full = _write(str(tmp_path / "full.jpg"), img, [])
     data = open(full, "rb").read()
@@ -159,12 +168,16 @@ def test_imread_refusals_name_the_file_and_mode(tmp_path):
 
 
 def test_imread_refuses_cmyk_and_12_bit(tmp_path):
-    """A CMYK JPEG (PIL writes one) and a 12-bit frame header."""
+    """A CMYK JPEG (PIL writes one) cut short, and a 12-bit frame header.
+    (Whole CMYK files read: ``test_imread_cmyk_and_ycck_equal_cv2``.)"""
     from PIL import Image
 
     p = str(tmp_path / "cmyk.jpg")
-    Image.fromarray(np.zeros((16, 16, 4), np.uint8), "CMYK").save(p)
-    with pytest.raises(ValueError, match=r"cmyk\.jpg.*CMYK"):
+    Image.fromarray(_cmyk(16, 16, 0), "CMYK").save(p)
+    assert image.imread(p).shape == (16, 16, 3)
+    data = open(p, "rb").read()
+    open(p, "wb").write(data[: len(data) - 40])
+    with pytest.raises(ValueError, match=r"cmyk\.jpg.*truncated"):
         image.imread(p)
     data = bytearray(open(_write(str(tmp_path / "a.jpg"),
                                  _scene(16, 16, 0), []), "rb").read())
@@ -174,6 +187,115 @@ def test_imread_refuses_cmyk_and_12_bit(tmp_path):
     open(p, "wb").write(bytes(data))
     with pytest.raises(ValueError, match=r"p12\.jpg.*12-bit"):
         image.imread(p)
+
+
+# ------------------------------------------------ progressive, CMYK, PNG
+
+def _cmyk(h, w, seed):
+    """A CMYK image: the scene's inverted channels and a noisy K."""
+    k = np.random.default_rng(seed).integers(0, 256, (h, w, 1), np.uint8)
+    return np.concatenate([255 - _scene(h, w, seed), k], -1)
+
+
+@pytest.mark.parametrize("size", [(47, 61), (9, 17)])
+@pytest.mark.parametrize("sampling", sorted(SAMPLING))
+@pytest.mark.parametrize("quality", [50, 75, 95])
+def test_imread_progressive_equals_cv2(tmp_path, quality, sampling, size):
+    """Progressive JPEGs (spectral selection and successive
+    approximation: DC and AC first and refinement scans, end-of-band
+    runs) by cv2.imwrite, at odd sizes."""
+    h, w = size
+    img = _scene(h, w, quality + w)
+    p = _write(str(tmp_path / "p.jpg"), img,
+               [cv2.IMWRITE_JPEG_QUALITY, quality,
+                cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling],
+                cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    assert open(p, "rb").read().find(b"\xff\xc2") > 0  # SOF2
+    assert np.array_equal(image.imread(p), cv2.imread(p))
+
+
+def test_imread_progressive_grey_and_restarts(tmp_path):
+    """A grey progressive file and one with restart intervals (the
+    end-of-band run ends at each restart)."""
+    g = _scene(37, 45, 4)[..., 0]
+    p = _write(str(tmp_path / "g.jpg"), g, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    assert np.array_equal(image.imread(p), cv2.imread(p))
+    p = _write(str(tmp_path / "r.jpg"), _scene(64, 80, 5, noise=30.0),
+               [cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                cv2.IMWRITE_JPEG_RST_INTERVAL, 2])
+    assert np.array_equal(image.imread(p), cv2.imread(p))
+
+
+@pytest.mark.parametrize("ycck", [False, True], ids=["cmyk", "ycck"])
+@pytest.mark.parametrize("progressive", [False, True],
+                         ids=["baseline", "progressive"])
+def test_imread_cmyk_and_ycck_equal_cv2(tmp_path, progressive, ycck):
+    """PIL's CMYK JPEGs (Adobe transform 0, inverted CMYK), baseline and
+    progressive; and the same files with the Adobe transform set to 2
+    (YCCK: libjpeg turns the components back into CMYK), as no tool here
+    writes YCCK."""
+    from PIL import Image
+
+    p = str(tmp_path / "c.jpg")
+    Image.fromarray(_cmyk(37, 53, 9), "CMYK").save(p, quality=90,
+                                                   progressive=progressive)
+    data = bytearray(open(p, "rb").read())
+    adobe = data.index(b"Adobe")
+    assert data[adobe + 11] == 0
+    if ycck:
+        data[adobe + 11] = 2
+        open(p, "wb").write(bytes(data))
+    want = cv2.imread(p)
+    assert want is not None and want.shape == (37, 53, 3)
+    assert np.array_equal(image.imread(p), want)
+
+
+@pytest.mark.parametrize("level", range(10))
+def test_imread_cv2_png_equals_cv2(tmp_path, level):
+    """cv2.imwrite's PNGs at every compression level (its adaptive row
+    filters, several IDAT chunks)."""
+    p = _write(str(tmp_path / "a.png"), _scene(97, 131, level),
+               [cv2.IMWRITE_PNG_COMPRESSION, level])
+    assert np.array_equal(image.imread(p), cv2.imread(p))
+
+
+@pytest.mark.parametrize("flt", ["NONE", "SUB", "UP", "AVG", "PAETH"])
+def test_imread_png_row_filters_equal_cv2(tmp_path, flt):
+    """Each of PNG's row filters alone (cv2's IMWRITE_PNG_FILTER)."""
+    p = _write(str(tmp_path / "f.png"), _scene(53, 71, 3),
+               [cv2.IMWRITE_PNG_FILTER, getattr(cv2, f"IMWRITE_PNG_FILTER_"
+                                                   f"{flt}")])
+    assert np.array_equal(image.imread(p), cv2.imread(p))
+
+
+@pytest.mark.parametrize("kind", ["rgba", "grey", "grey_alpha", "p8", "p4",
+                                  "p2", "p1", "pil_rgba"])
+def test_imread_png_colour_types_equal_cv2(tmp_path, kind):
+    """RGBA and grey by cv2; grey + alpha, 8/4/2/1-bit palettes and an
+    optimized RGBA by PIL: cv2's IMREAD_COLOR drops the alpha and
+    expands the palette."""
+    from PIL import Image
+
+    img = _scene(41, 59, 6)
+    alpha = np.random.default_rng(6).integers(0, 256, (41, 59, 1), np.uint8)
+    p = str(tmp_path / "c.png")
+    if kind == "rgba":
+        _write(p, np.concatenate([img, alpha], -1), [])
+    elif kind == "grey":
+        _write(p, img[..., 1], [])
+    elif kind == "grey_alpha":
+        Image.fromarray(np.concatenate([img[..., :1], alpha], -1),
+                        "LA").save(p)
+    elif kind == "pil_rgba":
+        Image.fromarray(np.concatenate([img[..., ::-1], alpha], -1),
+                        "RGBA").save(p, optimize=True)
+    else:
+        colors = {"p8": 200, "p4": 16, "p2": 4, "p1": 2}[kind]
+        Image.fromarray(img[..., ::-1]).convert(
+            "P", palette=Image.ADAPTIVE, colors=colors).save(p)
+    got = image.imread(p)
+    assert got.shape == (41, 59, 3)
+    assert np.array_equal(got, cv2.imread(p))
 
 
 # --------------------------------------------------------------- geometry
@@ -249,8 +371,16 @@ def test_core_build_failure_raises(tmp_path, monkeypatch):
 
 # --------------------------------------------------------------- fixtures
 
+def _pil_cmyk(path, img):
+    from PIL import Image
+
+    Image.fromarray(img, "CMYK").save(path, quality=85)
+
+
 def fixture_specs():
-    """{file name: (image, cv2.imwrite params)} of the checked-in JPEGs."""
+    """{file name: (image, cv2.imwrite params, or a writer(path, image))}
+    of the checked-in images: JPEGs and a PNG by cv2, a CMYK JPEG by
+    PIL."""
     q = cv2.IMWRITE_JPEG_QUALITY
     s = cv2.IMWRITE_JPEG_SAMPLING_FACTOR
     return {
@@ -263,35 +393,54 @@ def fixture_specs():
         "grey_33x17.jpg": (_scene(17, 33, 14)[..., 2], [q, 80]),
         "scene_640x480.jpg": (_flat_scene(480, 640, 15),
                               [q, 75, s, SAMPLING["420"]]),
+        "prog_420_75x53.jpg": (_scene(53, 75, 16),
+                               [q, 80, s, SAMPLING["420"],
+                                cv2.IMWRITE_JPEG_PROGRESSIVE, 1]),
+        "cmyk_48x40.jpg": (_cmyk(40, 48, 17), _pil_cmyk),
+        "filtered_83x61.cv2.png": (_scene(61, 83, 18, noise=4.0),
+                                   [cv2.IMWRITE_PNG_COMPRESSION, 6]),
     }
 
 
+def pixels_name(name: str) -> str:
+    """The file of cv2's pixels of fixture ``name``: its stem + .png."""
+    return name.split(".")[0] + ".png"
+
+
 def write_fixtures(out_dir=FIXTURES):
-    """Each JPEG by cv2, and cv2.imread's pixels beside it as a PNG."""
+    """Each image by cv2 (or PIL), and cv2.imread's pixels beside it as a
+    PNG by the port's writer."""
     os.makedirs(out_dir, exist_ok=True)
     for name, (img, params) in fixture_specs().items():
-        p = _write(os.path.join(out_dir, name), img, params)
-        write_png(p[:-4] + ".png", cv2.imread(p))
+        p = os.path.join(out_dir, name)
+        if callable(params):
+            params(p, img)
+        else:
+            _write(p, img, params)
+        write_png(os.path.join(out_dir, pixels_name(name)), cv2.imread(p))
 
 
 def test_fixtures_regenerate_unchanged(tmp_path):
-    """cv2 writes the same bytes and decodes the same pixels as the
-    checked-in fixtures; the port reads each to its PNG; under 200 KB."""
+    """cv2 (and PIL) write the same bytes and cv2 decodes the same pixels
+    as the checked-in fixtures; the port reads each to its pixels; under
+    250 KB."""
     write_fixtures(str(tmp_path))
     names = sorted(os.listdir(FIXTURES))
     assert names == sorted(os.listdir(tmp_path))
-    assert len([n for n in names if n.endswith(".jpg")]) == 5
+    inputs = sorted(fixture_specs())
+    assert len(inputs) == 8 and set(inputs) <= set(names)
+    assert len(names) == 2 * len(inputs)
     total = 0
     for n in names:
         data = open(os.path.join(FIXTURES, n), "rb").read()
         total += len(data)
         assert data == open(tmp_path / n, "rb").read(), n
-        if n.endswith(".jpg"):
-            want = read_png(os.path.join(FIXTURES, n[:-4] + ".png"))
-            want = want if want.ndim == 3 else np.repeat(want[..., None], 3, 2)
-            assert np.array_equal(image.imread(os.path.join(FIXTURES, n)),
-                                  want), n
-    assert total < 200_000
+    for n in inputs:
+        want = read_png(os.path.join(FIXTURES, pixels_name(n)))
+        want = want if want.ndim == 3 else np.repeat(want[..., None], 3, 2)
+        assert np.array_equal(image.imread(os.path.join(FIXTURES, n)),
+                              want), n
+    assert total < 250_000
 
 
 if __name__ == "__main__":

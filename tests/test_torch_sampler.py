@@ -35,6 +35,7 @@ from eas_snn_tpu_torch.ops import arsnn_fused as pf
 from eas_snn_tpu_torch.utils import state_dict_from_jax
 
 from test_torch_model import SMALL, _np_tree, _random_variables
+from torch_meta import MetaAsCuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF16 = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16,
@@ -599,7 +600,7 @@ def test_wrappers_refuse_what_the_sampler_kernels_cannot_take(monkeypatch,
                                                              case):
     """On a non-CPU tensor the sampler wrappers raise for a dtype, layout
     or geometry their kernels do not take (meta tensors stand in for CUDA
-    ones; the library is never reached)."""
+    ones, ``tests/torch_meta.py``; the library is never reached)."""
     from eas_snn_tpu_torch.ops import _build
     monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
     monkeypatch.setattr(_build, "get_lib", lambda name: pytest.fail(name))
@@ -621,7 +622,8 @@ def test_wrappers_refuse_what_the_sampler_kernels_cannot_take(monkeypatch,
         "v2_dtype": _v2_call(dtype=torch.float16),
         "v2_steps": _v2_call(Tm=128),
     }
-    with pytest.raises(ValueError, match="fused_step|arsnn_fused_v2"):
+    with pytest.raises(ValueError, match="fused_step|arsnn_fused_v2"), \
+            MetaAsCuda():
         calls[case]()
 
 
@@ -634,8 +636,9 @@ def test_wrappers_refuse_what_the_sampler_kernels_cannot_take(monkeypatch,
 def test_fused_route_sites_pass_the_kernel_wrappers_checks(monkeypatch, name,
                                                            B, want):
     """The deploy forward with the fused route at the flagship, the Gen4
-    and the N-Caltech geometry, on meta tensors as on the card (the
-    library replaced by stubs that launch nothing): every kernel wrapper
+    and the N-Caltech geometry, on meta tensors as on the card
+    (``tests/torch_meta.py``; the library replaced by stubs that launch
+    nothing): every kernel wrapper
     takes its inputs, and a forward launches the whole-scan kernel Tm times
     (at 384x640 and 640x640 no site is in the TPU's fusion table, so all
     50 spiking sites take the PLIF kernel)."""
@@ -653,7 +656,9 @@ def test_fused_route_sites_pass_the_kernel_wrappers_checks(monkeypatch, name,
     model = exp.get_model(device="cpu").to("meta")
     H, W = exp.test_size
     reset_launches()
-    out = model(torch.empty((B, exp.Tl, exp.Tm, H, W, 2), device="meta"))
+    with MetaAsCuda():
+        out = model(torch.empty((B, exp.Tl, exp.Tm, H, W, 2),
+                                device="meta"))
     counts = launch_counts()
     reset_launches()
     assert out.shape[0] == B * exp.Tl and out.shape[2] == 5 + exp.num_classes

@@ -34,6 +34,7 @@ from eas_snn_tpu_torch.ops.boxes import postprocess
 from eas_snn_tpu_torch.utils import state_dict_from_jax
 
 from test_torch_model import _random_variables
+from torch_meta import MetaAsCuda
 
 IMG, INP, TM = (48, 64), (32, 64), 3
 TINY = dict(num_classes=2, depth=0.33, width=0.125, use_spike="backbone",
@@ -277,7 +278,7 @@ def test_deploy_forward_at_b1_passes_the_kernel_wrappers_checks(
     """``detect``'s forward: ``gen1_syolox_m`` under ``deploy()`` at B=1,
     (1, 1, 4, 256, 320, 2). Every site passes the wrappers' layout checks
     and plans as at B=128 (the real wrappers on meta tensors with stub
-    launches): 35 / 8 / 6 / 1 a forward; and the whole-scan sampler
+    launches, ``tests/torch_meta.py``): 35 / 8 / 6 / 1 a forward; and the whole-scan sampler
     kernel takes N=1 (``v2_supported``; Tm launches a forward)."""
     from eas_snn_tpu_torch.ops import _build, launch_counts, reset_launches
 
@@ -292,7 +293,8 @@ def test_deploy_forward_at_b1_passes_the_kernel_wrappers_checks(
     exp = get_exp("gen1_syolox_m").deploy()
     model = exp.get_model(device="cpu").to("meta")
     reset_launches()
-    out = model(torch.empty((1, 1, 4, 256, 320, 2), device="meta"))
+    with MetaAsCuda():
+        out = model(torch.empty((1, 1, 4, 256, 320, 2), device="meta"))
     counts = launch_counts()
     reset_launches()
     assert out.shape == (1, 1680, 7)

@@ -660,7 +660,7 @@ def test_e_yolox_presets_equal_the_jax_exps(size):
     name = f"e_yolox_{size}"
     jexp, pexp = _jax_preset(name), get_exp(name)
     only_jax = set(vars(jexp)) - set(vars(pexp))
-    assert only_jax == {"data_worker_mode", "packed_embedding", "use_pallas"}
+    assert only_jax == {"data_worker_mode", "use_pallas"}
     for f in sorted(set(vars(jexp)) & set(vars(pexp))):
         assert getattr(pexp, f) == getattr(jexp, f), f
     assert (pexp.depth, pexp.width) == {"s": (0.33, 0.5), "m": (0.67, 0.75),

@@ -111,9 +111,10 @@ def test_png_reader_refuses_bad_files(tmp_path):
         png.read_png(str(tmp_path / "laced.png"))
     with pytest.raises(ValueError, match="uint8"):
         png.write_png(path, img.astype(np.float32))
-    # a row under filter 1 (Sub), which write_png never writes
+    # a row under filter type 5, which PNG does not define (types 1-4
+    # read: tests/test_torch_rgb_io.py)
     raw = np.zeros((8, 1 + 9 * 3), np.uint8)
-    raw[1, 0] = 1
+    raw[1, 0] = 5
 
     def chunk(kind, data):
         return (struct.pack(">I", len(data)) + kind + data
@@ -123,7 +124,7 @@ def test_png_reader_refuses_bad_files(tmp_path):
         b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr[4:])
         + chunk(b"IDAT", zlib.compress(raw.tobytes()))
         + chunk(b"IEND", b""))
-    with pytest.raises(ValueError, match=r"row filters \[0, 1\]"):
+    with pytest.raises(ValueError, match=r"row filters \[0, 5\]"):
         png.read_png(str(tmp_path / "sub.png"))
 
 
