@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``eas_snn_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--batch 128] [--forwards 5] [--train-batch 64]
-                          [--train-steps 4] [--workers 7]
+                          [--train-steps 4] [--workers 4]
 
 Phases, each of which fails the run (exit code 1, no result line):
 
@@ -312,8 +312,39 @@ Phases, each of which fails the run (exit code 1, no result line):
    ``gen1_syolox_m`` step at B=64 with ``packed_embedding`` 'never' and
    'auto' in turns (50 + 50 launches a step), the packed step captured
    bit-equal to eager;
-17. when every check passed, one ``{"kernels": [...]}`` line, the
+17. the 2-D mesh (``parallel/mesh.py``), in MESH_PROCS processes of
+   their own (``mesh_worker``; NCCL where there are as many cards, else
+   gloo over the one card's tensors, which the output names): (a)
+   ``gen1_syolox_m`` under ``deploy()`` at B=16 channel-sharded over tp
+   = 2 and 4 (each model group of the mesh on the whole batch), (c)
+   row-sharded over tp = 2 and 4, each against the unsharded forward on
+   the same card: 35 / 8 / 6 / 1 + 4 launches on every process, the
+   sampler's slots bit-equal, and every BaseConv site run on the
+   unsharded forward's input of that site (its rows under SP): spikes
+   bit-equal where a hand kernel computes the site, at most SITE_TOL
+   flipped where cuDNN does, bf16 analog outputs one rounding apart; (d)
+   every hand kernel at the shapes (a) and (c) give it (Cout slices,
+   shards grown by their halo, kernel 5 on a row shard) against its
+   plain version; (b) the f32 ``gen1_syolox_m`` step on a 2 x 2 mesh at
+   a global B=8 against the unsharded step (loss terms within
+   MESH_LOSS_TOL, ``num_fg`` equal, parameters within MESH_PARAM_TOL, BN
+   statistics within MESH_STAT_TOL, 50 + 50 launches on every process)
+   and rows 7 and 8 at its channel-sliced geometries; (e) the ms of each
+   mode and the collectives' share, beside the card's name and power
+   limit: on one card these are no DP or TP speed;
+18. when every check passed, one ``{"kernels": [...]}`` line, the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+
+Phases 1-6 run alone on the card. Phases 6b-17 run in two lanes: this
+process runs 6b, 9 (9d-9e), 12, 11, 7, 8, 10 and 13 one after another,
+while a thread runs 17, 9a-9c, 14b-14c, 16, 15 and 14a, each in a
+process of its own, one after another (``SecondLane``). Each phase holds
+a share of the card's memory (``SHARE_GIB``), handed out first come,
+first served (``CardShares``), so that two phases that would not fit
+together never overlap; 14a's sweep runs out of memory within its own
+share. The second lane's output follows phase 13's, then when each phase
+asked, started and ended and the card's peak memory in use. From 6b on,
+times include the other lane's work on the card and the host.
 
 ``determinism_cost`` (not run by ``main``) times the captured step with
 cuDNN's deterministic algorithms on and off; ``nan_trace`` (not run by
@@ -334,10 +365,12 @@ import io
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
+import threading
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Optional
 
 import numpy as np
@@ -446,16 +479,19 @@ def kernel_ms(fn, symbol: str, iters: int = 10, launches: int = 1):
     not always record every launch of a short window (seen on the H100:
     6 of 10, once none), so the time is taken a launch, not a call, and a
     window that recorded no launch of the kernel is profiled again, at
-    most three windows. Returns (ms, recorded launches a call, recorded
-    launches of other kernels a call: the wrapper's side kernels)."""
+    most three windows, each four times the calls of the one before (a
+    B=1 site once recorded none in three windows of 10). Returns (ms,
+    recorded launches a call, recorded launches of other kernels a call:
+    the wrapper's side kernels)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     fn()
-    for _ in range(3):
+    for attempt in range(3):
+        calls = iters * 4 ** attempt
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         us, n, side = 0.0, 0, 0
@@ -467,11 +503,11 @@ def kernel_ms(fn, symbol: str, iters: int = 10, launches: int = 1):
             else:
                 side += e.count
         if n:
-            return us / 1e3 / n * launches, n / iters, side / iters
-        print(f"  (the profiler recorded no {symbol} launch in {iters} "
-              "calls: profiled again)")
+            return us / 1e3 / n * launches, n / calls, side / calls
+        print(f"  (the profiler recorded no {symbol} launch in {calls} "
+              f"calls: profiled again over {4 * calls})")
     fail(f"no {symbol} launch in three profiles: its time is not measured")
-    return float("nan"), 0.0, side / iters
+    return float("nan"), 0.0, side / calls
 
 
 def host_ms(fn, iters: int = 20) -> float:
@@ -661,11 +697,12 @@ def _site_inputs(shapes, dtype, gen):
     return xs
 
 
-def check_plif_site(mod, shapes, dtype, gen):
+def check_plif_site(mod, shapes, dtype, gen, timed=True):
     """The PLIF kernel with the site's BN folded in, on conv outputs drawn
     so that the BN output is about N(0.6, 1), called as the unfused site
     calls it (its neuron with its BN's eval terms: both kept on the site,
-    so a call launches the kernel and nothing else)."""
+    so a call launches the kernel and nothing else). Without ``timed``
+    only the comparison."""
     T, th, kind = mod.neuron.T, mod.neuron.thresh, mod.act.kind
     bn = mod.bn.eval_terms()
     mean, mul, bias = (p.reshape(1, -1, 1, 1) for p in bn)
@@ -682,6 +719,8 @@ def check_plif_site(mod, shapes, dtype, gen):
     if mism:
         fail(f"plif_fwd at {shapes[0]}: {mism} spikes differ (bit-equal "
              "expected)")
+    if not timed:
+        return res
     res["ms"] = cuda_ms(run, 20)
     res["kernel_ms"], _, res["side"] = kernel_ms(run, "plif_fwd_kernel")
     if res["side"]:
@@ -702,7 +741,11 @@ def check_plif_site(mod, shapes, dtype, gen):
     return res
 
 
-def check_conv_site(name, mod, shapes, dtype, gen):
+def check_conv_site(name, mod, shapes, dtype, gen, timed=True):
+    """A wgmma kernel at ``shapes`` with ``mod``'s folded weights against
+    its plain version (spikes may differ only within SPIKE_TOL of the
+    threshold), then timed against the plain version and the site's
+    unfused chain; without ``timed`` only the comparison."""
     T, th, kind = mod.neuron.T, mod.neuron.thresh, mod.act.kind
     xs = _site_inputs(shapes, dtype, gen)
     mul, bias_f = mod.bn.fold()
@@ -735,6 +778,8 @@ def check_conv_site(name, mod, shapes, dtype, gen):
         fail(f"{name} at {shapes}: {bad} spikes differ away from the "
              "threshold")
     del pre, margin, want, got
+    if not timed:
+        return res
     res["ms"] = cuda_ms(run, 10)
     res["kernel_ms"], _, res["side"] = kernel_ms(run, "conv_wgmma_kernel")
     res["plain_ms"] = cuda_ms(plain, 3, warmup=1)
@@ -2890,8 +2935,8 @@ def ncaltech_kernels() -> int:
 
 
 def phase_ncaltech(steps: int, workers: int) -> str:
-    """Phase 9: ``ncaltech_syolox_m`` (640x640, 100 classes, alpha 1.5).
-    Returns its synthetic tree's directory, which phase 12a reads and
+    """Phase 9: ``ncaltech_syolox_m`` (640x640, 100 classes, alpha 1.5):
+    the tree, 9d and 9e (9a-9c run in the second lane). Returns its synthetic tree's directory, which phase 12a reads and
     removes."""
     import shutil
 
@@ -2909,20 +2954,8 @@ def phase_ncaltech(steps: int, workers: int) -> str:
           f"240x180) written in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # the kernel checks (9a-9c) in a process of their own
-    t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-c", "import sys, chip_smoke; "
-         "sys.exit(chip_smoke.ncaltech_kernels())"], cwd=here,
-        capture_output=True, text=True, timeout=900)
-    print(r.stdout.rstrip())
-    print(f"  (the kernel checks' process took "
-          f"{time.perf_counter() - t0:.1f} s)", flush=True)
-    if r.returncode != 0:
-        fail(f"phase 9a-9c: the kernel checks' process exited "
-             f"{r.returncode}: {r.stderr[-2000:]}")
-    torch.cuda.empty_cache()
-
+    # the kernel checks (9a-9c, ``ncaltech_kernels``) run in the second
+    # lane, in a process of their own
     print(f"phase 9d: training through the CLI at B={NC_BATCH}", flush=True)
     train_through_cli(["-n", NCALTECH, "-b", str(NC_BATCH), "-l", "jsonl",
                        "data_dir", data, "output_dir",
@@ -4335,6 +4368,12 @@ def scale_phases() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     t_phase = time.perf_counter()
     res = {}
+    share = float(os.environ.get("CHIP_SMOKE_SHARE_GIB", "0"))
+    if share:
+        # the sweep runs out of memory on purpose: within this process's
+        # share of the card, so that the other lane keeps its own
+        total = torch.cuda.get_device_properties(0).total_memory / 2**30
+        torch.cuda.set_per_process_memory_fraction(min(1.0, share / total))
     exp = get_exp(NCALTECH)
     events, labels = _poisson_batch(exp, SCALE_B, SEED + 14)
     print(f"phase 14a: train memory at 640x640: {NCALTECH} "
@@ -4412,7 +4451,8 @@ def scale_phases() -> int:
         del events, labels, r
         torch.cuda.empty_cache()
     print(f"  largest batch of {list(SCALE_SWEEP)} that fits with remat and "
-          f"int8: {largest}")
+          f"int8: {largest}" + (f" (in this process's share of the card, "
+                                f"{share:g} GiB)" if share else ""))
     res["largest"] = largest
     print(f"  phase 14a took {time.perf_counter() - t_phase:.1f} s")
     print(json.dumps(res))
@@ -5048,41 +5088,20 @@ def rgb_phases(workers: int) -> int:
     return 1 if FAILURES else 0
 
 
-def phase_rgb(workers: int) -> dict:
-    """Phase 15 in a process of its own (``rgb_phases``)."""
-    return _child(f"rgb_phases({workers})", "phase 15", 500)
-
-
-def _child(fn: str, what: str, timeout: int) -> dict:
-    """``chip_smoke.<fn>`` in a process of its own: its output, then its
-    JSON result (empty, and a failure, if it gave none or exited non-zero).
-    """
-    here = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
-                        f"sys.exit(chip_smoke.{fn})"], cwd=here,
-                       capture_output=True, text=True, timeout=timeout)
-    lines = r.stdout.rstrip().splitlines()
-    print("\n".join(lines[:-1]))
-    print(f"  (the process of {what} took {time.perf_counter() - t0:.1f} s)",
-          flush=True)
+def child_result(what: str, rc: int, out: str, err: str, seconds: float,
+                 wants_json: bool = True) -> dict:
+    """Prints a child process's output and returns the JSON object on its
+    last line (empty, and a failure, if it gave none where ``wants_json``
+    or exited non-zero)."""
+    lines = out.rstrip().splitlines()
     try:
-        res = json.loads(lines[-1])
+        res = json.loads(lines[-1]) if wants_json else {}
     except (IndexError, ValueError):
-        res = {}
-    if r.returncode != 0 or not res:
-        fail(f"{what}: the process exited {r.returncode}: "
-             f"{r.stderr[-2000:]}")
-    return res
-
-
-def phase_scale(workers: int) -> dict:
-    """Phase 14: training at scale, in two processes of their own: 14a
-    (``scale_phases``), then 14c and 14b (``scale_dp_phases``: the NCCL
-    group stays in that process). Returns both results."""
-    res = _child("scale_phases()", "phase 14a", 600)
-    torch.cuda.empty_cache()
-    res.update(_child(f"scale_dp_phases({workers})", "phases 14b-14c", 600))
+        res, lines = {}, lines + [""]
+    print("\n".join(lines[:-1] if wants_json else lines))
+    print(f"  (the process of {what} took {seconds:.1f} s)", flush=True)
+    if rc != 0 or (wants_json and not res):
+        fail(f"{what}: the process exited {rc}: {err[-2000:]}")
     return res
 
 
@@ -5463,10 +5482,845 @@ def export_phases() -> int:
     return 1 if FAILURES else 0
 
 
-def phase_export(workers: int) -> dict:
-    """Phase 16 in a process of its own (``export_phases``)."""
-    del workers
-    return _child("export_phases()", "phase 16", 500)
+# --------------------------------------------------------------- phase 17
+
+MESH_PROCS = 4        # processes of the 2-D mesh phase
+MESH_B = 16           # the TP and SP eval forwards' batch
+MESH_STEP_B = 8       # the DP x TP step's global batch
+MESH_FORWARDS = 1     # timed forwards a mode
+MESH_LR = 1e-3        # the step's Adam lr, fixed
+MESH_PARAM_TOL = 2e-3  # parameters after the step: rtol and atol (2 lr,
+#                       tests/test_parallel.py's)
+MESH_STAT_TOL = 1e-4  # BN running statistics after the step: atol
+MESH_LOSS_TOL = 1e-4  # the step's loss terms, relative
+MESH_GRAD_TOL = 1e-3  # the step's reduced gradients: of each tensor's
+#                       largest magnitude (tests/test_torch_mesh.py's)
+MESH_TIMEOUT = 480    # seconds, the phase's processes together
+# a bf16 analog site against the unsharded one, |d| / (1 + |x|): one bf16
+# rounding at unit scale (cuDNN sums a Cout slice's or a row shard's f32
+# preactivation in another order)
+BF16_SITE_TOL = 2.0 ** -8
+
+
+class _CollectiveTime:
+    """While installed: the host time inside the collectives of the mesh
+    and of the batch's reductions, each call synchronized on both sides
+    (so the share is of a forward run that way too)."""
+
+    def __enter__(self):
+        from eas_snn_tpu_torch import parallel
+        from eas_snn_tpu_torch.parallel import mesh as pmesh
+        self.s, self.n = 0.0, 0
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod in (parallel, pmesh)
+                      for name in ("all_gather", "all_reduce_sum_")]
+
+        def timed(fn):
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                self.s += time.perf_counter() - t0
+                self.n += 1
+                return out
+            return call
+
+        for mod, name, fn in self.saved:
+            setattr(mod, name, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+class _KernelCalls:
+    """While installed: every hand-kernel call of a forward, by the shapes
+    the kernel sees (a row shard's halo included), the first site that
+    makes each: {(kernel, shapes, dtype, Cout): (kernel, module, shapes,
+    dtype)}; the sampler's first whole-scan call on row shards in
+    ``v2``."""
+
+    def __init__(self, model):
+        self.calls, self.v2 = OrderedDict(), []
+        self.model = model
+
+    def __enter__(self):
+        from eas_snn_tpu_torch.models import blocks, embedding
+        self.cur = [None]
+        def pre(mod, args):
+            self.cur[0] = mod
+
+        self.handles = [m.register_forward_pre_hook(pre)
+                        for m in self.model.modules()
+                        if isinstance(m, BaseConv) and m.neuron.spiking]
+
+        def rec(kname, fn):
+            def call(x, *a, **k):
+                pieces = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+                mod = self.cur[0]
+                shapes = tuple(tuple(p.shape) for p in pieces)
+                # one check a geometry, as phase 2's (site_geometries)
+                key = (kname, shapes, str(pieces[0].dtype),
+                       None if mod is None else mod.weight.shape[0])
+                if mod is not None and key not in self.calls:
+                    self.calls[key] = (kname, mod, shapes, pieces[0].dtype)
+                return fn(x, *a, **k)
+            return call
+
+        def rec_v2(fn):
+            def call(ev, iw, gw, **kw):
+                if not self.v2:  # the first forward's call
+                    self.v2.append((ev, iw, gw, {
+                        k: v for k, v in kw.items()
+                        if k not in ("exchange", "chunk_rows")}))
+                return fn(ev, iw, gw, **kw)
+            return call
+
+        self.saved = [(blocks, n, getattr(blocks, n)) for n in (
+            "conv1x1_plif", "conv3x3_plif", "conv3x3s2_plif")]
+        self.saved += [(blocks, "plif_forward", blocks.plif_forward),
+                       (embedding, "arsnn_fused_v2_rows",
+                        embedding.arsnn_fused_v2_rows)]
+        for mod, n, fn in self.saved[:3]:
+            setattr(mod, n, rec(n, fn))
+        blocks.plif_forward = rec("plif_fwd", blocks.plif_forward)
+        embedding.arsnn_fused_v2_rows = rec_v2(
+            embedding.arsnn_fused_v2_rows)
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+        for mod, n, fn in self.saved:
+            setattr(mod, n, fn)
+
+
+def _reference_sites(model, events):
+    """The unsharded forward with every BaseConv site's input pieces and
+    output kept: (output, {site: (pieces, output)}, sampler output)."""
+    sites, emb = OrderedDict(), {}
+
+    def keep(name):
+        def hook(mod, args, out):
+            x = args[0]
+            sites[name] = (tuple(x) if isinstance(x, (tuple, list)) else (x,),
+                           out)
+        return hook
+
+    handles = [m.register_forward_hook(keep(n))
+               for n, m in model.named_modules() if isinstance(m, BaseConv)]
+    handles.append(model.embedding.register_forward_hook(
+        lambda m, i, o: emb.update(out=o)))
+    out = model(events)
+    for h in handles:
+        h.remove()
+    return out, sites, emb["out"]
+
+
+def _site_agreement(sites, fused_sites, run_site, rows=None) -> dict:
+    """Each site of the sharded model on the unsharded forward's input of
+    that site (its row shard with ``rows``: (model index, tp)), against
+    the unsharded site's output: spikes bit-equal at a kernel-computed
+    (fused, ``fused_sites``) site, at most SITE_TOL of them flipped where
+    cuDNN computes the conv, analog outputs within BF16_SITE_TOL (deploy
+    precision) or ANALOG_TOL (f32) of |x| + 1.
+    Returns the counts; fails on a site beyond them."""
+    out = dict(sites=0, bit_equal=0, fused=0, flipped=0, worst_share=0.0,
+               worst_rel=0.0)
+    for name, (pieces, want) in sites.items():
+        fused = fused_sites[name]
+        if rows is not None:
+            m, tp = rows
+            pieces = tuple(p.narrow(-2, m * (p.shape[-2] // tp),
+                                    p.shape[-2] // tp).contiguous()
+                           for p in pieces)
+            n = want.shape[-2] // tp
+            want = want.narrow(-2, m * n, n)
+        got = run_site(name, pieces)
+        out["sites"] += 1
+        out["fused"] += int(fused)
+        if torch.equal(got, want):
+            out["bit_equal"] += 1
+            continue
+        if got.dtype == torch.int8:
+            flips = int((got != want).sum())
+            share = flips / got.numel()
+            out["flipped"] += flips
+            out["worst_share"] = max(out["worst_share"], share)
+            if fused or share > SITE_TOL:
+                fail(f"phase 17: site {name} ({'kernel' if fused else 'cuDNN'}"
+                     f" conv): {flips} of {got.numel()} spikes differ from "
+                     "the unsharded site")
+        else:
+            # bf16 (deploy precision): cuDNN may sum a slice's or a
+            # shorter map's f32 preactivation in another order, and its
+            # bf16 rounding moves by one place
+            rel = float(_rel_err(got.float(), want.float()).max())
+            out["worst_rel"] = max(out["worst_rel"], rel)
+            tol = BF16_SITE_TOL if got.dtype == torch.bfloat16 else \
+                ANALOG_TOL
+            if not rel <= tol:
+                fail(f"phase 17: analog site {name}: {rel:.3e} relative "
+                     "from the unsharded site")
+    return out
+
+
+def _train_sites(model):
+    """Forward hooks that keep every BaseConv site's input pieces and
+    output of a train forward, detached: ({site: (pieces, out)},
+    handles)."""
+    sites = OrderedDict()
+
+    def keep(name):
+        def hook(mod, args, out):
+            x = args[0]
+            x = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+            sites[name] = (tuple(p.detach() for p in x), out.detach())
+        return hook
+
+    return sites, [m.register_forward_hook(keep(n))
+                   for n, m in model.named_modules()
+                   if isinstance(m, BaseConv)]
+
+
+def _train_site_agreement(model, sites, mesh, B: int) -> dict:
+    """Each site of the channel-sharded ``model`` in training, BN
+    statistics frozen (``frozen_bn_stats``), on this process's data half
+    of the unsharded step's input of that site (a t-major (T*B, ...) or a
+    (B, ...) batch), against the unsharded site's output of that half:
+    spikes within SITE_TOL flipped (the batch statistics are summed over
+    the data group in another order), analog f32 outputs within
+    ANALOG_TOL. A wrong group for the statistics moves every site."""
+    from eas_snn_tpu_torch.models.blocks import frozen_bn_stats
+    mods = dict(model.named_modules())
+    per = B // mesh.dp
+    share = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
+
+    def half(x):
+        if x.shape[0] == B:
+            return x[share]
+        T = x.shape[0] // B
+        return x.reshape((T, B) + tuple(x.shape[1:]))[:, share].reshape(
+            (T * per,) + tuple(x.shape[1:]))
+
+    out = dict(sites=0, bit_equal=0, flipped=0, worst_share=0.0,
+               worst_rel=0.0)
+    with frozen_bn_stats(), torch.no_grad():
+        for name, (pieces, want) in sites.items():
+            site = mods[name]
+            got = site(tuple(half(p) for p in pieces) if len(pieces) > 1
+                       else half(pieces[0]))
+            want = half(want)
+            out["sites"] += 1
+            if torch.equal(got, want):
+                out["bit_equal"] += 1
+            elif site.neuron.spiking:
+                flips = int((got != want).sum())
+                out["flipped"] += flips
+                out["worst_share"] = max(out["worst_share"],
+                                         flips / got.numel())
+                if flips / got.numel() > SITE_TOL:
+                    fail(f"phase 17b: train site {name}: {flips} of "
+                         f"{got.numel()} spikes differ from the unsharded "
+                         "site")
+            else:
+                rel = float(_rel_err(got.float(), want.float()).max())
+                out["worst_rel"] = max(out["worst_rel"], rel)
+                if not rel <= ANALOG_TOL:
+                    fail(f"phase 17b: analog train site {name}: {rel:.3e} "
+                         "relative from the unsharded site")
+    return out
+
+
+def _step_gap(got, ref) -> dict:
+    """How far a step (``step`` in ``mesh_worker``: losses, whole end
+    state and reduced gradients) lies from a reference step: the loss's
+    relative gap, whether num_fg is equal, the largest |d| and the
+    elements beyond tolerance of the parameters (rtol / atol
+    MESH_PARAM_TOL) and of the BN running statistics (atol
+    MESH_STAT_TOL, rtol MESH_PARAM_TOL), and the largest gradient gap as
+    a share of its tensor's largest magnitude with the tensors beyond
+    MESH_GRAD_TOL."""
+    r, g = ref["losses"], got["losses"]
+    gap = dict(loss_rel=abs(g["total_loss"] - r["total_loss"])
+               / max(abs(r["total_loss"]), 1e-12),
+               num_fg_equal=g["num_fg"] == r["num_fg"],
+               params_max=0.0, params_beyond=0, stats_max=0.0,
+               stats_beyond=0, grads_max=0.0, grads_beyond=0)
+    for k, x in ref["state"].items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        kind = "stats" if k.endswith(("running_mean", "running_var")) \
+            else "params"
+        d = (got["state"][k].float() - x.float()).abs()
+        tol = (MESH_STAT_TOL if kind == "stats" else MESH_PARAM_TOL) + \
+            MESH_PARAM_TOL * x.float().abs()
+        gap[kind + "_max"] = max(gap[kind + "_max"], float(d.max()))
+        gap[kind + "_beyond"] += int((d > tol).sum())
+    for k, x in ref["grads"].items():
+        d = float((got["grads"][k].float() - x.float()).abs().max())
+        share = d / max(float(x.float().abs().max()), 1e-30)
+        gap["grads_max"] = max(gap["grads_max"], share)
+        gap["grads_beyond"] += int(share > MESH_GRAD_TOL)
+    return gap
+
+
+def _mesh_forward(what, model, fn, rank, world):
+    """``fn()`` once from zeroed counts (the launches, checked on every
+    process) and MESH_FORWARDS times with the collectives timed: (output,
+    launches, ms a forward, collectives' ms a forward)."""
+    from torch import distributed as dist
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    every = [None] * world
+    dist.all_gather_object(every, counts)
+    dist.barrier()
+    with _CollectiveTime() as col:
+        t0 = time.perf_counter()
+        for _ in range(MESH_FORWARDS):
+            fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / MESH_FORWARDS
+    coll = col.s * 1e3 / MESH_FORWARDS
+    if rank == 0:
+        print(f"  {what}: {ms:.3f} ms a forward (host clock, synchronized "
+              f"collectives), of which collectives {coll:.3f} ms "
+              f"({coll / ms:.3f}); launches on each process "
+              f"{[{k: v for k, v in c.items() if v} for c in every]}",
+              flush=True)
+    return out, counts, every, ms, coll
+
+
+def mesh_worker(rank: int, nproc: int, port: int) -> int:
+    """Phase 17 in process ``rank`` of ``nproc`` (one card each where the
+    host has as many, else all on one card through gloo): (a) the
+    channel-sharded eval forward of ``gen1_syolox_m`` under ``deploy()``
+    at tp 2 and 4, (c) its row-sharded forward at tp 2 and 4, each
+    against the unsharded forward on the same card (outputs, the sampler,
+    and site by site), (b) the DP x TP step at 2 x 2 against the
+    unsharded step, (d) every kernel at the shapes (a)-(c) give it against
+    its plain version, (e) the times. Rank 0 prints the results, and as
+    JSON on its last line the launches of each path. Returns 1 if a check
+    failed on this process."""
+    from torch import distributed as dist
+
+    from eas_snn_tpu_torch import parallel
+    from eas_snn_tpu_torch.core import build_lr_schedule, build_optimizer
+    from eas_snn_tpu_torch.core.train_state import broadcast_state
+    from eas_snn_tpu_torch.parallel import mesh as pmesh
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + PTXAS_FLAGS  # phase 1's builds
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    say = print if rank == 0 else (lambda *a, **k: None)
+    parallel.start_group(f"127.0.0.1:{port}", nproc, rank, device=DEV)
+    pmesh.make_mesh_2d(nproc // 2, 2)  # raises if gloo takes no CUDA tensor
+    say(f"  group: {nproc} processes, backend {parallel.backend()}, "
+        f"{torch.cuda.device_count()} card(s): {nvidia_smi_line()}",
+        flush=True)
+    res, gen = {}, torch.Generator(device=DEV).manual_seed(SEED + 17)
+
+    # ---- (a), (c): the eval forwards
+    exp = get_exp("gen1_syolox_m").deploy()
+    model = exp.get_model(device=DEV, seed=SEED)
+    H, W = exp.test_size
+    shape = (MESH_B, exp.Tl, exp.Tm, H, W, exp.in_dim)
+    events = torch.poisson(torch.full(shape, 0.2, device=DEV), generator=gen)
+    with torch.no_grad():
+        if rank == 0:
+            calibrate_spiking_bn(model, events[:8])
+        parallel.broadcast_(list(model.state_dict().values()) + [events])
+        t0 = time.perf_counter()
+        ref_out, sites, ref_emb = _reference_sites(model, events)
+        torch.cuda.synchronize()
+        mods = dict(model.named_modules())
+        fused_sites = {n: mods[n].fused(p) for n, (p, _) in sites.items()}
+        say(f"  the unsharded deploy forward at B={MESH_B}: "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms (with its sites' "
+            f"inputs kept; every process runs it at once), "
+            f"{len(sites)} sites", flush=True)
+        checks = 0
+        for mode, tp in (("tp", 2), ("tp", 4), ("sp", 2), ("sp", 4)):
+            mesh = parallel.make_mesh_2d(nproc // tp, tp)
+            name = f"{mode}_forward_1x{tp}"
+            if mode == "tp":
+                sharded = copy.deepcopy(model)
+                parallel.channel_shard_params(mesh, sharded)
+                what = (f"(a) TP 1x{tp}: output channels over the model "
+                        f"group, the whole batch on each of the {nproc // tp}"
+                        f" model group(s)")
+                fwd = lambda: sharded(events)  # noqa: E731
+                ctx = contextlib.nullcontext
+                run_site = lambda n, p: dict(  # noqa: E731
+                    sharded.named_modules())[n](p if len(p) > 1 else p[0])
+                rows = None
+            else:
+                sharded = model
+                sp = parallel.spatial_sharding(mesh)
+                r = sp.rows(H)
+                local = events[:, :, :, r].contiguous()
+                what = (f"(c) SP 1x{tp}: rows {r.start}-{r.stop - 1} of "
+                        f"{H} on this process, halo exchanges, the SPP "
+                        f"pools and head levels gathered")
+                fwd = lambda: sharded(local)  # noqa: E731
+                ctx = lambda: sp  # noqa: E731
+                run_site = lambda n, p: dict(  # noqa: E731
+                    model.named_modules())[n](p if len(p) > 1 else p[0])
+                rows = (mesh.model_index, tp)
+            say(f"phase 17{what[1]}: {what}", flush=True)
+            with ctx():
+                emb = {}
+                h = sharded.embedding.register_forward_hook(
+                    lambda m, i, o: emb.update(out=o))
+                with _KernelCalls(sharded) as kc:
+                    out, counts, every, ms, coll = _mesh_forward(
+                        name, sharded, fwd, rank, nproc)
+                h.remove()
+                agree = _site_agreement(sites, fused_sites, run_site, rows)
+            emb_out = emb["out"] if rows is None else \
+                pmesh.gather_rows(emb["out"], mesh)
+            want = per_forward(exp.Tm)
+            for i, c in enumerate(every):
+                if c != want:
+                    fail(f"phase 17 {name}: process {i} launched {c}, "
+                         f"expected {want}")
+            same = torch.equal(out, ref_out)
+            diff = float((out.float() - ref_out.float()).abs().max())
+            rel = float(_rel_err(out, ref_out).max())
+            if not torch.isfinite(out).all():
+                fail(f"phase 17 {name}: non-finite outputs")
+            # the bf16 analog sites (one rounding apart, site by site
+            # below) carry into the decoded outputs; a channel or row
+            # gathered out of order moves them by O(1)
+            if not rel <= BF16_SITE_TOL:
+                fail(f"phase 17 {name}: the decoded outputs lie {rel:.3e} "
+                     f"of |x| + 1 from the unsharded forward's (at most "
+                     f"{BF16_SITE_TOL:.3e})")
+            if not torch.equal(emb_out, ref_emb):
+                fail(f"phase 17 {name}: the sampler's slots differ from the "
+                     "unsharded sampler's (bit-equal expected)")
+            say(f"  outputs {'bit-equal to' if same else 'differ from'} the "
+                f"unsharded forward's (max |d| {diff:.3e}, of |x| + 1 "
+                f"{rel:.3e}); sampler slots "
+                f"bit-equal: {torch.equal(emb_out, ref_emb)}; sites on the "
+                f"unsharded inputs: {agree}", flush=True)
+            # (d) every kernel at the shapes this forward gave it
+            kgen = torch.Generator(device=DEV).manual_seed(SEED + rank)
+            for kname, mod, shapes, dtype in kc.calls.values():
+                if kname == "plif_fwd":
+                    check_plif_site(mod, shapes, dtype, kgen, timed=False)
+                else:
+                    check_conv_site(kname, mod, shapes, dtype, kgen,
+                                    timed=False)
+                checks += 1
+            for ev, iw, gw, kw in kc.v2:
+                check_v2(f"row shard {tuple(ev.shape)}", ev, iw, gw, kw)
+                checks += 1
+            res[name] = dict(counts=counts, ms=ms, collectives_ms=coll,
+                             bit_equal=same, max_abs=diff, max_rel=rel,
+                             sites=agree, kernel_shapes=len(kc.calls))
+            del sharded
+        every = [None] * nproc
+        dist.all_gather_object(every, checks)
+        say(f"phase 17d: kernels against their plain versions at the "
+            f"sharded and halo shapes of (a) and (c): {every} checks on the "
+            f"processes (rows 1-4 and kernel 5 on row shards)", flush=True)
+    del sites, ref_out, ref_emb, model, events
+    torch.cuda.empty_cache()
+
+    # ---- (b): the DP x TP step
+    # in f32, as JAX's test of the step (bf16 would round the two sides'
+    # slightly different preactivations apart at every site)
+    texp = get_exp("gen1_syolox_m")
+    texp.compute_dtype = "float32"
+    base = texp.get_model(device=DEV, seed=SEED + 17, train=True)
+    ev8, lab8 = _poisson_batch(texp, MESH_STEP_B, SEED + 17)
+    parallel.broadcast_(list(base.state_dict().values()) + [ev8, lab8])
+    sched = build_lr_schedule("fixed", MESH_LR, 10, 10)
+
+    def step(mesh, shard, events, labels, keep_sites=False):
+        """One step of a copy of ``base`` on ``mesh`` (channel-sharded
+        with ``shard``): its losses, ms, whole end state and whole reduced
+        gradients, launches, PLIF geometries, collectives' time (and its
+        sites' inputs and outputs)."""
+        m = copy.deepcopy(base)
+        if shard:
+            parallel.channel_shard_params(mesh, m)
+        opt, ema = build_optimizer(m, sched), init_ema(m)
+        if shard:  # each slice from data index 0 of its model index
+            broadcast_state(m, ema)
+        sites, hs = _train_sites(m) if keep_sites else ({}, [])
+        geoms = OrderedDict()
+
+        def rec(mod, args):
+            x = args[0]
+            geoms.setdefault((tuple(x.shape), x.dtype, mod.T, mod.thresh,
+                              mod.spike_fn, mod.alpha), 0)
+
+        hs += [p.register_forward_pre_hook(rec) for p in m.modules()
+               if isinstance(p, PLIF)]
+        reset_launches()
+        with _CollectiveTime() as col:
+            t0 = time.perf_counter()
+            losses = train_step(m, opt, ema, events, labels, to_host=True)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        for h in hs:
+            h.remove()
+        grads = pmesh.gather_state(m, {n: p.grad for n, p in
+                                       m.named_parameters()})
+        return dict(losses=losses, ms=ms, counts=counts, geoms=geoms,
+                    sites=sites, collectives_ms=col.s * 1e3, calls=col.n,
+                    state=pmesh.gather_state(m, m.state_dict()),
+                    grads=grads, model=m)
+
+    # the unsharded step: a 1 x nproc mesh of an unsharded model reduces
+    # over data groups of one, which gives the bits of no group
+    one = step(parallel.make_mesh_2d(1, nproc), False, ev8, lab8, True)
+    mesh = parallel.make_mesh_2d(2, nproc // 2)
+    batch, _ = parallel.dp_tp_shardings(mesh)
+    say(f"phase 17b: DP x TP step, gen1_syolox_m (f32) at a global B="
+        f"{MESH_STEP_B} on a {mesh.dp} x {mesh.tp} mesh (the batch over "
+        f"data, output channels over model; eager: gloo's collectives "
+        f"cannot be captured), Adam lr {MESH_LR}, against the unsharded "
+        f"step ({one['ms']:.3f} ms, every process at once)", flush=True)
+    # stage by stage: each sharded train site (BN statistics frozen) on
+    # its data half of the unsharded step's input of that site
+    tpm = copy.deepcopy(base)
+    parallel.channel_shard_params(mesh, tpm)
+    agree = _train_site_agreement(tpm, one["sites"], mesh, MESH_STEP_B)
+    del tpm, one["sites"], one["model"]
+    say(f"  sites of the train forward on the unsharded step's inputs: "
+        f"{agree}", flush=True)
+    # the unsharded model on the same mesh: the same data halves, the
+    # same BN statistics and gradients summed over the same data groups,
+    # so that only the channel sharding differs from the sharded step.
+    # The 1-process step sums its BN statistics in another order, which
+    # the spikes and SimOTA's assignment turn into a 2% loss gap (as one
+    # ulp of every conv weight does, PERF.md)
+    dp = step(mesh, False, batch(ev8), batch(lab8))
+    del dp["model"]
+    tp = step(mesh, True, batch(ev8), batch(lab8))
+    every = [None] * nproc
+    dist.all_gather_object(every, tp["counts"])
+    want = {k: PER_STEP.get(k, 0) for k in tp["counts"]}
+    for i, c in enumerate(every):
+        if c != want:
+            fail(f"phase 17b: process {i} launched {c}, expected {want}")
+    if rank == 0:
+        gap = _step_gap(tp, dp)
+        gap_one = _step_gap(tp, one)
+        if (gap["loss_rel"] > MESH_LOSS_TOL or not gap["num_fg_equal"]
+                or gap["params_beyond"] or gap["stats_beyond"]
+                or gap["grads_beyond"]):
+            fail(f"phase 17b: the sharded step against the unsharded "
+                 f"model's step on the same mesh: {gap}")
+        if gap_one["params_beyond"]:
+            fail(f"phase 17b: {gap_one['params_beyond']} parameter elements "
+                 f"beyond {MESH_PARAM_TOL} of the 1-process step's")
+        print(f"  step {tp['ms']:.3f} ms on each process (host clock, "
+              f"synchronized collectives), of which collectives "
+              f"{tp['collectives_ms']:.3f} ms ("
+              f"{tp['collectives_ms'] / tp['ms']:.3f}, {tp['calls']} calls);"
+              f" the unsharded model's step on the mesh {dp['ms']:.3f} ms; "
+              f"loss {tp['losses']['total_loss']:.6f}, num_fg "
+              f"{tp['losses']['num_fg']} against that step's "
+              f"{dp['losses']['total_loss']:.6f}, {dp['losses']['num_fg']} "
+              f"and the 1-process step's {one['losses']['total_loss']:.6f},"
+              f" {one['losses']['num_fg']}; held against the unsharded "
+              f"model's step on the mesh (loss {MESH_LOSS_TOL}, num_fg "
+              f"equal, gradients {MESH_GRAD_TOL} of each tensor's largest "
+              f"magnitude, params {MESH_PARAM_TOL}, BN statistics "
+              f"{MESH_STAT_TOL}): {gap}; against the 1-process step "
+              f"(params held, the rest reported): {gap_one}; launches on "
+              f"each process {every}", flush=True)
+        res["dp_tp_step"] = dict(counts=tp["counts"], ms=tp["ms"],
+                                 collectives_ms=tp["collectives_ms"],
+                                 gap=gap, gap_one_process=gap_one)
+    shapes = tp["geoms"]
+    kgen = torch.Generator(device=DEV).manual_seed(SEED + 40 + rank)
+    for (shape, dtype, T, th, kind, alpha) in shapes:
+        check_train_site(shape, dtype, T, th, kind, kgen, timed=False,
+                         alpha=alpha)
+    every = [None] * nproc
+    dist.all_gather_object(every, len(shapes))
+    say(f"phase 17d: rows 7 and 8 against their plain versions at the "
+        f"step's {every} channel-sliced site geometries on the processes",
+        flush=True)
+    how = ("sharing one card through gloo: no DP or TP speed"
+           if torch.cuda.device_count() < nproc
+           else "on their own cards through NCCL")
+    say(f"  (e) {nvidia_smi_line()}: these are {nproc} processes {how}")
+    parallel.shutdown()
+    if rank == 0:
+        print(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
+        print(json.dumps({k: v["counts"] for k, v in res.items()}))
+    return 1 if FAILURES else 0
+
+
+def phase_mesh() -> dict:
+    """Phase 17: the 2-D mesh in MESH_PROCS processes of their own
+    (``mesh_worker``), all started together. Returns rank 0's result:
+    the launches of each path."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cards = torch.cuda.device_count()
+    print(f"phase 17: the 2-D mesh (parallel/mesh.py): {MESH_PROCS} "
+          f"processes on {min(cards, MESH_PROCS)} card(s)", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         f"sys.exit(chip_smoke.mesh_worker({r}, {MESH_PROCS}, {port}))"],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(MESH_PROCS)]
+    outs = []
+    deadline = time.perf_counter() + MESH_TIMEOUT
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter())))
+    except subprocess.TimeoutExpired:
+        fail(f"phase 17: the processes ran past {MESH_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = {}
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = out.rstrip().splitlines()
+        if r == 0:
+            print("\n".join(lines[:-1]))
+            try:
+                res = json.loads(lines[-1])
+            except (IndexError, ValueError):
+                res = {}
+        else:
+            for ln in lines:
+                if ln.startswith("FAIL"):
+                    print(f"  process {r}: {ln}")
+        if p.returncode != 0:
+            fail(f"phase 17: process {r} exited {p.returncode}: "
+                 f"{err[-2000:]}")
+    print(f"  (the phase's processes took {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if not res:
+        fail("phase 17: no result from process 0")
+    return res
+
+
+# ------------------------------------------------------------- two lanes
+
+# Phases 6b-17 run in two lanes that share the card: this process runs its
+# phases one after another (the main lane), and a thread starts the
+# second lane's phases, each a process of its own, one after another,
+# beside them. Phases 2-6, whose times the kernels line carries, run
+# before the second lane starts, alone on the card. A phase starts only
+# when its share of the card's memory fits beside the shares held, in the
+# order the phases ask: two phases that would not fit together never
+# overlap.
+CARD_GIB = 76.0  # the shares handed out, of the H100's 79.2 GiB: the rest
+                 # is the processes' CUDA contexts
+# each phase's share in GiB, its processes together: its peak reserved
+# memory where an earlier run printed it (6b 25.0, 9 50.3, 10 10.8, 11
+# 15.6, 12 61.3; 14a 51.1 and 15 31.1 allocated) with a margin, else an
+# estimate from its batches (the run prints the card's peak use to check)
+SHARE_GIB = {"6b": 26, "9": 56, "12": 64, "11": 20, "7": 20, "8": 12,
+             "10": 14, "13": 10, "phase 17": 28, "phases 9a-9c": 20,
+             "phases 14b-14c": 20, "phase 16": 24, "phase 15": 40,
+             "phase 14a": 62}
+SCHEDULE = []  # (lane, phase, GiB, asked, started, ended), perf_counter s
+
+
+class CardShares:
+    """The card's memory in GiB, handed out first come, first served: a
+    request waits until it is first in line and fits beside the shares
+    held."""
+
+    def __init__(self, total: float):
+        self.total, self.held = total, 0.0
+        self.line = deque()
+        self.cond = threading.Condition()
+
+    @contextlib.contextmanager
+    def hold(self, gib: float):
+        ticket = object()
+        with self.cond:
+            self.line.append(ticket)
+            self.cond.wait_for(lambda: self.line[0] is ticket
+                               and self.held + gib <= self.total)
+            self.line.popleft()
+            self.held += gib
+            self.cond.notify_all()
+        try:
+            yield
+        finally:
+            with self.cond:
+                self.held -= gib
+                self.cond.notify_all()
+
+
+CARD = CardShares(CARD_GIB)
+
+
+@contextlib.contextmanager
+def main_lane(phase: str):
+    """Phase ``phase`` of the main lane, holding its share; its cached
+    memory goes back to the card before the share does."""
+    t_ask = time.perf_counter()
+    with CARD.hold(SHARE_GIB[phase]):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            SCHEDULE.append(("main", phase, SHARE_GIB[phase], t_ask, t0,
+                             time.perf_counter()))
+
+
+class SecondLane(threading.Thread):
+    """The second lane: ``units``, each (call, phase, timeout s, whether
+    its last line is a JSON result), run as ``chip_smoke.<call>`` in a
+    process of its own (a session of its own, so that ``stop`` ends its
+    children too), one after another, each holding its share. Prints
+    nothing: ``finish`` prints each unit's output, in the order they ran,
+    and returns their results by phase."""
+
+    def __init__(self, units: list):
+        super().__init__(daemon=True)
+        self.units, self.ran = units, []
+        self.proc, self.stopped = None, False
+
+    def run(self) -> None:
+        here = os.path.dirname(os.path.abspath(__file__))
+        for call, phase, timeout, wants_json in self.units:
+            t_ask = time.perf_counter()
+            with CARD.hold(SHARE_GIB[phase]):
+                if self.stopped:
+                    return
+                t0 = time.perf_counter()
+                env = dict(os.environ,
+                           CHIP_SMOKE_SHARE_GIB=str(SHARE_GIB[phase]))
+                try:
+                    self.proc = subprocess.Popen(
+                        [sys.executable, "-c", "import sys, chip_smoke; "
+                         f"sys.exit(chip_smoke.{call})"], cwd=here, env=env,
+                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                        text=True, start_new_session=True)
+                    try:
+                        out, err = self.proc.communicate(timeout=timeout)
+                        rc = self.proc.returncode
+                    except subprocess.TimeoutExpired:
+                        self._kill()
+                        out, err = self.proc.communicate()
+                        err += f"\n(stopped after {timeout} s)"
+                        rc = "killed"
+                except Exception as e:  # a unit that could not start
+                    out, err, rc = "", repr(e), "not started"
+                t1 = time.perf_counter()
+                self.ran.append((phase, rc, out, err, t1 - t0, wants_json))
+                SCHEDULE.append(("second", phase, SHARE_GIB[phase], t_ask,
+                                 t0, t1))
+
+    def _kill(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, signal.SIGKILL)
+
+    def stop(self) -> None:
+        """Ends the unit running, with its children, and the lane."""
+        self.stopped = True
+        self._kill()
+
+    def finish(self) -> dict:
+        """Waits for the lane's last unit; prints each unit's output and
+        fails where a unit failed or gave no result."""
+        self.join()
+        print("the second lane's phases (run beside phases 6b-13; their "
+              "output in the order they ran):", flush=True)
+        res = {}
+        for phase, rc, out, err, seconds, wants_json in self.ran:
+            res[phase] = child_result(phase, rc, out, err, seconds,
+                                      wants_json)
+        for _, phase, _, _ in self.units:
+            if phase not in res:
+                fail(f"{phase}: the second lane did not run it")
+        return res
+
+
+class CardMemory:
+    """The card's memory in use, all processes, by ``nvidia-smi``'s loop
+    (one reading a second): ``peak`` MiB, None where it gave none."""
+
+    def __init__(self):
+        self.peak, self.total = None, None
+        try:
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=memory.used,memory.total",
+                 "--format=csv,noheader,nounits", "-lms", "1000"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            self.proc = None
+            return
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            with contextlib.suppress(ValueError):
+                used, total = (float(v) for v in line.split(",")[:2])
+                self.peak, self.total = max(self.peak or 0.0, used), total
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.terminate()
+            self.proc.wait()
+
+
+def print_schedule(t0: float, memory: CardMemory) -> None:
+    """When each phase of 6b-17 asked for its share, started and ended
+    (s from ``t0``), and the card's peak memory in use."""
+    print("the lanes' schedule (s from phase 6b's start: asked, started, "
+          "ended; share of the card in GiB):")
+    for lane, phase, gib, ask, start, end in sorted(SCHEDULE,
+                                                     key=lambda r: r[4]):
+        print(f"  {lane:6s} {phase:15s} {ask - t0:7.1f} {start - t0:7.1f} "
+              f"{end - t0:7.1f}  {gib:g}")
+    peak = ("not measured" if memory.peak is None else
+            f"{memory.peak:.0f} MiB of {memory.total:.0f}")
+    print(f"  the card's memory in use (nvidia-smi, every second): peak "
+          f"{peak}; from phase 6b on, times include the other lane's work "
+          "on the card and the host", flush=True)
+
+
+def mesh_phases() -> int:
+    """Phase 17 as a process of the second lane: ``phase_mesh`` starts its
+    processes from here. The last line is process 0's JSON result."""
+    res = phase_mesh()
+    print(json.dumps(res))
+    return 1 if FAILURES else 0
+
+
+def second_lane(workers: int) -> SecondLane:
+    """The second lane's phases, in the order they run: the light ones
+    first, beside the main lane's heavy phases 9 and 12 as their shares
+    allow, then 15 and 14a beside its light ones."""
+    return SecondLane([
+        ("mesh_phases()", "phase 17", 600, True),
+        ("ncaltech_kernels()", "phases 9a-9c", 600, False),
+        (f"scale_dp_phases({workers})", "phases 14b-14c", 600, True),
+        ("export_phases()", "phase 16", 600, True),
+        (f"rgb_phases({workers})", "phase 15", 600, True),
+        ("scale_phases()", "phase 14a", 600, True)])
 
 
 def main() -> int:
@@ -5475,8 +6329,8 @@ def main() -> int:
     ap.add_argument("--forwards", type=int, default=5)
     ap.add_argument("--train-batch", type=int, default=64)
     ap.add_argument("--train-steps", type=int, default=4)
-    ap.add_argument("--workers", type=int, default=7,
-                    help="the loader worker processes of phases 7-13")
+    ap.add_argument("--workers", type=int, default=4,
+                    help="the loader worker processes of phases 7-15")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5542,27 +6396,39 @@ def main() -> int:
         if k in PER_STEP})
     del tmodel
     torch.cuda.empty_cache()
-    phase_captured_step(texp, events, labels, args.train_steps)
-    del events, labels
-    torch.cuda.empty_cache()
-    phase_entry_point(B, args.train_steps, args.workers)
-    phase_eval_entry_point(EVAL_BATCH, args.workers)
-    torch.cuda.empty_cache()
-    nc_data = phase_ncaltech(args.train_steps, args.workers)
-    torch.cuda.empty_cache()
-    phase_gen4(4, args.workers)
-    torch.cuda.empty_cache()
-    res11 = phase_full_spike(4, args.workers)
-    torch.cuda.empty_cache()
-    res12 = phase_variants(nc_data, 4, args.workers)
-    torch.cuda.empty_cache()
-    res13 = phase_streaming(args.workers)
-    torch.cuda.empty_cache()
-    res14 = phase_scale(args.workers)
-    torch.cuda.empty_cache()
-    res15 = phase_rgb(args.workers)
-    torch.cuda.empty_cache()
-    res16 = phase_export(args.workers)
+    # phases 6b-17: two lanes on the card (``SecondLane``)
+    t_lanes = time.perf_counter()
+    memory = CardMemory()
+    lane = second_lane(args.workers)
+    lane.start()
+    try:
+        with main_lane("6b"):
+            phase_captured_step(texp, events, labels, args.train_steps)
+            del events, labels
+        with main_lane("9"):
+            nc_data = phase_ncaltech(args.train_steps, args.workers)
+        with main_lane("12"):
+            res12 = phase_variants(nc_data, 4, args.workers)
+        with main_lane("11"):
+            res11 = phase_full_spike(4, args.workers)
+        with main_lane("7"):
+            phase_entry_point(B, args.train_steps, args.workers)
+        with main_lane("8"):
+            phase_eval_entry_point(EVAL_BATCH, args.workers)
+        with main_lane("10"):
+            phase_gen4(4, args.workers)
+        with main_lane("13"):
+            res13 = phase_streaming(args.workers)
+        second = lane.finish()
+    finally:
+        lane.stop()
+        memory.stop()
+    print_schedule(t_lanes, memory)
+    res14 = dict(second.get("phase 14a", {}),
+                 **second.get("phases 14b-14c", {}))
+    res15 = second.get("phase 15", {})
+    res16 = second.get("phase 16", {})
+    res17 = second.get("phase 17", {})
     if FAILURES:
         print(smi)
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:\n" + "\n".join(
@@ -5601,6 +6467,12 @@ def main() -> int:
     # with the packed sampler route (16c)
     paths["export_forward"] = res16.get("export_forward")
     paths["packed_step"] = res16.get("packed_step")
+    # phase 17: one forward channel-sharded over 2 and 4 processes, one on
+    # row shards of 2 and 4, one DP x TP step (process 0's wrappers, from
+    # zeroed counts; every process's are checked there)
+    for p in ("tp_forward_1x2", "tp_forward_1x4", "sp_forward_1x2",
+              "sp_forward_1x4", "dp_tp_step"):
+        paths[p] = res17.get(p)
     neck_head = dict(res11.get("eval_sites", {}),
                      **res11.get("train_sites", {}))
     b1 = res13.get("b1_kernels", {})
@@ -5642,12 +6514,15 @@ def main() -> int:
           "CLI (15b), a captured step of yolov3 and of yolox_nano (15c), "
           "all 0: the RGB family is analog; a forward of the exported "
           "deploy program reloaded in a fresh process (16a) and a captured "
-          "step with the packed sampler route (16c); "
+          "step with the packed sampler route (16c); a forward of process "
+          "0 of the 2-D mesh channel-sharded over 2 and 4 processes and on "
+          "row shards of 2 and 4, and its DP x TP step at 2 x 2 (17); "
           "neck_head: the sums over "
           "the neck and head sites of the full_spike_v2 forward (rows 1-3) "
           "and step (rows 7, 8), phase 11a; b1: the sums over the sites of "
           "the deploy forward at B=1 (rows 1-4) and kernel 5 at N=1, phase "
-          "13a; no "
+          "13a (neck_head and b1 measured while the second lane ran on "
+          "the card; ms and launches from phases 2-6, alone on it); no "
           "single PyTorch call computes a fused site, the PLIF recurrence, "
           "its backward, the sampler scan or its step, so library_ms is "
           "null")

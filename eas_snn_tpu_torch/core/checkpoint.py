@@ -8,7 +8,11 @@ optimizer's state dict (its update count included), the step and the best
 AP so far. ``CheckpointManager`` writes ``ckpt_<step>.pth`` files and keeps
 the newest three, and ``best.pth`` beside them when asked (JAX
 ``core/checkpoint.py:35-56``). In a data-parallel run only rank 0 writes
-(every process holds the same state); every process can restore.
+(every process holds the same state); every process can restore. On a
+channel-sharded 2-D mesh (``parallel/mesh.py``) every process first
+gathers the sharded tensors whole over its model group, so the file is an
+unsharded model's, and a restore cuts the whole tensors to the process's
+slices: an unsharded checkpoint shards into a 2-D run and back.
 ``eval_state_dict`` reads the weights to evaluate from a checkpoint (its
 EMA where it has one) or from a reference ``.pth``.
 """
@@ -23,6 +27,7 @@ import torch
 import torch.nn as nn
 
 from .. import parallel
+from ..parallel import mesh as pmesh
 from ..utils.weights import load_reference_state_dict
 from .optim import load_optimizer_state
 
@@ -65,10 +70,15 @@ class CheckpointManager:
         """Write ``ckpt_<step>.pth`` (and the same payload as ``best.pth``
         with ``is_best``) on rank 0; returns the step's path."""
         path = self.path(step)
+        model_sd, opt_sd = model.state_dict(), None
+        if pmesh.sharded_keys(model):  # every process gathers
+            model_sd = pmesh.gather_state(model, model_sd)
+            opt_sd = pmesh.gather_optimizer_state(optimizer, model)
+            ema = pmesh.gather_state(model, ema) if ema is not None else None
         if parallel.rank() != 0:
             return path
-        payload = {"model": model.state_dict(),
-                   "optimizer": optimizer.state_dict(),
+        payload = {"model": model_sd,
+                   "optimizer": opt_sd or optimizer.state_dict(),
                    "ema": ema, "step": int(step), "best_ap": float(best_ap)}
         for dst in (path, self.best_path) if is_best else (path,):
             tmp = dst + ".tmp"
@@ -92,6 +102,12 @@ class CheckpointManager:
         dev = next(model.parameters()).device
         payload = torch.load(self.path(step), map_location=dev,
                              weights_only=True)
+        if pmesh.sharded_keys(model):
+            payload["model"] = pmesh.shard_state(model, payload["model"])
+            payload["optimizer"] = pmesh.shard_optimizer_state(
+                payload["optimizer"], optimizer, model)
+            if payload["ema"] is not None:
+                payload["ema"] = pmesh.shard_state(model, payload["ema"])
         model.load_state_dict(payload["model"], strict=True)
         load_optimizer_state(optimizer, payload["optimizer"])
         if ema is not None and payload["ema"] is not None:

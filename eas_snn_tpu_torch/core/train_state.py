@@ -22,6 +22,14 @@ gradient and loss term is summed over the group in one flat buffer
 :func:`broadcast_state` gives every process rank 0's state before the
 first step. Captured, the collectives are part of the graph; the eager
 warm-up steps create the group's communicator before the capture.
+
+On a 2-D mesh (``parallel/mesh.py``) the batch's sums go over the data
+group; each process of a model group back-propagates a ``tp``-th of the
+loss they share (``mesh.loss_scale``), so a replicated parameter's
+gradient is summed over the whole world and a channel-sharded one's over
+the data group only. Gloo cannot be captured in a CUDA graph:
+``CapturedStep`` refuses a gloo group on the card, whose step runs
+eagerly (``train_step``).
 """
 
 from __future__ import annotations
@@ -35,10 +43,12 @@ import torch.nn as nn
 from torch.func import functional_call
 
 from .. import parallel
+from ..parallel import mesh as pmesh
 from .optim import set_learning_rate, updates
 
 __all__ = ["init_ema", "ema_terms", "ema_apply", "ema_update",
            "optimizer_update", "reduce_gradients", "broadcast_state",
+           "loss_backward",
            "train_step", "eval_step", "CapturedStep"]
 
 EMA_DECAY = 0.9998
@@ -100,6 +110,14 @@ _SUMMED_LOSSES = ("total_loss", "iou_loss", "conf_loss", "cls_loss",
                   "l1_loss")
 
 
+def _sum_flat(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """The tensors summed over ``group`` in one all-reduce of one flat f32
+    buffer; the sums, in order."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    return list(parallel.all_reduce_sum_(flat, group).split(
+        [t.numel() for t in tensors]))
+
+
 def reduce_gradients(model: nn.Module, losses: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
     """With a process group: every parameter's gradient and the detached
@@ -107,28 +125,59 @@ def reduce_gradients(model: nn.Module, losses: Dict[str, torch.Tensor]
     buffer (each process's loss is its share of the global batch's, so
     the sums are the global batch's gradient and losses). Returns the
     loss dict with the summed terms. Without a group: ``losses`` as it
-    is."""
+    is. On a channel-sharded 2-D mesh the loss terms and the sharded
+    parameters' gradients are summed over the data group, and the
+    replicated parameters' (each process's a share, ``mesh.loss_scale``)
+    over the world: two all-reduces."""
     if not parallel.is_initialized():
         return losses
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
     names = [k for k in losses if k in _SUMMED_LOSSES]
-    flat = torch.cat([g.reshape(-1).float() for g in grads]
-                     + [torch.stack([losses[k].float() for k in names])])
-    parts = parallel.all_reduce_sum_(flat).split(
-        [g.numel() for g in grads] + [len(names)])
+    terms = torch.stack([losses[k].float() for k in names])
+    params = [p for p in model.parameters() if p.grad is not None]
+    sharded = pmesh.sharded_params(model)
+    shard = [p.grad for p in params if id(p) in sharded]
+    repl = [p.grad for p in params if id(p) not in sharded]
+    if sharded:
+        mesh = next(iter(sharded.values()))
+        *sums, summed = _sum_flat(shard + [terms], mesh.data_group)
+        sums += _sum_flat(repl, None) if repl else []
+    else:
+        *sums, summed = _sum_flat(repl + [terms], parallel.data_group())
     with torch.no_grad():
-        for g, v in zip(grads, parts):
+        for g, v in zip(shard + repl, sums):
             g.copy_(v.view_as(g))
-    return dict(losses, **dict(zip(names, parts[-1].unbind())))
+    return dict(losses, **dict(zip(names, summed.unbind())))
 
 
 @torch.no_grad()
 def broadcast_state(model: nn.Module,
                     ema: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """Rank 0's parameters, buffers and EMA on every process of the group
-    (nothing without one): the start of data-parallel training."""
-    parallel.broadcast_(list(model.parameters()) + list(model.buffers())
-                        + (list(ema.values()) if ema is not None else []))
+    (nothing without one): the start of data-parallel training. On a
+    channel-sharded 2-D mesh each sharded tensor comes from the process
+    of data index 0 with the same model index (its peers hold the same
+    slice), the rest from rank 0."""
+    names = pmesh.sharded_keys(model)
+    state = dict(model.named_parameters())
+    state.update(model.named_buffers())
+    ema = ema or {}
+    sharded = [t for k, t in list(state.items()) + list(ema.items())
+               if k in names]
+    rest = [t for k, t in list(state.items()) + list(ema.items())
+            if k not in names]
+    if sharded:
+        mesh = next(iter(names.values()))
+        parallel.broadcast_(sharded, mesh.data_group, mesh.data_src())
+    parallel.broadcast_(rest)
+
+
+def loss_backward(model: nn.Module, losses: Dict[str, torch.Tensor]
+                  ) -> None:
+    """The backward of a train forward's total loss: of this process's
+    share of it where ``model`` is channel-sharded (``mesh.loss_scale``)."""
+    scale = pmesh.loss_scale(model)
+    loss = losses["total_loss"]
+    (loss * scale if scale != 1.0 else loss).backward()
 
 
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -140,7 +189,7 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     floats with ``to_host``."""
     optimizer.zero_grad(set_to_none=True)
     losses = model(events, targets, use_l1=use_l1)
-    losses["total_loss"].backward()
+    loss_backward(model, losses)
     losses = reduce_gradients(model, {k: v.detach()
                                       for k, v in losses.items()})
     optimizer_update(model, optimizer, ema)
@@ -217,6 +266,11 @@ class CapturedStep:
                 "train_step eagerly (asgl_p = 0, the reference's value, "
                 "draws no random numbers and captures)")
         dev = next(model.parameters()).device
+        if dev.type == "cuda" and parallel.backend() == "gloo":
+            raise NotImplementedError(
+                "CapturedStep: a gloo group's collectives (several "
+                "processes on one card) cannot be captured in a CUDA graph; "
+                "run train_step eagerly")
         if dev.type != "cuda":
             raise ValueError("CapturedStep: the model is on "
                              f"{dev}; CUDA graphs need a CUDA device "
@@ -278,7 +332,7 @@ class CapturedStep:
                 self.cudnn_mode():
             self.optimizer.zero_grad(set_to_none=True)
             losses = self.model(g.events, g.targets, use_l1=use_l1)
-            losses["total_loss"].backward()
+            loss_backward(self.model, losses)
             losses = reduce_gradients(self.model, {
                 k: v.detach() for k, v in losses.items()})
             self.optimizer.step()

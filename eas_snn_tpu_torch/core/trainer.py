@@ -227,7 +227,12 @@ class Trainer:
             self.logger.info("fine-tune init from %s: %s", args.ckpt, report)
             self.finetune_report = report
         broadcast_state(self.model, self.ema)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and parallel.backend() == "gloo":
+            self.logger.info(
+                "a gloo group on the card (more processes than cards): the "
+                "step runs eagerly, since a CUDA graph cannot capture "
+                "gloo's collectives")
+        if self.device.type == "cuda" and parallel.backend() != "gloo":
             self.step_fn = CapturedStep(self.model, self.optimizer, self.ema)
         else:
             self.step_fn = functools.partial(train_step, self.model,

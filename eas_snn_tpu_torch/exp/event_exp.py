@@ -252,14 +252,17 @@ class EventExp(BaseExp):
                         pin_memory: bool = False):
         """Training batches (infinite, shuffled) or one ordered pass, of
         ``batch_size`` samples each: this process's rank-strided share of
-        the indices when a process group is started (``parallel``)."""
+        the indices when a process group is started (``parallel``): by
+        data rank and data-group size on a 2-D mesh, whose model group's
+        processes read the same samples."""
         from ..data import EventDataLoader
 
         return EventDataLoader(
             self.get_dataset(training=training, map_val=map_val),
             batch_size=batch_size, shuffle=training, infinite=training,
             num_workers=self.data_num_workers, seed=self.seed or seed,
-            rank=parallel.rank(), world_size=parallel.world_size(),
+            rank=parallel.rank(parallel.data_group()),
+            world_size=parallel.world_size(parallel.data_group()),
             pin_memory=pin_memory)
 
     def get_evaluator(self, batch_size: int, testdev: bool = False):

@@ -14,6 +14,7 @@ module branches on ``self.training``.
 from __future__ import annotations
 
 import contextlib
+import warnings
 from typing import NamedTuple, Sequence, Tuple, Union
 
 import torch
@@ -23,9 +24,11 @@ from torch.utils.checkpoint import checkpoint
 from torch.utils.weak import WeakTensorKeyDictionary
 
 from .. import parallel
+from ..parallel.mesh import (active_spatial, channel_slice, gather_c,
+                             gather_rows, over_rows, tp_mesh)
 from ..ops.conv_plif import (
     conv1x1_plif, conv3x3_plif, conv3x3s2_plif, fold_bn, fold_conv1x1,
-    fold_conv3x3,
+    fold_conv3x3, layout_refusal,
 )
 from ..ops.conv_plif_policy import should_fuse
 from ..ops.lif import PLIF_W_INIT, plif_scan
@@ -107,7 +110,10 @@ class _BatchStats(torch.autograd.Function):
     all-reduce a site sums them; the backward sums the statistics'
     gradients over the group the same way before it forms dx with the
     global count. The share of a group of one is 1.0, so such a group
-    gives the bits of no group."""
+    gives the bits of no group. Under a 2-D mesh the sums go over the
+    data group only (``parallel.data_group``): the model group's processes
+    hold the same samples, and a channel-sharded site's statistics are
+    those of its own channels."""
 
     @staticmethod
     def forward(ctx, x):
@@ -116,9 +122,10 @@ class _BatchStats(torch.autograd.Function):
         msq = (xf * xf).mean((0, 2, 3))
         if parallel.is_initialized():
             # every process steps on as many samples (the JAX mesh shards
-            # the batch evenly): its share is 1 / world_size
-            both = torch.cat([mean, msq]) * (1.0 / parallel.world_size())
-            mean, msq = parallel.all_reduce_sum_(both).chunk(2)
+            # the batch evenly): its share is 1 / the data group's size
+            g = parallel.data_group()
+            both = torch.cat([mean, msq]) * (1.0 / parallel.world_size(g))
+            mean, msq = parallel.all_reduce_sum_(both, g).chunk(2)
         z = msq - mean * mean
         ctx.save_for_backward(x, mean, z)
         return mean, torch.clamp_min(z, 0.0)
@@ -128,9 +135,10 @@ class _BatchStats(torch.autograd.Function):
         x, mean, z = ctx.saved_tensors
         n = x.numel() // x.shape[1]
         if parallel.is_initialized():
-            both = parallel.all_reduce_sum_(torch.cat([g_mean, g_var]))
+            g = parallel.data_group()
+            both = parallel.all_reduce_sum_(torch.cat([g_mean, g_var]), g)
             g_mean, g_var = both.chunk(2)
-            n = n * parallel.world_size()
+            n = n * parallel.world_size(g)
         # d max(0, z) / dz: 1 above 0, 1/2 at 0 (JAX's tie rule), 0 below
         g_z = g_var * ((z > 0).float() + 0.5 * (z == 0).float())
         g_m = g_mean - 2.0 * mean * g_z
@@ -277,6 +285,11 @@ class BatchNorm(_KeptConstant, nn.BatchNorm2d):
         return mean, torch.rsqrt(var + self.eps) * self.weight, self.bias
 
     def forward(self, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+        mesh = tp_mesh(self)
+        if mesh is not None:  # channel-sharded: this process's channels
+            # of the whole x (a BN of its own; BaseConv uses ``terms``)
+            x = channel_slice(x, mesh, self.weight.shape[0])
+            return gather_c(bn_eval(x, *self.terms(x), out_dtype), mesh)
         return bn_eval(x, *self.terms(x), out_dtype)
 
     def fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -419,9 +432,16 @@ class BaseConv(nn.Module):
     def weight(self) -> torch.Tensor:
         return self.conv[0].weight if self.neuron.spiking else self.conv.weight
 
+    @property
+    def mesh(self):
+        """The mesh this site's output channels are sharded over, or
+        None."""
+        return tp_mesh(self.conv[0] if self.neuron.spiking else self.conv)
+
     def fused(self, pieces: Sequence[torch.Tensor]) -> bool:
         """Does this site run as a whole-site conv+BN+PLIF kernel? Never in
-        training."""
+        training. Asked of the global site: the whole Cout of a
+        channel-sharded site, the whole H of a row shard."""
         n = self.neuron
         if not n.spiking or self.training or self.groups != 1:
             return False
@@ -430,31 +450,74 @@ class BaseConv(nn.Module):
         if len(pieces) > 1 and self.ksize != 1:
             return False
         H, W = pieces[0].shape[-2:]
-        return should_fuse(self.ksize, self.stride, H, W,
+        sp, tp = active_spatial(), self.mesh
+        return should_fuse(self.ksize, self.stride,
+                           H * (sp.tp if sp is not None else 1), W,
                            [p.shape[1] for p in pieces],
-                           self.weight.shape[0], n.fuse)
+                           self.weight.shape[0] * (tp.tp if tp else 1), n.fuse)
 
     def forward(self, x: Pieces) -> torch.Tensor:
         pieces = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+        if active_spatial() is not None and self.training:
+            raise NotImplementedError(
+                "a spatially sharded forward runs at eval only: the train "
+                "step over row shards is not ported")
+        mesh = self.mesh
+        groups = self.groups
+        if mesh is not None and groups != 1:
+            # depthwise: this process's output channels read its input
+            # channels
+            if groups != pieces[0].shape[1] or len(pieces) > 1:
+                raise NotImplementedError("a channel-sharded grouped conv "
+                                          "other than a depthwise one")
+            n = self.weight.shape[0]
+            pieces, groups = (channel_slice(pieces[0], mesh, n),), n
+        y = self._site(pieces, groups)
+        if mesh is None:
+            return y
+        out = gather_c(y, mesh)
+        return _mark_spikes(out) if is_spike_train(y) else out
+
+    def _site(self, pieces: Tuple[torch.Tensor, ...],
+              groups: int) -> torch.Tensor:
+        k, stride = self.ksize, self.stride
         if self.fused(pieces):
             mul, bias_f = self.bn.fold()
             n, w = self.neuron, self.act.w
             kind = self.act.kind
-            if self.ksize == 1:
-                return conv1x1_plif(pieces, fold_conv1x1(self.weight, mul),
-                                    bias_f, n.T, w, n.thresh, kind)
-            op = conv3x3_plif if self.stride == 1 else conv3x3s2_plif
-            return op(pieces[0], fold_conv3x3(self.weight, mul), bias_f, n.T,
-                      w, n.thresh, kind)
+            if k == 1:
+                w1 = fold_conv1x1(self.weight, mul)
+                sp = active_spatial()
+                why = layout_refusal(pieces, 1) if sp is not None else None
+                if why is not None:
+                    # the kernel refuses the row shard: the site runs on
+                    # the gathered map and keeps its rows
+                    warnings.warn(f"{why}; this row shard's site gathers "
+                                  "its rows and runs the kernel on the "
+                                  "whole map")
+                    rows = pieces[0].shape[-2]
+                    whole = tuple(gather_rows(p, sp) for p in pieces)
+                    return conv1x1_plif(whole, w1, bias_f, n.T, w, n.thresh,
+                                        kind).narrow(
+                        -2, sp.model_index * rows, rows).contiguous()
+                return conv1x1_plif(pieces, w1, bias_f, n.T, w, n.thresh,
+                                    kind)
+            op = conv3x3_plif if stride == 1 else conv3x3s2_plif
+            w3 = fold_conv3x3(self.weight, mul)
+            return over_rows(pieces[0], lambda t: op(
+                t, w3, bias_f, n.T, w, n.thresh, kind), k, stride)
         x = torch.cat([p.to(self.dtype) for p in pieces], 1) \
             if len(pieces) > 1 else pieces[0].to(self.dtype)
         if len(pieces) > 1 and all(map(is_spike_train, pieces)):
             _mark_spikes(x)
-        y = F.conv2d(x, self.weight.to(self.dtype), stride=self.stride,
-                     padding=(self.ksize - 1) // 2, groups=self.groups)
+        wt = self.weight.to(self.dtype)
+        y = over_rows(x, lambda t: F.conv2d(
+            t, wt, stride=stride, padding=(k - 1) // 2, groups=groups),
+            k, stride)
         if self.neuron.spiking:
             return self.act(y, bn=self.bn.terms(y))
-        return self.act(self.bn(y, self.dtype))
+        # the BN of y's channels (a slice of a channel-sharded site's)
+        return self.act(bn_eval(y, *self.bn.terms(y), self.dtype))
 
 
 class DWConv(nn.Module):
@@ -541,7 +604,16 @@ class SPPBottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv1(x)
-        return self.conv2((x, *spp_pools(x, self.kernel_sizes)))
+        sp = active_spatial()
+        if sp is None:
+            return self.conv2((x, *spp_pools(x, self.kernel_sizes)))
+        # row shards: the pools reach 6 rows (5, then 5 twice more) past
+        # shards of 2-4 rows at stride 32, so they run on the gathered
+        # map (the smallest of the model) and keep this shard's rows
+        n = x.shape[-2]
+        pools = spp_pools(gather_rows(x, sp), self.kernel_sizes)
+        return self.conv2((x, *(p.narrow(-2, sp.model_index * n, n)
+                                for p in pools)))
 
 
 class CSPLayer(nn.Module):

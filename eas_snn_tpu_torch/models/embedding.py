@@ -31,6 +31,15 @@ gather of the module's own), so the route trains; the scan's arithmetic
 is the plain route's, its convs summed in another order. It comes first,
 as in ``eas_snn_tpu/models/embedding.py:329-344``.
 
+On a 2-D mesh (``parallel/mesh.py``) a channel-sharded stack gathers its
+weights where it uses them, and every route computes the whole stack on
+every process, as the sampler's kernel takes whole weights. Inside a
+spatial sharding each conv stack runs on its row shard grown by the
+stack's reach (depth x k // 2 rows; depth rows of blocks packed), and the
+whole-scan kernel refreshes the halo rows of its spikes between its
+micro-steps (``ops/arsnn_fused.py:arsnn_fused_v2_rows``): the gate stack
+reads the neighbours' spikes of the step before.
+
 ``fused_sampler`` (the JAX ``use_pallas``) routes the eval forward through
 the fused sampler kernels (``ops/arsnn_fused.py``), as
 ``eas_snn_tpu/models/embedding.py:345-369`` does: the whole-scan kernel
@@ -52,11 +61,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.arsnn import arsnn_scan
-from ..ops.arsnn_fused import arsnn_fused_v2, arsnn_scan_fused, v2_supported
+from ..ops.arsnn_fused import (arsnn_fused_v2, arsnn_fused_v2_rows,
+                               arsnn_scan_fused, v2_supported)
 from ..ops.lif import gated_lif_update, lif_scan
 from ..ops.pack import (depth_to_space, pack_bias, pack_conv_kernel,
                         packable, space_to_depth)
 from ..ops.surrogate import get_spike_fn
+from ..parallel.mesh import active_spatial, exchange_rows_, full, halo, \
+    over_rows
 
 __all__ = ["ARSNNEmbedding", "LIFEmbedding", "RSNNEmbedding",
            "SpikeCountEmbedding", "build_embedding", "fold_time",
@@ -117,11 +129,19 @@ def _init_fan_in_uniform(stack: nn.Module,
             nn.init.zeros_(m.bias)
 
 
+def _reach(stack: nn.Sequential, rows_per_layer: int) -> int:
+    """The stencil size of a whole stack for :func:`over_rows`."""
+    depth = sum(isinstance(m, nn.Conv2d) for m in stack)
+    return 2 * depth * rows_per_layer + 1
+
+
 def apply_stack(stack: nn.Sequential, dtype: Optional[torch.dtype] = None):
     """``x -> stack(x)`` computed in ``dtype`` (None: x's), the bias added
     after each conv and the result cast back to x's dtype, as the JAX
-    package's conv-stack closure computes."""
-    def apply(x: torch.Tensor) -> torch.Tensor:
+    package's conv-stack closure computes. Channel-sharded weights are
+    gathered (``parallel.mesh.full``); on a row shard the stack runs over
+    its halo (``parallel.mesh.over_rows``)."""
+    def layers(x: torch.Tensor) -> torch.Tensor:
         out_dtype = x.dtype
         cdt = dtype or out_dtype
         x = x.to(cdt)
@@ -129,11 +149,13 @@ def apply_stack(stack: nn.Sequential, dtype: Optional[torch.dtype] = None):
             if isinstance(m, nn.ReLU):
                 x = torch.relu(x)
             else:
-                x = F.conv2d(x, m.weight.to(cdt), padding=m.padding) + \
-                    m.bias.to(cdt)[None, :, None, None]
+                x = F.conv2d(x, full(m, "weight").to(cdt),
+                             padding=m.padding) + \
+                    full(m, "bias").to(cdt)[None, :, None, None]
         return x.to(out_dtype)
 
-    return apply
+    k = next(m for m in stack if isinstance(m, nn.Conv2d)).kernel_size[0]
+    return lambda x: over_rows(x, layers, _reach(stack, k // 2))
 
 
 def apply_packed_stack(stack: nn.Sequential, block: int,
@@ -142,10 +164,11 @@ def apply_packed_stack(stack: nn.Sequential, block: int,
     conv a 3 x 3 conv (pad 1) of its packed weights over ``block`` x
     ``block`` packed inputs (JAX ``_packed_conv_apply``). The weights are
     packed once, when the closure is made."""
-    packed = [(pack_conv_kernel(m.weight, block), pack_bias(m.bias, block))
+    packed = [(pack_conv_kernel(full(m, "weight"), block),
+               pack_bias(full(m, "bias"), block))
               if isinstance(m, nn.Conv2d) else None for m in stack]
 
-    def apply(x: torch.Tensor) -> torch.Tensor:
+    def layers(x: torch.Tensor) -> torch.Tensor:
         out_dtype = x.dtype
         cdt = dtype or out_dtype
         x = x.to(cdt)
@@ -157,7 +180,7 @@ def apply_packed_stack(stack: nn.Sequential, block: int,
                     wb[1].to(cdt)[None, :, None, None]
         return x.to(out_dtype)
 
-    return apply
+    return lambda x: over_rows(x, layers, _reach(stack, 1))
 
 
 class _TimeDistributed(nn.Module):
@@ -317,7 +340,8 @@ class ARSNNEmbedding(nn.Module):
     def stack_weights(self):
         """[(weight, bias), ...] of the input and of the gate conv stack,
         one pair a layer: what the whole-scan kernel takes."""
-        return [[(m.weight, m.bias) for m in stack if isinstance(m, nn.Conv2d)]
+        return [[(full(m, "weight"), full(m, "bias")) for m in stack
+                 if isinstance(m, nn.Conv2d)]
                 for stack in (self.input_conv, self.gate_conv)]
 
     def scan_kwargs(self) -> dict:
@@ -360,7 +384,16 @@ class ARSNNEmbedding(nn.Module):
                                   self.gate_conv[0].in_channels).to(in_dtype)
         convs = (apply_stack(self.input_conv, self.dtype),
                  apply_stack(self.gate_conv, self.dtype))
-        if route == "v2":
+        sp = active_spatial()
+        if route == "v2" and sp is not None:
+            r = self.depth * (self.ksize // 2)
+            ext, t, b = halo(ev, r, r, sp)
+            agg = arsnn_fused_v2_rows(
+                ext.contiguous(), *self.stack_weights(),
+                exchange=lambda spikes: exchange_rows_(spikes, r, sp),
+                chunk_rows=ev.shape[-2] + 2 * r, **kw)
+            agg = agg[..., t:agg.shape[-2] - b, :]
+        elif route == "v2":
             agg = arsnn_fused_v2(ev.contiguous(), *self.stack_weights(), **kw)
         elif route == "v1":
             agg = arsnn_scan_fused(ev, *convs, **kw)

@@ -19,6 +19,12 @@ the L1 loss), the grid and the stride of every anchor.
 
 With ``depthwise`` the towers' 3x3 convs are depthwise-separable
 (YOLOX-Nano; JAX ``models/head.py:65``).
+
+On a 2-D mesh (``parallel/mesh.py``) a channel-sharded ``*_pred`` conv
+computes its slice of the channels and gathers them; on row shards each
+level's outputs are gathered along H before they are flattened, so the
+anchors keep the unsharded order and the decode runs on the whole grid
+(no row offset left to apply).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import gather_c, gather_rows, tp_mesh
 from .blocks import BaseConv, DWConv, Neuron
 from .pafpn import rate_decode
 
@@ -89,7 +96,9 @@ class YOLOXHead(nn.Module):
         # conv in the compute dtype, bias added in it, then f32 (flax Conv);
         # a spiking head's predictions are rate-decoded
         y = F.conv2d(x.to(self.dtype), conv.weight.to(self.dtype))
-        y = (y + conv.bias.to(self.dtype)[None, :, None, None]).float()
+        y = y + conv.bias.to(self.dtype)[None, :, None, None]
+        mesh = tp_mesh(conv)
+        y = (gather_c(y, mesh) if mesh is not None else y).float()
         return rate_decode(y, self.T) if self.neuron.spiking else y
 
     def forward(self, xin: Sequence[torch.Tensor]):
@@ -102,8 +111,8 @@ class YOLOXHead(nn.Module):
             reg_feat = self.reg_convs[k](x)
             reg_out = self._pred(self.reg_preds[k], reg_feat)
             obj_out = self._pred(self.obj_preds[k], reg_feat)
-            B, _, H, W = reg_out.shape
-            out = torch.cat([reg_out, obj_out, cls_out], 1)
+            out = gather_rows(torch.cat([reg_out, obj_out, cls_out], 1))
+            B, _, H, W = out.shape
             out = out.reshape(B, out.shape[1], H * W).permute(0, 2, 1)
             yv, xv = torch.meshgrid(
                 torch.arange(H, dtype=torch.float32, device=x.device),

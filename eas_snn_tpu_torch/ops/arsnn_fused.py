@@ -40,7 +40,8 @@ import torch
 from . import _build
 
 __all__ = ["fused_step", "fused_step_plain", "arsnn_scan_fused",
-           "arsnn_fused_v2", "arsnn_fused_v2_plain", "v2_supported",
+           "arsnn_fused_v2", "arsnn_fused_v2_plain", "arsnn_fused_v2_rows",
+           "v2_supported",
            "arsnn_step_cpu", "arsnn_step_cuda", "arsnn_v2_cpu",
            "arsnn_v2_cuda",
            "sigmoid", "fma_f32", "READOUTS"]
@@ -358,20 +359,23 @@ def arsnn_fused_v2_plain(events: torch.Tensor, input_weights: Weights,
                          gate_weights: Weights, *, Ts: int, thresh: float,
                          vreset: Optional[float], readout: str = "sum",
                          spike_attach: bool = False, write_zero: bool = False,
-                         use_abs: bool = False) -> torch.Tensor:
+                         use_abs: bool = False, exchange=None,
+                         chunk_rows: Optional[int] = None) -> torch.Tensor:
     """Plain version of the whole-scan kernel, all in f32: (Tm, N, Cin, H,
     W) events (any float dtype, widened) -> (Ts, N, C, H, W) f32. The
     batch elements are independent, so it scans chunks of them one after
     the other (the f64 temporaries of :func:`fma_f32` stay below
-    PLAIN_CHUNK_ELEMS elements each)."""
+    PLAIN_CHUNK_ELEMS elements each, for ``chunk_rows`` rows: H by
+    default). ``exchange`` (a row shard's, ``arsnn_fused_v2_rows``) is
+    called on the spikes after every micro-step."""
     _check_readout(readout)
     del spike_attach  # the spike is exactly 1 wherever a slot is written
     ev = events.float()
     N, H, W = ev.shape[1], ev.shape[3], ev.shape[4]
     co = max(w.shape[0] for w, _ in list(input_weights) + list(gate_weights))
-    step = max(1, PLAIN_CHUNK_ELEMS // (co * H * W))
+    step = max(1, PLAIN_CHUNK_ELEMS // (co * (chunk_rows or H) * W))
     kw = dict(Ts=Ts, thresh=thresh, vreset=vreset, readout=readout,
-              write_zero=write_zero, use_abs=use_abs)
+              write_zero=write_zero, use_abs=use_abs, exchange=exchange)
     return torch.cat([_scan_plain(ev[:, n:n + step], input_weights,
                                   gate_weights, **kw)
                       for n in range(0, N, step)], dim=1)
@@ -380,7 +384,7 @@ def arsnn_fused_v2_plain(events: torch.Tensor, input_weights: Weights,
 def _scan_plain(ev: torch.Tensor, input_weights: Weights,
                 gate_weights: Weights, *, Ts: int, thresh: float,
                 vreset: Optional[float], readout: str, write_zero: bool,
-                use_abs: bool) -> torch.Tensor:
+                use_abs: bool, exchange=None) -> torch.Tensor:
     Tm, N, _, H, W = ev.shape
     C = input_weights[-1][0].shape[0] // 2
     f32 = dict(dtype=torch.float32, device=ev.device)
@@ -397,6 +401,8 @@ def _scan_plain(ev: torch.Tensor, input_weights: Weights,
             t, inp[:, :C], rec[:, :C], inp[:, C:], rec[:, C:], vmem, vavg,
             seg, tlast, agg, Ts=Ts, thresh=thresh, vreset=vreset,
             readout=readout)
+        if exchange is not None:
+            exchange(spike)
     return _residual(agg, vmem, vavg, spike, seg, tlast, Tm, Ts, readout,
                      write_zero, use_abs)
 
@@ -449,6 +455,35 @@ def arsnn_fused_v2(events: torch.Tensor, input_weights: Weights,
         bool(use_abs))
 
 
+def arsnn_fused_v2_rows(events: torch.Tensor, input_weights: Weights,
+                        gate_weights: Weights, *, exchange, chunk_rows: int,
+                        Ts: int, thresh: float, vreset: Optional[float],
+                        readout: str = "sum", spike_attach: bool = False,
+                        write_zero: bool = False, use_abs: bool = False
+                        ) -> torch.Tensor:
+    """:func:`arsnn_fused_v2` on a row shard grown by its halo: after each
+    micro-step ``exchange`` refreshes the halo rows of the step's spikes
+    (the state the next step's gate stencil reads) from the neighbouring
+    shards. The kernel on CUDA events (Tm launches, counted in
+    ``arsnn_fused_v2.launches``), the plain version on CPU ones
+    (``chunk_rows``: the rows every shard chunks its batch for, so that
+    all shards call ``exchange`` alike). Not a registered op: the
+    exchange is a collective."""
+    _check_v2(events, input_weights, gate_weights, Ts, readout)
+    del spike_attach
+    flat = [p for w, b in list(input_weights) + list(gate_weights)
+            for p in (w, b)]
+    args = (events, flat, len(input_weights), int(Ts), float(thresh),
+            None if vreset is None else float(vreset), readout,
+            bool(write_zero), bool(use_abs))
+    if events.device.type == "cpu":
+        return arsnn_v2_cpu(*args, exchange=exchange, chunk_rows=chunk_rows)
+    if events.dtype not in _DTYPE_CODE:
+        raise ValueError(f"arsnn_fused_v2: events must be f32 or bf16, got "
+                         f"{events.dtype}")
+    return arsnn_v2_cuda(*args, exchange=exchange)
+
+
 def _pairs(weights: Sequence[torch.Tensor], depth: int):
     """The op's flat weight list -> (input stack, gate stack) of
     (weight, bias) pairs."""
@@ -458,18 +493,22 @@ def _pairs(weights: Sequence[torch.Tensor], depth: int):
 
 def arsnn_v2_cpu(events, weights, depth: int, Ts: int, thresh: float,
                  vreset: Optional[float], readout: str, write_zero: bool,
-                 use_abs: bool) -> torch.Tensor:
+                 use_abs: bool, exchange=None,
+                 chunk_rows: Optional[int] = None) -> torch.Tensor:
     """The CPU implementation of ``eas_snn::arsnn_v2``: the plain scan."""
     return arsnn_fused_v2_plain(
         events, *_pairs(weights, depth), Ts=Ts, thresh=thresh, vreset=vreset,
-        readout=readout, write_zero=write_zero, use_abs=use_abs)
+        readout=readout, write_zero=write_zero, use_abs=use_abs,
+        exchange=exchange, chunk_rows=chunk_rows)
 
 
 def arsnn_v2_cuda(events, weights, depth: int, Ts: int, thresh: float,
                   vreset: Optional[float], readout: str, write_zero: bool,
-                  use_abs: bool) -> torch.Tensor:
+                  use_abs: bool, exchange=None) -> torch.Tensor:
     """The device implementation of ``eas_snn::arsnn_v2``: Tm launches of
-    ``csrc/arsnn_v2.cu``, counted in ``arsnn_fused_v2.launches``."""
+    ``csrc/arsnn_v2.cu``, counted in ``arsnn_fused_v2.launches``;
+    ``exchange`` (``arsnn_fused_v2_rows``) gets each step's spikes after
+    its launch."""
     _build.require_cuda(events, "arsnn_fused_v2")
     input_weights, gate_weights = _pairs(weights, depth)
     ksize = input_weights[0][0].shape[-1]
@@ -503,6 +542,8 @@ def arsnn_v2_cuda(events, weights, depth: int, Ts: int, thresh: float,
             int(write_zero), int(use_abs), _DTYPE_CODE[events.dtype], stream)
         _build.check(err, "arsnn_v2_step")
         arsnn_fused_v2.launches += 1
+        if exchange is not None:
+            exchange(spikes[(t + 1) % 2])
     return out
 
 

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +59,7 @@ __all__ = [
     "conv3x3s2_plif",
     "ConvPlan",
     "conv_plan",
+    "layout_refusal",
     "wgmma_smem_bytes",
 ]
 
@@ -256,18 +257,41 @@ def conv_plan(ksize: int, cins: Tuple[int, ...], cout: int, B: int, H: int,
     return ConvPlan(width, chunk, n_chunks, k_pad, smem, n_tiles, grid_x)
 
 
-def _check_layout(xs: Sequence[torch.Tensor], row: int, copy: int,
-                  what: str) -> None:
-    """Raise unless the kernel's whole aligned copies cover every piece:
-    C_j % 8 == 0, ``row`` elements a whole number of ``copy`` bytes, each
-    piece 16-byte aligned."""
+def _layout_refusal(xs: Sequence[torch.Tensor], row: int, copy: int,
+                    what: str) -> Optional[str]:
+    """Why the kernel's whole aligned copies do not cover every piece (C_j
+    % 8 == 0, ``row`` elements a whole number of ``copy`` bytes, each
+    piece 16-byte aligned), or None."""
     for p in xs:
         if p.shape[1] % 8 or (row * p.element_size()) % copy or \
                 p.data_ptr() % 16:
-            raise ValueError(
-                f"{what}: the kernel needs channels in 8s, rows of whole "
-                f"{copy}-byte copies and 16-byte aligned inputs; got "
-                f"{tuple(p.shape)} {p.dtype} at offset {p.data_ptr() % 16}")
+            return (f"{what}: the kernel needs channels in 8s, rows of whole "
+                    f"{copy}-byte copies and 16-byte aligned inputs; got "
+                    f"{tuple(p.shape)} {p.dtype} at offset "
+                    f"{p.data_ptr() % 16}")
+    return None
+
+
+def _check_layout(xs: Sequence[torch.Tensor], row: int, copy: int,
+                  what: str) -> None:
+    """Raise where :func:`_layout_refusal` gives a reason."""
+    why = _layout_refusal(xs, row, copy, what)
+    if why is not None:
+        raise ValueError(why)
+
+
+def layout_refusal(xs: Sequence[torch.Tensor], ksize: int,
+                   stride: int = 1) -> Optional[str]:
+    """Why the kernel of a ``ksize`` site would refuse the layout of the
+    CUDA pieces ``xs`` (None where it takes them, and on the CPU, where
+    the plain version takes any layout)."""
+    if not xs[0].is_cuda:
+        return None
+    H, W = xs[0].shape[-2:]
+    if ksize == 1:
+        return _layout_refusal(xs, H * W, 16, "conv1x1_plif")
+    name = "conv3x3_plif" if stride == 1 else "conv3x3s2_plif"
+    return _layout_refusal(xs, W, 4, name)
 
 
 def _operands(w: torch.Tensor, bias: torch.Tensor, w_plif: torch.Tensor,

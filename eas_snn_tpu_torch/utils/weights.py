@@ -96,13 +96,25 @@ def _module_tokens(path: Tuple[str, ...], n5: int = -1) -> list:
     return out
 
 
-def state_dict_from_jax(variables: Mapping[str, Any]
+def state_dict_from_jax(variables: Mapping[str, Any], model=None
                         ) -> Dict[str, torch.Tensor]:
     """The JAX package's EASYOLOX variables (``{"params", "batch_stats"}``
     of numpy arrays), or those of its YOLOv3 (YOLOFPN over Darknet), as
     the port's state dict. Conv kernels go HWIO -> OIHW (a depthwise
     kernel (k, k, 1, C) to (C, 1, k, k)); every BN gains
-    ``num_batches_tracked`` = 0."""
+    ``num_batches_tracked`` = 0. With a channel-sharded ``model``
+    (``parallel.mesh.channel_shard_params``) the state dict holds this
+    process's slices, by the same rule, ready for its
+    ``load_state_dict``."""
+    sd = _state_dict_from_jax(variables)
+    if model is None:
+        return sd
+    from ..parallel.mesh import shard_state
+    return shard_state(model, sd)
+
+
+def _state_dict_from_jax(variables: Mapping[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
     params = variables["params"]
     n5 = -1  # dark5's ResLayers where the tree holds a Darknet
     for path, _ in _leaves(params):

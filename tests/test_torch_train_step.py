@@ -104,6 +104,18 @@ def _grad_noise(name: str, g: torch.Tensor) -> float:
     return (1e-3 if name.endswith("act.w") else 1e-4) * float(g.abs().max())
 
 
+def _grads_f64(pm, ev, lab):
+    """The gradients of the port's loss at ``pm``'s parameters and BN
+    statistics, computed in float64 (a float64 copy of the model, its
+    sites computing in f64), by name."""
+    m64 = EASYOLOX(use_spike="backbone", compute_dtype=torch.float64,
+                   **SMALL)
+    m64.load_state_dict(pm.state_dict(), strict=True)
+    m64 = m64.double().train()
+    m64(ev.double(), lab.double())["total_loss"].backward()
+    return {n: p.grad for n, p in m64.named_parameters()}
+
+
 def test_train_steps_match_jax(jax_two_steps):
     """One and then two train steps, port vs JAX. The spikes of the two
     sides agree (the f32 preactivations differ by summation order only, and
@@ -112,9 +124,17 @@ def test_train_steps_match_jax(jax_two_steps):
 
     * loss terms 1e-5 relative;
     * every gradient 1e-4 of the largest magnitude of its tensor (backward
-      sums over ~1e5 terms), a PLIF decay's scalar gradient 1e-3 relative
-      (a sum over all of its site's elements that cancels to ~1e-2 of
-      their magnitude);
+      sums over ~1e5 terms); a PLIF decay's scalar gradient, a sum over
+      all of its site's elements that cancels to ~1e-2 of their
+      magnitude, is held in float64: the JAX package's and the port's
+      f32 values each within 1e-3 relative of the port's float64
+      gradient at the same parameters. In f32 that sum swings by ~1e-3
+      on either side (dark2.1.conv3's at step 2 on an AMD EPYC host:
+      port f32 0.0816725, JAX jitted 0.0815798 and op by op 0.0815452,
+      port f64 0.0816089), so the two f32 values cannot be held to each
+      other at 1e-3 on every host. The JAX event model computes in f32
+      at fixed sites and its SimOTA does not trace under x64, so the
+      float64 side is the port's;
     * BN running statistics 1e-5;
     * parameters and EMA after each step 2e-6 absolute, except where a
       gradient lies within 10x its tolerance of zero: Adam's update there,
@@ -142,6 +162,7 @@ def test_train_steps_match_jax(jax_two_steps):
              for n, p in pm.named_parameters()}
 
     for i, want in enumerate(r["steps"]):
+        g64 = _grads_f64(pm, ev, lab)
         got = train_step(pm, opt, ema, ev, lab, to_host=True)
         for k, x in want["metrics"].items():
             np.testing.assert_allclose(got[k], x, rtol=1e-5, atol=1e-6,
@@ -155,7 +176,15 @@ def test_train_steps_match_jax(jax_two_steps):
             g = want["grads"][name]
             assert p.grad is not None, name
             tol = _grad_noise(name, g)
-            _close(p.grad, g, 0, tol + 1e-12, f"step {i + 1} grad {name}")
+            if name.endswith("act.w"):  # held in float64
+                truth = g64[name].float()
+                for side, v in (("port", p.grad), ("JAX", g)):
+                    _close(v, truth, 0, _grad_noise(name, truth) + 1e-12,
+                           f"step {i + 1} {side} f32 grad {name} vs the "
+                           "port's f64")
+            else:
+                _close(p.grad, g, 0, tol + 1e-12,
+                       f"step {i + 1} grad {name}")
             noisy[name] |= g.abs() < 10 * tol
         assert float(pm.backbone.backbone.dark2[0].act.w.grad) != 0
         assert float(pm.embedding.input_conv[0].weight.grad.abs().max()) > 0
