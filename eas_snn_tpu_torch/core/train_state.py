@@ -27,9 +27,13 @@ On a 2-D mesh (``parallel/mesh.py``) the batch's sums go over the data
 group; each process of a model group back-propagates a ``tp``-th of the
 loss they share (``mesh.loss_scale``), so a replicated parameter's
 gradient is summed over the whole world and a channel-sharded one's over
-the data group only. Gloo cannot be captured in a CUDA graph:
-``CapturedStep`` refuses a gloo group on the card, whose step runs
-eagerly (``train_step``).
+the data group only. Inside a spatial sharding (``mesh.spatial_sharding``
+as a context around ``train_step``) the step runs on this process's
+rows: no parameter is sharded, each process's gradient is the share of
+its rows and is summed over the whole mesh, and the loss terms, which
+the model group holds whole, over the data group. Gloo cannot be
+captured in a CUDA graph: ``CapturedStep`` refuses a gloo group on the
+card and a spatial sharding, whose step runs eagerly (``train_step``).
 """
 
 from __future__ import annotations
@@ -112,8 +116,11 @@ _SUMMED_LOSSES = ("total_loss", "iou_loss", "conf_loss", "cls_loss",
 
 def _sum_flat(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
     """The tensors summed over ``group`` in one all-reduce of one flat f32
-    buffer; the sums, in order."""
-    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    buffer (f64 where one of them is: a float64 model's gradients); the
+    sums, in order."""
+    acc = torch.float64 if any(t.dtype == torch.float64 for t in tensors) \
+        else torch.float32
+    flat = torch.cat([t.reshape(-1).to(acc) for t in tensors])
     return list(parallel.all_reduce_sum_(flat, group).split(
         [t.numel() for t in tensors]))
 
@@ -128,7 +135,9 @@ def reduce_gradients(model: nn.Module, losses: Dict[str, torch.Tensor]
     is. On a channel-sharded 2-D mesh the loss terms and the sharded
     parameters' gradients are summed over the data group, and the
     replicated parameters' (each process's a share, ``mesh.loss_scale``)
-    over the world: two all-reduces."""
+    over the world: two all-reduces. On row shards (a spatial sharding
+    active) every gradient is a share, summed over the whole mesh, and
+    the loss terms over the data group: two all-reduces."""
     if not parallel.is_initialized():
         return losses
     names = [k for k in losses if k in _SUMMED_LOSSES]
@@ -142,7 +151,13 @@ def reduce_gradients(model: nn.Module, losses: Dict[str, torch.Tensor]
         *sums, summed = _sum_flat(shard + [terms], mesh.data_group)
         sums += _sum_flat(repl, None) if repl else []
     else:
-        *sums, summed = _sum_flat(repl + [terms], parallel.data_group())
+        group, _ = pmesh.batch_group()
+        data = pmesh.data_group()
+        if group is data:
+            *sums, summed = _sum_flat(repl + [terms], data)
+        else:  # row shards: the loss terms are the model group's, whole
+            sums = _sum_flat(repl, group) if repl else []
+            (summed,) = _sum_flat([terms], data)
     with torch.no_grad():
         for g, v in zip(shard + repl, sums):
             g.copy_(v.view_as(g))
@@ -174,7 +189,8 @@ def broadcast_state(model: nn.Module,
 def loss_backward(model: nn.Module, losses: Dict[str, torch.Tensor]
                   ) -> None:
     """The backward of a train forward's total loss: of this process's
-    share of it where ``model`` is channel-sharded (``mesh.loss_scale``)."""
+    share of it where ``model`` is channel-sharded or runs on row shards
+    (``mesh.loss_scale``)."""
     scale = pmesh.loss_scale(model)
     loss = losses["total_loss"]
     (loss * scale if scale != 1.0 else loss).backward()
@@ -194,6 +210,15 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                                       for k, v in losses.items()})
     optimizer_update(model, optimizer, ema)
     return {k: float(v) for k, v in losses.items()} if to_host else losses
+
+
+def _refuse_spatial() -> None:
+    if pmesh.active_spatial() is not None:
+        raise NotImplementedError(
+            "CapturedStep: a spatially sharded step is not captured (its "
+            "halo exchanges and sums run over gloo on one card, which a "
+            "CUDA graph cannot capture); run train_step eagerly inside the "
+            "spatial sharding")
 
 
 class _Graph:
@@ -259,6 +284,7 @@ class CapturedStep:
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  ema: Optional[Dict[str, torch.Tensor]]):
+        _refuse_spatial()
         if getattr(model, "draws_random_numbers", False):
             raise NotImplementedError(
                 "CapturedStep: patan at asgl_p > 0 draws a fresh Bernoulli "
@@ -301,6 +327,7 @@ class CapturedStep:
     def __call__(self, events: torch.Tensor, targets: torch.Tensor,
                  use_l1: bool = False) -> Dict[str, torch.Tensor]:
         """One step; the loss dict as device tensors of this step."""
+        _refuse_spatial()
         key = (tuple(events.shape), tuple(targets.shape), events.dtype,
                targets.dtype, bool(use_l1))
         g = self._graphs.get(key)

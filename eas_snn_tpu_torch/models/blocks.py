@@ -24,15 +24,17 @@ from torch.utils.checkpoint import checkpoint
 from torch.utils.weak import WeakTensorKeyDictionary
 
 from .. import parallel
-from ..parallel.mesh import (active_spatial, channel_slice, gather_c,
-                             gather_rows, over_rows, tp_mesh)
+from ..parallel.mesh import (active_spatial, batch_group, channel_slice,
+                             gather_c, gather_rows, over_rows,
+                             spatial_context, tp_mesh)
 from ..ops.conv_plif import (
     conv1x1_plif, conv3x3_plif, conv3x3s2_plif, fold_bn, fold_conv1x1,
     fold_conv3x3, layout_refusal,
 )
 from ..ops.conv_plif_policy import should_fuse
 from ..ops.lif import PLIF_W_INIT, plif_scan
-from ..ops.plif import bn_eval, decay_multiplier, plif_forward, plif_train
+from ..ops.plif import (acc_dtype, bn_eval, decay_multiplier, plif_forward,
+                        plif_train)
 from ..ops.surrogate import asgl_spike
 
 __all__ = [
@@ -99,10 +101,10 @@ class _KeptConstant:
 
 
 class _BatchStats(torch.autograd.Function):
-    """Per-channel mean and biased variance of an NCHW x in f32, flax's fast
-    variance: var = max(0, E[x^2] - E[x]^2). The backward recomputes from
-    x, which is saved in its own dtype (an f32 copy of every conv output
-    would cost ~5 GB at the flagship's B=64).
+    """Per-channel mean and biased variance of an NCHW x in f32 (f64 for an
+    f64 x), flax's fast variance: var = max(0, E[x^2] - E[x]^2). The
+    backward recomputes from x, which is saved in its own dtype (an f32
+    copy of every conv output would cost ~5 GB at the flagship's B=64).
 
     With a process group (``parallel``) the statistics are the global
     batch's, as under the JAX package's data-parallel jit: each process
@@ -111,21 +113,27 @@ class _BatchStats(torch.autograd.Function):
     gradients over the group the same way before it forms dx with the
     global count. The share of a group of one is 1.0, so such a group
     gives the bits of no group. Under a 2-D mesh the sums go over the
-    data group only (``parallel.data_group``): the model group's processes
-    hold the same samples, and a channel-sharded site's statistics are
-    those of its own channels."""
+    data group only: the model group's processes hold the same samples,
+    and a channel-sharded site's statistics are those of its own
+    channels. On row shards (a spatial sharding active when the forward
+    runs) they go over the whole mesh: each process holds H / tp rows of
+    B / dp samples, so its share is 1 / (dp x tp) (``mesh.batch_group``).
+    The forward's group is kept for the backward, which may run outside
+    the sharding's context."""
 
     @staticmethod
     def forward(ctx, x):
-        xf = x.float()
+        xf = x.to(acc_dtype(x.dtype))
         mean = xf.mean((0, 2, 3))
         msq = (xf * xf).mean((0, 2, 3))
+        ctx.group, ctx.procs = None, 1
         if parallel.is_initialized():
             # every process steps on as many samples (the JAX mesh shards
-            # the batch evenly): its share is 1 / the data group's size
-            g = parallel.data_group()
-            both = torch.cat([mean, msq]) * (1.0 / parallel.world_size(g))
-            mean, msq = parallel.all_reduce_sum_(both, g).chunk(2)
+            # the batch evenly, and H over the model axis): its share is
+            # 1 / the group's size
+            ctx.group, ctx.procs = batch_group()
+            both = torch.cat([mean, msq]) * (1.0 / ctx.procs)
+            mean, msq = parallel.all_reduce_sum_(both, ctx.group).chunk(2)
         z = msq - mean * mean
         ctx.save_for_backward(x, mean, z)
         return mean, torch.clamp_min(z, 0.0)
@@ -135,15 +143,16 @@ class _BatchStats(torch.autograd.Function):
         x, mean, z = ctx.saved_tensors
         n = x.numel() // x.shape[1]
         if parallel.is_initialized():
-            g = parallel.data_group()
-            both = parallel.all_reduce_sum_(torch.cat([g_mean, g_var]), g)
+            both = parallel.all_reduce_sum_(torch.cat([g_mean, g_var]),
+                                            ctx.group)
             g_mean, g_var = both.chunk(2)
-            n = n * parallel.world_size(g)
+            n = n * ctx.procs
         # d max(0, z) / dz: 1 above 0, 1/2 at 0 (JAX's tie rule), 0 below
         g_z = g_var * ((z > 0).float() + 0.5 * (z == 0).float())
         g_m = g_mean - 2.0 * mean * g_z
         shp = (1, -1, 1, 1)
-        dx = (g_m / n).reshape(shp) + (2.0 * g_z / n).reshape(shp) * x.float()
+        dx = (g_m / n).reshape(shp) + (2.0 * g_z / n).reshape(shp) * \
+            x.to(mean.dtype)
         return dx.to(x.dtype)
 
 
@@ -164,8 +173,16 @@ def frozen_bn_stats():
         _RECOMPUTING[0] = prev
 
 
+@contextlib.contextmanager
+def _recompute(sp):
+    with frozen_bn_stats(), spatial_context(sp):
+        yield
+
+
 def _contexts():
-    return contextlib.nullcontext(), frozen_bn_stats()
+    # the recompute sees the spatial sharding of the forward, wherever the
+    # backward runs (the halos, the gathered SPP map and head levels)
+    return contextlib.nullcontext(), _recompute(active_spatial())
 
 
 def remat(module: nn.Module, *xs: torch.Tensor) -> torch.Tensor:
@@ -179,7 +196,9 @@ def remat(module: nn.Module, *xs: torch.Tensor) -> torch.Tensor:
     draws no random numbers (patan at ``asgl_p > 0`` is the one that
     would, and its model is refused by ``CapturedStep``), and stashing
     would read the card's RNG state, which a CUDA graph capture refuses.
-    Outside training, or without autograd, the module runs as it is."""
+    On row shards the recompute runs under the forward's spatial
+    sharding. Outside training, or without autograd, the module runs as
+    it is."""
     if not (module.training and torch.is_grad_enabled()):
         return module(xs if len(xs) > 1 else xs[0])
     return checkpoint(_call, module, *xs, use_reentrant=False,
@@ -366,7 +385,7 @@ class PLIF(_KeptConstant, nn.Module):
             C = x.shape[1]
             bn = tuple(torch.full((C,), v, device=x.device)
                        for v in (0.0, 1.0, 0.0))
-        a = 1.0 - torch.sigmoid(self.w.float())
+        a = 1.0 - torch.sigmoid(self.w.to(acc_dtype(x.dtype)))
         return _mark_spikes(plif_train(x, self.T, a, *bn, self.thresh,
                                        self.spike_fn, self.alpha))
 
@@ -458,10 +477,6 @@ class BaseConv(nn.Module):
 
     def forward(self, x: Pieces) -> torch.Tensor:
         pieces = tuple(x) if isinstance(x, (tuple, list)) else (x,)
-        if active_spatial() is not None and self.training:
-            raise NotImplementedError(
-                "a spatially sharded forward runs at eval only: the train "
-                "step over row shards is not ported")
         mesh = self.mesh
         groups = self.groups
         if mesh is not None and groups != 1:
@@ -511,9 +526,11 @@ class BaseConv(nn.Module):
         if len(pieces) > 1 and all(map(is_spike_train, pieces)):
             _mark_spikes(x)
         wt = self.weight.to(self.dtype)
+        spikes = is_spike_train(x)
+        # a row shard's halo-grown spikes are spikes too (the int8 store)
         y = over_rows(x, lambda t: F.conv2d(
-            t, wt, stride=stride, padding=(k - 1) // 2, groups=groups),
-            k, stride)
+            _mark_spikes(t) if spikes else t, wt, stride=stride,
+            padding=(k - 1) // 2, groups=groups), k, stride)
         if self.neuron.spiking:
             return self.act(y, bn=self.bn.terms(y))
         # the BN of y's channels (a slice of a channel-sharded site's)

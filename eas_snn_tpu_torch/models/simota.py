@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import parallel
+from ..parallel.mesh import data_group
 from ..ops.boxes import iou_loss, pairwise_iou
 
 __all__ = ["simota_assign", "yolox_losses", "AssignResult", "LossOutput"]
@@ -196,9 +197,9 @@ def yolox_losses(outputs: torch.Tensor, origin_preds: Optional[torch.Tensor],
         # the global batch's counts: each process's loss terms are then
         # its share of the global loss (the gradients are summed)
         # (over the data group of a 2-D mesh: the model group's
-        # processes hold the same samples)
+        # processes hold the same samples, or the same images' rows)
         num_fg, num_gt = parallel.all_reduce_sum_(
-            torch.stack([num_fg, num_gt]), parallel.data_group()).unbind()
+            torch.stack([num_fg, num_gt]), data_group()).unbind()
     total_num_fg = torch.clamp_min(num_fg, 1.0)
     total_num_gt = torch.clamp_min(num_gt, 1.0)
     idx = assign.matched_gt.to(torch.int64)

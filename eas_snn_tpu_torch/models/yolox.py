@@ -49,6 +49,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.lif import PLIF_W_INIT
+from ..parallel.mesh import check_placement
 from .blocks import PLIF, BaseConv, BatchNorm, Neuron, int8_saved_spikes
 from .embedding import build_embedding
 from .head import YOLOXHead
@@ -201,6 +202,7 @@ class EASYOLOX(nn.Module):
     def forward(self, events: torch.Tensor,
                 targets: Optional[torch.Tensor] = None, use_l1: bool = False
                 ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
+        check_placement(self)  # TP and SP at once, before the sampler
         store = (int8_saved_spikes() if self.training
                  and self.train_store == "int8" and self.use_spike != "none"
                  and torch.is_grad_enabled() else contextlib.nullcontext())

@@ -13,16 +13,19 @@ Gradients flow as in the JAX scan: through the spike function's surrogate
 masks come from the detached spike, and the int8 slot counters and
 last-spike times carry none. With ``remat`` each micro-step keeps only its
 inputs for the backward, which recomputes the step's internals (the JAX
-scan's ``jax.checkpoint(step)``, ``eas_snn_tpu/ops/arsnn.py:182-188``).
+scan's ``jax.checkpoint(step)``, ``eas_snn_tpu/ops/arsnn.py:182-188``),
+under the spatial sharding its forward ran in (the gate stack's halo).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import active_spatial, spatial_context
 from .arsnn_fused import sigmoid as _sigmoid_rounded
 from .lif import gated_lif_update
 
@@ -107,12 +110,15 @@ def arsnn_scan(
         return vmem, spike, vavg, seg, t_last, agg
 
     carry = (vmem, spike, vavg, seg, t_last, agg)
+    sp = active_spatial()
     for t in range(Tm):
         xs = (g_in_all[t], c_in_all[t])
         if remat and torch.is_grad_enabled():
             # the step draws no random numbers: no RNG state to stash
             carry = checkpoint(step, t, *carry, *xs, use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False,
+                               context_fn=lambda: (contextlib.nullcontext(),
+                                                   spatial_context(sp)))
         else:
             carry = step(t, *carry, *xs)
     vmem, spike, vavg, seg, t_last, agg = carry

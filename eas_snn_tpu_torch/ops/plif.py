@@ -152,12 +152,21 @@ def plif_bwd_plan(B: int, C: int, HW: int, dtype: torch.dtype, T: int,
                    grid / resident)
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The arithmetic of the plain versions on x of ``dtype``: f32 for
+    bf16 and f32 (the kernels'), f64 for an f64 x (a float64 reference on
+    the CPU, where the f32 sums that cancel would hide a gradient)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def bn_eval(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
             bias: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
-    """Eval BatchNorm of an NCHW x: (x - mean) * mul + bias in f32, cast to
-    ``out_dtype`` (the JAX package's BN arithmetic)."""
+    """Eval BatchNorm of an NCHW x: (x - mean) * mul + bias in f32 (f64
+    for an f64 x), cast to ``out_dtype`` (the JAX package's BN
+    arithmetic)."""
     shp = (1, -1, 1, 1)
-    y = (x.float() - mean.reshape(shp)) * mul.reshape(shp) + bias.reshape(shp)
+    y = (x.to(acc_dtype(x.dtype)) - mean.reshape(shp)) * mul.reshape(shp) \
+        + bias.reshape(shp)
     return y.to(out_dtype)
 
 
@@ -289,16 +298,17 @@ def plif_train_forward_plain(x, a, mean, mul, bias, T: int,
                              thresh: float = 1.0, kind: str = "atan"
                              ) -> torch.Tensor:
     """Plain train forward: spikes of ``bn_eval(x, mean, mul, bias,
-    x.dtype)`` with an f32 membrane, in x's dtype."""
+    x.dtype)`` with an f32 membrane (f64 for an f64 x), in x's dtype."""
     ge = spike_ge(kind)
-    xs = _steps(bn_eval(x, mean, mul, bias, x.dtype), T).float()
-    a = a.float()
+    acc = acc_dtype(x.dtype)
+    xs = _steps(bn_eval(x, mean, mul, bias, x.dtype), T).to(acc)
+    a = a.to(acc)
     v = torch.zeros_like(xs[0])
     outs = []
     for t in range(T):
         v = v * a + xs[t]
         d = v - thresh
-        s = (d >= 0 if ge else d > 0).float()
+        s = (d >= 0 if ge else d > 0).to(acc)
         outs.append(s.to(x.dtype))
         v = v - thresh * s
     return torch.stack(outs).reshape(x.shape)
@@ -307,36 +317,38 @@ def plif_train_forward_plain(x, a, mean, mul, bias, T: int,
 def plif_train_backward_plain(x, g, a, mean, mul, bias, T: int,
                               thresh: float = 1.0, kind: str = "atan",
                               alpha: float = 2.0):
-    """Plain train backward: (dx, da (1,), dm, ds, db), the sums in f32."""
+    """Plain train backward: (dx, da (1,), dm, ds, db), the sums in f32
+    (f64 for an f64 x)."""
     ge = spike_ge(kind)
+    acc = acc_dtype(x.dtype)
     shp = (1, -1, 1, 1)
-    m, s, b = (p.float().reshape(shp) for p in (mean, mul, bias))
-    a = a.float()
+    m, s, b = (p.to(acc).reshape(shp) for p in (mean, mul, bias))
+    a = a.to(acc)
     xs, gs = _steps(x, T), _steps(g, T)
-    v = torch.zeros(xs.shape[1:], dtype=torch.float32, device=x.device)
+    v = torch.zeros(xs.shape[1:], dtype=acc, device=x.device)
     xms, d_pre, v_prev = [], [], []
     for t in range(T):
         v_prev.append(v)
-        xm = xs[t].float() - m
+        xm = xs[t].to(acc) - m
         xms.append(xm)
-        v = v * a + (xm * s + b).to(x.dtype).float()
+        v = v * a + (xm * s + b).to(x.dtype).to(acc)
         d = v - thresh
         d_pre.append(d)
-        v = v - thresh * (d >= 0 if ge else d > 0).float()
+        v = v - thresh * (d >= 0 if ge else d > 0).to(acc)
     dx = torch.empty_like(xs)
-    da = torch.zeros(1, dtype=torch.float32, device=x.device)
-    ds = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
+    da = torch.zeros(1, dtype=acc, device=x.device)
+    ds = torch.zeros(x.shape[1], dtype=acc, device=x.device)
     db = torch.zeros_like(ds)
     g_after = torch.zeros_like(v)
     for t in range(T - 1, -1, -1):
         fp = surrogate_deriv(kind, alpha, d_pre[t])
-        g_pre = g_after + (gs[t].float() - thresh * g_after) * fp
+        g_pre = g_after + (gs[t].to(acc) - thresh * g_after) * fp
         dx[t] = (g_pre * s).to(x.dtype)
         ds += (g_pre * xms[t]).sum((0, 2, 3))
         db += g_pre.sum((0, 2, 3))
         da += (g_pre * v_prev[t]).sum()
         g_after = g_pre * a
-    return dx.reshape(x.shape), da, -(mul.float() * db), ds, db
+    return dx.reshape(x.shape), da, -(mul.to(acc) * db), ds, db
 
 
 def _train_operands(x, a, bn, T: int, what: str):

@@ -11,7 +11,8 @@ those collectives by hand, over process groups:
   JAX's ``reshape(dp, tp)``) and makes two families of subgroups: a data
   group holds the processes of one model index, a model group those of
   one data index. The batch's reductions (BN statistics, SimOTA's counts,
-  the gradient) go over the data group (``parallel.data_group``).
+  the gradient) go over the data group (:func:`data_group`,
+  :func:`batch_group`).
 * Tensor parallelism (TP): :func:`channel_shard_params` keeps on each
   process only its slice of what JAX's rule shards over output channels.
   A sharded conv site computes its slice of the output channels and
@@ -22,13 +23,24 @@ those collectives by hand, over process groups:
   the model group its rows of the events; inside its context every k x k
   site exchanges k // 2 rows with the shard's neighbours
   (:func:`over_rows`), and the SPP pools and the head's outputs gather H.
+  TP and SP both use the model axis, and one model takes one of them
+  (:func:`check_placement`), as JAX has no placement of both.
 
 The train step under TP follows JAX's SPMD transpose: every process of a
 model group holds the same loss, each counts a ``tp``-th of it
 (:func:`loss_scale`), the all-gather's backward sums over the group and
 takes the slice, and a replicated parameter's gradient is then a share
 that the step sums over the model group as well as the data group
-(``core/train_state.py:reduce_gradients``).
+(``core/train_state.py:reduce_gradients``). The train step under SP
+follows the same rule: the loss of the gathered head outputs is the
+model group's, each process back-propagates a ``tp``-th of it, every
+parameter is replicated and its gradient is the share of this process's
+rows, summed over the whole mesh (:func:`batch_group`); a BN site's
+statistics are those of whole images, summed over the whole mesh too
+(``models/blocks.py:_BatchStats``), and the loss terms over the data
+group (:func:`data_group`). A recompute in the backward
+(``remat``) runs under the sharding of its forward
+(:func:`spatial_context`).
 
 On cards the groups speak NCCL where there are as many cards as
 processes; several processes on one card speak gloo over the card's
@@ -39,12 +51,14 @@ the groups speak gloo.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+import contextlib
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from .. import parallel
 from . import (_MESH, all_gather, all_reduce_sum_, backend,
                initialize_distributed, is_initialized, rank, world_size)
 
@@ -54,7 +68,8 @@ __all__ = [
     "make_mesh_2d", "channel_shard_params", "dp_tp_shardings",
     "spatial_sharding", "Mesh2D", "SpatialSharding", "gather_c", "halo",
     "over_rows", "gather_rows", "full", "tp_mesh", "active_spatial",
-    "loss_scale", "sharded_keys", "sharded_params",
+    "loss_scale", "sharded_keys", "sharded_params", "spatial_context",
+    "check_placement", "data_group", "batch_group",
     "gather_state", "shard_state",
     "gather_optimizer_state", "shard_optimizer_state",
 ]
@@ -240,7 +255,11 @@ def is_sharded(module: nn.Module, name: str) -> bool:
 
 def loss_scale(model: nn.Module) -> float:
     """The share of the replicated loss each process of a model group
-    back-propagates: 1 / tp where ``model`` is channel-sharded, else 1."""
+    back-propagates: 1 / tp where ``model`` is channel-sharded or a
+    spatial sharding is active, else 1."""
+    sp = active_spatial()
+    if sp is not None:
+        return 1.0 / sp.tp
     for mod in model.modules():
         m = tp_mesh(mod)
         if m is not None:
@@ -406,12 +425,59 @@ def active_spatial() -> Optional[Mesh2D]:
     return _ACTIVE_SP[0]
 
 
+@contextlib.contextmanager
+def spatial_context(mesh: Optional[Mesh2D]):
+    """``mesh`` as the active spatial sharding within (None: none), the
+    one before restored after: a recompute in the backward (``remat``'s
+    ``context_fn``) sees the sharding its forward saw, wherever the
+    backward runs."""
+    prev, _ACTIVE_SP[0] = _ACTIVE_SP[0], mesh
+    try:
+        yield
+    finally:
+        _ACTIVE_SP[0] = prev
+
+
+def data_group():
+    """The group a batch's samples split over in the running step: the
+    active spatial sharding's data group, else the mesh made last's
+    (``parallel.data_group``). The loss terms and SimOTA's counts are
+    summed over it: a model group holds the same loss."""
+    sp = active_spatial()
+    return sp.data_group if sp is not None else parallel.data_group()
+
+
+def batch_group() -> Tuple[Optional[object], int]:
+    """The group of a batch's per-process sums in the running step (BN
+    statistics, the gradients' shares) and its number of processes: on
+    row shards the whole mesh (the world, dp x tp: each process holds H /
+    tp rows of B / dp samples), else :func:`data_group`."""
+    sp = active_spatial()
+    if sp is not None:
+        return None, sp.dp * sp.tp
+    g = data_group()
+    return g, world_size(g)
+
+
+def check_placement(module: nn.Module) -> None:
+    """Raise where a spatial sharding is active and a tensor of ``module``
+    (or of a module inside it) is channel-sharded: TP and SP both split
+    over the model axis, and the JAX package has no placement of both."""
+    if active_spatial() is not None and any(
+            tp_mesh(m) is not None for m in module.modules()):
+        raise NotImplementedError(
+            "channel sharding (TP) and a spatial sharding (SP) at once: "
+            "both use the mesh's model axis; use one of them")
+
+
 class SpatialSharding:
     """(B, ..., H, ...) event tensors with the batch over "data" and the
     image H axis (``h_axis``) over "model". Called on a whole tensor it
     returns this process's share; as a context manager it makes the
     forward inside it run on row shards (``over_rows`` at every k x k
-    site, the SPP pools and the head's levels gathered along H). Each
+    site, the SPP pools and the head's levels gathered along H), and a
+    train step inside it the step of the whole images (its backward
+    through the halos, its sums over the whole mesh). Each
     shard must hold whole rows at the model's coarsest stride
     (``multiple``, 32 for YOLOX), so H must divide by tp * 32."""
 
